@@ -1,0 +1,23 @@
+"""flac_tpu_torch — the flac_tpu batched FLAC encoder in PyTorch and CUDA.
+
+A second package beside the JAX reference (`flac_tpu`): the same batched
+encoder (presets -0..-8, mono to 8 channels, 8-24 bit) as plain PyTorch
+tensor code on an explicit device, with the bit-pack deposit of the
+quad layout as a hand-written CUDA kernel (`csrc/pack_fields64.cu`).
+
+Entry points run on the GPU unless the caller passes `device="cpu"`; they
+raise when asked for a GPU that is not there.
+"""
+
+import torch
+
+# The autocorrelation product must stay full float32 (TF32 keeps ~3 decimal
+# digits, far too few for the LPC analysis): pin both switches explicitly.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .config import EncoderConfig            # noqa: E402
+from .encoder import StreamEncoder, encode_file_to_flac  # noqa: E402
+
+__all__ = ["EncoderConfig", "StreamEncoder", "encode_file_to_flac"]
+__version__ = "0.1.0"

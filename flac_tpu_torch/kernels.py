@@ -1,0 +1,68 @@
+"""Build and load the package's CUDA sources (`csrc/*.cu`) at first use.
+
+A source is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
+with a plain C interface, loaded with ctypes.  Libraries go to
+`flac_tpu_torch/build/` (listed in .gitignore), named by a hash of the
+source and the flags, so an edited source is rebuilt and an unchanged one
+is reused within a checkout.  Nothing is imported or built when the
+package is imported: the CPU paths never need `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# name -> (loaded library, nvcc's report or "cached") in this process
+LOADED: dict = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("flac_tpu_torch: nvcc not found; the CUDA kernels "
+                           "are built from csrc/ at first use")
+    return found
+
+
+def load(name: str) -> tuple[ctypes.CDLL, str]:
+    """The loaded library of `csrc/<name>.cu`, built on first use, and
+    nvcc's report (register counts, spills; "cached" if the library was
+    built before).  Raises with the compiler's output if the build fails."""
+    if name not in LOADED:
+        src = SRC_DIR / f"{name}.cu"
+        digest = hashlib.sha1(src.read_bytes()
+                              + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        lib = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+        report = "cached"
+        if not lib.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            out = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                                  str(src)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            if out.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n"
+                                   f"{out.stdout}")
+            os.replace(tmp, lib)      # atomic: concurrent builds agree
+            report = out.stdout
+        LOADED[name] = (ctypes.CDLL(str(lib)), report)
+    return LOADED[name]
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")

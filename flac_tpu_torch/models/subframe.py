@@ -1,0 +1,296 @@
+"""Subframe model search: order-guessed candidate grid, one stacked pass.
+
+Port of flac_tpu/models/subframe.py.  Every candidate — CONSTANT,
+VERBATIM, FIXED orders 0-4, and one guessed (order, coeffs) per
+apodization (every order with -e, every precision with -p) — lands on one
+stacked candidate axis; residuals and *exact* partitioned-Rice costs are
+computed for all of them at once, and one argmin (first index wins ties)
+picks the winner.  The reference evaluates one model at a time
+(process_subframe_, stream_encoder.c:4045-4290).
+
+CH indexes the channel *candidates* (left, right, mid, side for stereo),
+not the final stream channels; the stereo assignment picks among them
+afterwards (models/stereo.py).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import format as fmt
+from ..config import EncoderConfig
+from ..ops import fixed as fixed_ops
+from ..ops import lpc as lpc_ops
+from ..ops import rice as rice_ops
+
+BIG = rice_ops.BIG
+
+
+class SubframeChoice(NamedTuple):
+    """Realized best subframe per (frame, channel-candidate)."""
+    bits: torch.Tensor        # [B, CH] int32 total subframe bits
+    type_: torch.Tensor       # [B, CH] int32 (fmt.SUBFRAME_TYPE_*)
+    order: torch.Tensor       # [B, CH] int32 predictor order (0 const/verb)
+    wasted: torch.Tensor      # [B, CH] int32
+    bps_eff: torch.Tensor     # [B, CH] int32 subframe bps after wasted shift
+    qcoeffs: torch.Tensor     # [B, CH, 32] int32 (LPC only)
+    shift: torch.Tensor       # [B, CH] int32 quantization shift
+    precision: torch.Tensor   # [B, CH] int32 qlp precision (LPC only)
+    warmup: torch.Tensor      # [B, CH, 32] int32 post-shift signal head
+    residual: torch.Tensor    # [B, CH, N] int32 (zero at n < order)
+    po: torch.Tensor          # [B, CH] int32 partition order
+    params: torch.Tensor      # [B, CH, P] int32 Rice parameter per partition
+    use_rice2: torch.Tensor   # [B, CH] bool — 5-bit parameter method
+
+
+def _max_po_limit(order, N: int, max_po: int):
+    """Highest partition order with (N>>po) > order (format.c:541-553)."""
+    lens = torch.tensor([N >> po for po in range(max_po + 1)],
+                        dtype=torch.int32, device=order.device)
+    ok = lens > order[..., None]
+    return ok.to(torch.int32).sum(dim=-1) - 1
+
+
+def _rice_cost(u, order, N: int, max_po: int, cfg: EncoderConfig):
+    """Residual-coding cost per partition order, RICE/RICE2 aware.
+
+    Returns (bits [..., L] incl. the 6 method/order field bits,
+             params [..., L, P], rice2 [..., L] bool).
+    """
+    esc = cfg.do_escape_coding
+    if cfg.rice_param_limit <= 15:
+        bits, ks = rice_ops.partition_cost_table(
+            u, order, N, max_po, kmax=14, plen=4, escape=esc)
+        rice2 = torch.zeros(bits.shape, dtype=torch.bool, device=u.device)
+    else:
+        # RICE2 is chosen iff it is cheaper for the whole subframe (the
+        # reference pays 5-bit params whenever any partition needs k>=15,
+        # stream_encoder.c:4786-4794; exact min here is never worse)
+        bits4, ks4 = rice_ops.partition_cost_table(
+            u, order, N, max_po, kmax=14, plen=4, escape=esc)
+        bits5, ks5 = rice_ops.partition_cost_table(
+            u, order, N, max_po, kmax=30, plen=5, escape=esc)
+        rice2 = bits5 < bits4
+        bits = torch.minimum(bits4, bits5)
+        ks = torch.where(rice2[..., None], ks5, ks4)
+    limit = _max_po_limit(order, N, max_po)
+    po_idx = torch.arange(bits.shape[-1], device=u.device)
+    # the reference searches partition orders in [min_po, max_po]
+    # (find_best_partition_order_)
+    ok = (po_idx <= limit[..., None]) & (
+        po_idx >= cfg.min_residual_partition_order)
+    bits = torch.where(ok, bits + 2 + 4, BIG)
+    return bits, ks, rice2
+
+
+def _select_c(stack_arr, win_c):
+    """Select along the candidate axis (axis 2).
+
+    stack_arr: [B, CH, C, ...]; win_c: [B, CH] int32 in [0, C).
+    Returns [B, CH, ...].
+    """
+    idx = win_c.long()[:, :, None]
+    while idx.ndim < stack_arr.ndim:
+        idx = idx[..., None]
+    idx = idx.expand(stack_arr.shape[:2] + (1,) + stack_arr.shape[3:])
+    return torch.gather(stack_arr, 2, idx)[:, :, 0]
+
+
+def search_and_realize(x, bps_eff, wasted, cfg: EncoderConfig,
+                       bank: lpc_ops.ApodizationBank) -> SubframeChoice:
+    """Find and realize the cheapest subframe encoding per (frame, channel).
+
+    x:       [B, CH, N] int32 — wasted-bits-shifted candidate signals
+    bps_eff: [B, CH] int32 — subframe bps after wasted-bit reduction
+    wasted:  [B, CH] int32
+    """
+    B, CH, N = x.shape
+    dev = x.device
+    max_po = fmt.max_rice_partition_order_limited(
+        cfg.max_residual_partition_order, N, 0)
+    O = min(cfg.max_lpc_order, N - 1)
+    overhead = 8 + wasted                         # subframe header bits
+    bps32 = bps_eff
+
+    # ---- VERBATIM (always valid) ----
+    verb_bits = overhead + N * bps32
+
+    # ---- CONSTANT ----
+    is_const = (x == x[..., :1]).all(dim=-1)
+    const_bits = torch.where(is_const, overhead + bps32, BIG)
+
+    # ---- FIXED orders 0..4 ----
+    # int32 when bps < 28 (|res| <= 17 * 2^(bps-1), the reference's
+    # accumulator criterion at stream_encoder.c:4097-4107), exact f64 above
+    fixed_wide = cfg.max_subframe_bps >= 28
+    n_idx = torch.arange(N, dtype=torch.int32, device=dev)
+    forder = torch.arange(5, dtype=torch.int32, device=dev)
+    fmask = n_idx[None, :] >= forder[:, None]     # [5, N]
+    if fixed_wide:
+        fres_w = fixed_ops.fixed_residuals_all(x.to(torch.float64))
+        fres_w = torch.where(fmask, fres_w, 0)
+        f_ok = fres_w.abs().max(dim=-1).values < float(2 ** 31)
+        fres = fres_w.to(torch.int32)
+    else:
+        fres = torch.where(fmask, fixed_ops.fixed_residuals_all(x), 0)
+        f_ok = torch.ones(fres.shape[:-1], dtype=torch.bool, device=dev)
+    forder_b = forder.expand(B, CH, 5)
+
+    # ---- LPC candidates: one guessed order per apodization (all orders
+    # with -e, mirroring min_lpc_order=1 at stream_encoder.c:4221-4224) ----
+    if O > 0:
+        A = bank.combine.shape[0]
+        windows = torch.as_tensor(bank.windows, device=dev)        # [W, N]
+        combine = torch.as_tensor(bank.combine, device=dev)        # [A, W]
+        xw = x.to(torch.float32)[..., None, :] * windows           # [B,CH,W,N]
+        autoc_w = lpc_ops.autocorrelation(xw, O)     # [B,CH,W,O+1] f64
+        autoc = torch.einsum("aw,...wl->...al", combine.to(torch.float64),
+                             autoc_w)                # [B,CH,A,O+1]
+        coeffs, errs, order_ok = lpc_ops.levinson_all_orders(autoc, O)
+        # coeffs [B,CH,A,O,32] f32, errs [B,CH,A,O] f64
+
+        if cfg.do_exhaustive_model_search:
+            # -e: every order of every apodization is a candidate
+            AC = A * O
+            cand_coeffs = coeffs.reshape(B, CH, AC, 32)
+            cand_order = torch.arange(1, O + 1, dtype=torch.int32,
+                                      device=dev).expand(B, CH, A, O
+                                                         ).reshape(B, CH, AC)
+            cand_ok = order_ok.reshape(B, CH, AC)
+            # "don't even try" signal per candidate (st..c:4227-4229)
+            ordf = cand_order.to(torch.float64)
+            errf = errs.reshape(B, CH, AC)
+            scale = 0.5 / (N - ordf)
+            est = 0.5 * torch.log2(torch.where(errf > 0, errf * scale, 1.0))
+            est = torch.where(errf > 0, torch.clamp(est, min=0.0),
+                              torch.where(errf < 0, 1e32, 0.0))
+        else:
+            AC = A
+            guess, est = lpc_ops.estimate_best_order(
+                errs, N, bps32[..., None] + cfg.qlp_coeff_precision)
+            gidx = (guess - 1).long()
+            cand_coeffs = torch.gather(
+                coeffs, 3, gidx[..., None, None].expand(B, CH, A, 1, 32)
+            )[:, :, :, 0]
+            cand_order = guess                    # [B, CH, A]
+            cand_ok = torch.gather(order_ok, -1, gidx[..., None])[..., 0]
+        # skip candidates whose estimated rate already exceeds raw bps
+        cand_ok = cand_ok & (est < bps32[..., None].to(torch.float64))
+
+        if cfg.do_qlp_coeff_prec_search:
+            # -p: every legal precision becomes its own candidate
+            # (evaluate_lpc over min..max precision, st..c:4231-4245)
+            PR = np.arange(fmt.MIN_QLP_COEFF_PRECISION,
+                           fmt.MAX_QLP_COEFF_PRECISION + 1, dtype=np.int32)
+            nP = int(PR.shape[0])
+            prec_grid = torch.as_tensor(PR, device=dev)
+            clamp = torch.where(
+                bps32[..., None] <= 17,
+                torch.clamp(32 - bps32[..., None]
+                            - lpc_ops.ilog2(cand_order),
+                            min=fmt.MIN_QLP_COEFF_PRECISION),
+                fmt.MAX_QLP_COEFF_PRECISION)                 # [B, CH, AC]
+            ok_p = prec_grid <= clamp[..., None]             # [B,CH,AC,nP]
+            cand_coeffs = torch.repeat_interleave(cand_coeffs, nP, dim=2)
+            cand_order = torch.repeat_interleave(cand_order, nP, dim=2)
+            cand_ok = (cand_ok[..., None] & ok_p).reshape(B, CH, AC * nP)
+            prec = prec_grid.expand(B, CH, AC, nP).reshape(B, CH, AC * nP)
+            AC *= nP
+        else:
+            # qlp precision clamp (evaluate_lpc_subframe_, st..c:4591-4595)
+            static_prec = cfg.qlp_coeff_precision
+            prec = torch.where(
+                bps32[..., None] <= 17,
+                torch.clamp(32 - bps32[..., None]
+                            - lpc_ops.ilog2(cand_order), max=static_prec),
+                static_prec).to(torch.int32)    # [B, CH, AC]
+
+        qc, qshift, q_ok = lpc_ops.quantize_coefficients(
+            cand_coeffs, cand_order, prec)        # [B,CH,AC,32] ...
+
+        lpc_mode = "i32" if cfg.max_subframe_bps <= 17 else "f64"
+        res_lpc, fit_ok = lpc_ops.lpc_residual(
+            x, qc, qshift, cand_order, bps32, lpc_mode)   # [B,CH,AC,N]
+        lpc_ok = cand_ok & q_ok & fit_ok
+    else:
+        AC = 0
+        res_lpc = torch.zeros((B, CH, 0, N), dtype=torch.int32, device=dev)
+        cand_order = torch.zeros((B, CH, 0), dtype=torch.int32, device=dev)
+
+    # ---- one exact Rice pass over ALL rice-coded candidates ----
+    C_rice = 5 + AC
+    res_all = torch.cat([fres, res_lpc], dim=2)           # [B,CH,C,N]
+    order_all = torch.cat([forder_b, cand_order], dim=2)
+    u = rice_ops.zigzag(res_all)
+    r_bits, r_ks, r_rice2 = _rice_cost(u, order_all, N, max_po, cfg)
+    rice_best = r_bits.min(dim=-1).values         # [B, CH, C]
+    po_all = r_bits.argmin(dim=-1).to(torch.int32)
+
+    # header bits per candidate
+    fixed_hdr = overhead[..., None] + forder * bps32[..., None]
+    ok_fixed = f_ok & (forder < N)
+    if AC:
+        lpc_hdr = (overhead[..., None] + 4 + 5
+                   + cand_order * (prec + bps32[..., None]))
+        hdr_all = torch.cat([fixed_hdr, lpc_hdr], dim=2)
+        ok_all = torch.cat([ok_fixed, lpc_ok], dim=2)
+    else:
+        hdr_all = fixed_hdr
+        ok_all = ok_fixed
+    total_all = torch.where(ok_all & (rice_best < BIG),
+                            hdr_all + torch.clamp(rice_best, max=BIG), BIG)
+
+    # ---- argmin over all candidates ----
+    # candidate vector: [verbatim, constant, fixed0..4, lpc_0..AC-1]
+    allbits = torch.cat([verb_bits[..., None], const_bits[..., None],
+                         total_all], dim=-1)
+    win = allbits.argmin(dim=-1).to(torch.int32)  # [B, CH]
+    best_bits = allbits.min(dim=-1).values
+
+    is_verb = win == 0
+    is_constw = win == 1
+    is_fixed = (win >= 2) & (win < 7)
+    is_lpc = win >= 7
+    has_res = is_fixed | is_lpc
+    win_c = torch.clamp(win - 2, 0, C_rice - 1)   # index into the rice stack
+
+    type_ = torch.where(
+        is_verb, fmt.SUBFRAME_TYPE_VERBATIM, torch.where(
+            is_constw, fmt.SUBFRAME_TYPE_CONSTANT, torch.where(
+                is_fixed, fmt.SUBFRAME_TYPE_FIXED,
+                fmt.SUBFRAME_TYPE_LPC))).to(torch.int32)
+
+    # ---- realize the winner from the per-candidate tables ----
+    order = torch.where(has_res, _select_c(order_all, win_c), 0)
+    residual = torch.where(has_res[..., None], _select_c(res_all, win_c), 0)
+    po = torch.where(has_res, _select_c(po_all, win_c), 0)
+    ks_sel = _select_c(r_ks, win_c)               # [B, CH, L, P]
+    params = torch.gather(
+        ks_sel, 2, po.long()[..., None, None].expand(
+            B, CH, 1, ks_sel.shape[-1]))[:, :, 0]     # [B, CH, P]
+    r2_sel = _select_c(r_rice2, win_c)            # [B, CH, L]
+    use_rice2 = torch.gather(r2_sel, -1, po.long()[..., None])[..., 0]
+
+    if AC:
+        lidx = torch.clamp(win - 7, 0, AC - 1)
+        qc_win = torch.where(is_lpc[..., None], _select_c(qc, lidx), 0)
+        sh_win = torch.where(is_lpc, _select_c(qshift, lidx), 0)
+        prec_win = torch.where(is_lpc, _select_c(prec, lidx), 0)
+    else:
+        qc_win = torch.zeros((B, CH, 32), dtype=torch.int32, device=dev)
+        sh_win = torch.zeros((B, CH), dtype=torch.int32, device=dev)
+        prec_win = torch.zeros((B, CH), dtype=torch.int32, device=dev)
+
+    if N >= fmt.MAX_LPC_ORDER:
+        warmup = x[..., :fmt.MAX_LPC_ORDER]
+    else:
+        warmup = torch.nn.functional.pad(x, (0, fmt.MAX_LPC_ORDER - N))
+
+    return SubframeChoice(
+        bits=best_bits, type_=type_, order=order, wasted=wasted,
+        bps_eff=bps_eff, qcoeffs=qc_win, shift=sh_win, precision=prec_win,
+        warmup=warmup, residual=residual, po=po, params=params,
+        use_rice2=use_rice2)
