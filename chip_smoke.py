@@ -7,28 +7,37 @@
 Phases, in order, each printing one JSON line; any failure exits non-zero:
 
 1. device:  the GPU's name, and nvidia-smi's name and power limit line.
-2. build:   nvcc builds the kernel from flac_tpu_torch/csrc/pack_fields64.cu
-            (the slice's one source); the P1 probe runs.
-3. kernels: each kernel against its plain PyTorch version on the GPU,
-            bit-identical, over random, edge and real-shape cases.
-4. main:    the main path at full size — a 180 s 44.1 kHz 16-bit stereo
+2. build:   nvcc builds both kernel sources of flac_tpu_torch/csrc/
+            (pack_fields64.cu, rice_codes.cu; one nvcc each, started
+            together) while g++ builds the native host runtime; the probes
+            P1 and P2 run.
+3. kernels: each kernel against its plain PyTorch version on the GPU:
+            K1 bit-identical on random, edge and real-shape field lists; K2
+            (narrow and wide) on the tile tables of real -5 and -8 streams
+            and on synthetic bitstreams (ops/rice_synth.py): `ovf`
+            identical on every lane, the codes on every lane without it.
+4. main:    the main path at full size: a 180 s 44.1 kHz 16-bit stereo
             track encoded at -5 (blocksize 4096, 64 frames a batch) on the
-            GPU, with the kernels' launch counts read just after; the stream
-            is decoded by the package's reference decoder and must give the
-            samples back with a matching MD5.
+            GPU, then decoded on the GPU by decode_stream_tpu(engine=
+            "device") (1024 frames a batch), each with the kernels' launch
+            counts read just after; the decode must give the samples back
+            with a matching MD5 and equal the port's host engine.
 5. ab:      a 20 s clip at -5 through the plain packer must give the same
-            bytes as through the kernel; -0 and -8 clips and a transient clip
-            (which sends frames through the safe re-encode) must round-trip.
-6. times:   each kernel's time at the main path's shapes (CUDA events,
-            median), its plain version's time and its bound, printed as one
+            bytes as through the kernel; -5, -0 and -8 clips and a transient
+            clip (which sends frames through the safe re-encode) must
+            round-trip through the reference decoder and through the device
+            decode on the GPU.
+6. times:   each kernel at the main path's shapes: `ms`, its device time
+            per launch (torch.profiler), `kernel_ms` and `plain_ms`, the
+            kernel's and its plain version's time per call (CUDA events
+            around back-to-back calls), and its bound, printed as one
             `kernels` line.
-7. profile: torch.profiler over a 10 s encode at -5: the device's busy
-            share, device time by stage (the flac.* ranges of encode_batch)
-            and the top kernels; the full table goes to
-            chiprun_out/profile_encode_-5.txt.
+7. profile: torch.profiler over a 10 s encode and a 10 s decode: the
+            device's busy share, time by stage (the flac.* ranges) and the
+            top kernels; the tables go to OUT_DIR/profile_*.txt.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
-register report, the profile table) go to chiprun_out/.
+register report, the profile tables) go to OUT_DIR, beside this script.
 """
 
 from __future__ import annotations
@@ -47,11 +56,13 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, the only non-tensor rate the data
-# sheet gives; K1's integer operations are counted against it
+# sheet gives; the kernels' integer operations are counted against it
 HBM_BYTES_PER_S = 3.35e12
 NON_TENSOR_OPS_PER_S = 67e12
 RATE = 44100
 TRACK_SECONDS = 180          # one album track: 31.75 MB of 16-bit stereo
+DECODE_BATCH = 1024          # frames a decode batch (the reference's)
+K2_OPS_PER_CODE = 30         # segment pop, 3 window reads, clz, shifts, zigzag
 
 
 def emit(obj) -> None:
@@ -64,22 +75,42 @@ def fail(msg: str) -> int:
 
 
 def cuda_time_ms(fn, warmup: int = 5, runs: int = 25) -> float:
-    """Median milliseconds of one call of `fn` on the GPU (CUDA events
-    around each call, after warm-up)."""
+    """Milliseconds of one call of `fn` on the GPU: CUDA events around
+    `runs` back-to-back calls after warm-up, over the count.  Where the
+    host launches more slowly than the card runs, this is the host's
+    rate."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / runs
+
+
+def kernel_device_ms(fn, kernel: str, runs: int = 25) -> float:
+    """Device milliseconds of one launch of the CUDA kernel whose name
+    contains `kernel`, from torch.profiler's trace of `runs` calls of `fn`
+    after a warm call: the kernel alone, without the host's launch gaps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in events)
+    if count != runs:
+        raise AssertionError(f"the profiler saw {count} launches of "
+                             f"{kernel}, expected {runs}")
+    return sum(_device_us(e, True) for e in events) / count / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +166,68 @@ def pack_cases():
 
 
 # ---------------------------------------------------------------------------
+# phase 3 cases: K2 against its plain version
+# ---------------------------------------------------------------------------
+
+def first_decode_batch(stream: bytes):
+    """The host arrays of the first decode batch of `stream` (up to 1024
+    frames of its first shape), as the device engine builds them:
+    ((words2d, lane_start, segs), K2's static arguments)."""
+    import numpy as np
+    from flac_tpu_torch import decoder_device as dd
+    from flac_tpu_torch.decoder import scan_frames
+    from flac_tpu_torch.ref_decoder import parse_metadata
+    st, pos = parse_metadata(stream, 4)
+    frames = scan_frames(stream, st, pos)
+    shape = (frames[0]["blocksize"], frames[0]["channels"])
+    idxs = [i for i, f in enumerate(frames)
+            if (f["blocksize"], f["channels"]) == shape][:DECODE_BATCH]
+    arr = np.frombuffer(stream, np.uint8)
+    prep = dd._prep_batch(arr, frames, idxs, *shape)
+    arrays, kw = dd.batch_inputs(arr, *prep)
+    return arrays[:3], dict(T=dd._tile_T(shape[0]), NROW=kw["NROW"],
+                            SEG=kw["SEG"], wide=kw["wide"])
+
+
+def k2_compare(args, kw) -> tuple[bool, int, int]:
+    """K2 and its plain version on the same GPU tensors.  Returns (ovf
+    identical everywhere and codes identical on every lane without ovf,
+    max |difference| of those codes, lanes with ovf)."""
+    import torch
+    from flac_tpu_torch.ops import bitunpack, rice_cuda
+    kres, kovf = rice_cuda.rice_codes(*args, **kw)
+    pres, povf = bitunpack.rice_codes_plain(*args, **kw)
+    torch.cuda.synchronize()
+    keep = ~povf
+    same = (kres.dtype == pres.dtype and torch.equal(kovf, povf)
+            and torch.equal(kres[:, keep], pres[:, keep]))
+    err = 0 if same or not keep.any() else int(
+        (kres[:, keep] - pres[:, keep]).abs().max())
+    return same, err, int(povf.sum())
+
+
+def k2_cases(clips: dict):
+    """(label, host arrays, static arguments): the first batch of each
+    clip's stream, read narrow and wide, and the synthetic bitstreams."""
+    from flac_tpu_torch.ops import rice_synth
+    cases = []
+    for label, stream in clips.items():
+        arrays, kw = first_decode_batch(stream)
+        for wide in (False, True):
+            cases.append((f"{label} stream, {'wide' if wide else 'narrow'}",
+                          arrays, dict(kw, wide=wide)))
+    for wide in (False, True):
+        for lanes in (None, 4096):
+            arrays = rice_synth.synthetic_lanes(lanes or 1, wide=wide,
+                                                lanes=lanes)
+            cases.append((f"synthetic {'wide' if wide else 'narrow'} "
+                          f"{len(arrays[1])} lanes", arrays,
+                          dict(T=rice_synth.T, NROW=rice_synth.NROW,
+                               SEG=rice_synth.SEG, wide=wide)))
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5 helpers
 # ---------------------------------------------------------------------------
 
@@ -172,6 +265,32 @@ def round_trip(stream: bytes, pcm) -> float:
     return time.perf_counter() - t0
 
 
+def device_round_trip(stream: bytes, pcm) -> float:
+    """Decode on the GPU through K2 (decode_stream_tpu, engine "device":
+    every CRC and the MD5 checked); the samples must equal pcm.  Returns
+    seconds."""
+    import numpy as np
+    import torch
+    from flac_tpu_torch import decode_stream_tpu
+    t0 = time.perf_counter()
+    st = decode_stream_tpu(stream, engine="device")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not st.md5_ok or not np.array_equal(st.samples, pcm):
+        raise AssertionError("the device decode differs from the input")
+    return wall
+
+
+def decode_batches(frames: list) -> int:
+    """Decode batches of the device engine (one K2 launch each): each
+    (blocksize, channels) group in batches of up to DECODE_BATCH frames."""
+    groups: dict = {}
+    for f in frames:
+        key = (f["blocksize"], f["channels"])
+        groups[key] = groups.get(key, 0) + 1
+    return sum(-(-n // DECODE_BATCH) for n in groups.values())
+
+
 def encode(pcm, level: int, **kw):
     from flac_tpu_torch import EncoderConfig
     from flac_tpu_torch.encoder import StreamEncoder
@@ -194,18 +313,20 @@ def _device_us(event, self_only: bool) -> float:
     return 0.0
 
 
-def profile_encode(pcm) -> dict:
-    """torch.profiler over one -5 encode of `pcm` (after a warm encode of
-    the same clip): wall time, device busy share, device time by stage and
-    the top kernels.  The full table goes to chiprun_out/."""
+def profile_run(run, label: str, ranges: tuple, own: tuple) -> dict:
+    """torch.profiler over one call of `run` (after a warm call): wall
+    time, device busy share, host and device time of each flac.* range,
+    the device time of the package's own kernels (`own`: launched through
+    ctypes, so the profiler does not attribute them to a range), and the
+    top kernels.  The full table goes to OUT_DIR."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    encode(pcm, 5)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        encode(pcm, 5)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -216,12 +337,12 @@ def profile_encode(pcm) -> dict:
                 and not e.key.startswith("flac.")]
     busy_us = sum(_device_us(e, True) for e in kernels_)
     # per stage: host time in the range, and the device time of the
-    # kernels launched inside it (flac.pack nests in flac.assemble)
-    stages = {}
+    # kernels launched inside it
+    stages = {r: {"calls": 0, "host_ms": 0.0, "device_ms": 0.0}
+              for r in ranges}
     for e in prof.events():
-        if e.name.startswith("flac.") and str(e.device_type).endswith("CPU"):
-            d = stages.setdefault(e.name, {"calls": 0, "host_ms": 0.0,
-                                           "device_ms": 0.0})
+        if e.name in stages and str(e.device_type).endswith("CPU"):
+            d = stages[e.name]
             d["calls"] += 1
             d["host_ms"] += e.cpu_time_total / 1e3
             d["device_ms"] += _device_us(e, False) / 1e3
@@ -229,15 +350,16 @@ def profile_encode(pcm) -> dict:
     sort_key = ("self_device_time_total"
                 if hasattr(events[0], "self_device_time_total")
                 else "self_cuda_time_total")
-    with open(os.path.join(OUT_DIR, "profile_encode_-5.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"profile_{label}.txt"), "w") as f:
         f.write(events.table(sort_by=sort_key, row_limit=40))
-    return {"phase": "profile", "preset": -5,
-            "seconds_audio": pcm.shape[1] / RATE, "wall_s": wall,
+    own_ms = {k: sum(_device_us(e, True) for e in kernels_ if k in e.key)
+              / 1e3 for k in own}
+    return {"phase": "profile", "run": label, "wall_s": wall,
             "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall if busy_us else
             "not measured",
             "device_kernel_launches": sum(e.count for e in kernels_),
-            "stages": stages,
+            "stages": stages, "own_kernels_device_ms": own_ms,
             "top_kernels_ms": {e.key[:60]: _device_us(e, True) / 1e3
                                for e in top}}
 
@@ -254,37 +376,50 @@ def main() -> int:
         return fail("torch.cuda.is_available() is False")
     sys.path.insert(0, HERE)
     try:
-        from flac_tpu_torch import EncoderConfig, kernels, signals
+        from flac_tpu_torch import (EncoderConfig, decode_stream_tpu,
+                                    kernels, native, signals)
         from flac_tpu_torch.models import frame as frame_mod
-        from flac_tpu_torch.ops import bitpack, pack_cuda
+        from flac_tpu_torch.ops import bitpack, bitunpack, pack_cuda, \
+            rice_cuda
     except ImportError as e:
         return fail(f"the flac_tpu_torch package is not here ({e})")
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
+    dev_info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}
 
     # ---- 1. device ----
-    name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    emit({"phase": "device", "name": name, "count":
-          torch.cuda.device_count(), "torch": torch.__version__,
+    emit({"phase": "device", "name": dev_info["kind"],
+          "count": dev_info["count"], "torch": torch.__version__,
           "cuda": torch.version.cuda})
     print(smi, flush=True)
 
-    # ---- 2. build the kernel's source, run the probe ----
+    # ---- 2. build both kernel sources together, and the native runtime;
+    # run the probes ----
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    _, report = kernels.load("pack_fields64")
-    build_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_lib = pool.submit(native.lib)
+        reports = kernels.load_all(["pack_fields64", "rice_codes"])
+        build_s = time.perf_counter() - t0
+        host_lib.result()
+    host_s = time.perf_counter() - t0
     pack_cuda.probe()
+    rice_cuda.probe()
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
-        f.write(f"== pack_fields64 ({build_s:.1f} s)\n{report}\n")
-    ptx = [ln.strip() for ln in report.splitlines() if "registers" in ln]
-    emit({"phase": "build", "seconds": round(build_s, 2), "probe": "ok",
-          "ptxas": ptx})
+        for lib_name, report in reports.items():
+            f.write(f"== {lib_name} (parallel build {build_s:.1f} s)\n"
+                    f"{report}\n")
+    emit({"phase": "build", "nvcc_seconds": round(build_s, 2),
+          "native_seconds": round(host_s, 2), "probes": ["P1", "P2"],
+          "ptxas": {k: [ln.strip() for ln in r.splitlines()
+                        if "registers" in ln] for k, r in reports.items()}})
 
-    # ---- 3. K1 against its plain version, bit-identical ----
+    # ---- 3. each kernel against its plain version ----
     max_err = 0
     for label, nz, pay, pb, W in pack_cases():
         args_gpu = [torch.from_numpy(a).cuda() for a in (nz, pay, pb)]
@@ -298,12 +433,26 @@ def main() -> int:
         if not ok:
             return fail(f"K1 differs from its plain version on '{label}'")
         max_err = max(max_err, err)
+    clips = {f"-{lv}": encode(signals.make_test_signal(
+        5 * RATE, seed=30 + lv), lv)[0] for lv in (5, 8)}
+    k2_err = 0
+    for label, arrays, static in k2_cases(clips):
+        ok, err, n_ovf = k2_compare(
+            [torch.from_numpy(a).cuda() for a in arrays], static)
+        emit({"phase": "kernels", "kernel": "rice_codes", "case": label,
+              "lanes": len(arrays[1]), "ovf_lanes": n_ovf, **static,
+              "identical": ok, "max_abs_err": err})
+        if not ok:
+            return fail(f"K2 differs from its plain version on '{label}'")
+        k2_err = max(k2_err, err)
     if args.quick:
-        emit({"ok": True, "quick": True, "device": {"platform": "gpu",
-              "kind": name, "count": torch.cuda.device_count()}})
+        emit({"phase": "done", "quick": True,
+              "seconds": time.perf_counter() - t_start})
+        print(smi, flush=True)
+        emit({"ok": True, "device": dev_info})
         return 0
 
-    # ---- 4. the main path at full size ----
+    # ---- 4. the main path at full size: encode, then decode ----
     n = TRACK_SECONDS * RATE
     pcm = signals.make_test_signal(n, seed=180)
     cfg5 = EncoderConfig.from_preset(5, blocksize=4096).resolve()
@@ -319,18 +468,46 @@ def main() -> int:
     wall = time.perf_counter() - t0
     k1_launches = pack_cuda.launches
     pcm_bytes = pcm.size * 2
+    enc_mbps = pcm_bytes / 1e6 / wall
     emit({"phase": "main", "preset": -5, "seconds_audio": TRACK_SECONDS,
           "pcm_mb": pcm_bytes / 1e6, "encode_wall_s": wall,
-          "encode_mb_per_s": pcm_bytes / 1e6 / wall,
+          "encode_mb_per_s": enc_mbps,
           "compression_ratio": len(stream) / pcm_bytes,
           "launches": {"pack_fields64": k1_launches},
           "quad_batches": expect, "misfit_frames": enc.misfit_frames})
     if k1_launches <= 0 or k1_launches != expect:
         return fail(f"K1 launched {k1_launches} times on the main path, "
                     f"expected one per quad-layout batch ({expect})")
-    dec_s = round_trip(stream, pcm)
+    t0 = time.perf_counter()
+    decode_stream_tpu(stream)                                # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rice_cuda.launches = 0
+    t0 = time.perf_counter()
+    st = decode_stream_tpu(stream, max_batch=DECODE_BATCH)
+    torch.cuda.synchronize()
+    dec_wall = time.perf_counter() - t0
+    k2_launches = rice_cuda.launches
+    batches = decode_batches(st.frames)
+    emit({"phase": "main", "decode": "device", "warm_up_s": warm_s,
+          "decode_wall_s": dec_wall,
+          "decode_mb_per_s": pcm_bytes / 1e6 / dec_wall,
+          "encode_mb_per_s": enc_mbps, "frames": len(st.frames),
+          "launches": {"rice_codes": k2_launches},
+          "decode_batches": batches})
+    if not st.md5_ok or not np.array_equal(st.samples, pcm):
+        return fail("the device decode of the main track differs from the "
+                    "input")
+    if k2_launches <= 0 or k2_launches != batches:
+        return fail(f"K2 launched {k2_launches} times on the main path, "
+                    f"expected one per decode batch ({batches})")
+    t0 = time.perf_counter()
+    host = decode_stream_tpu(stream, engine="host")
+    host_s = time.perf_counter() - t0
+    if not np.array_equal(host.samples, st.samples):
+        return fail("the host engine's decode differs from the device's")
     emit({"phase": "main", "round_trip": "ok", "md5": "match",
-          "decode_s": dec_s})
+          "host_engine": "equal", "host_decode_s": host_s})
 
     # ---- 5. A/B through the path ----
     clip = signals.make_test_signal(20 * RATE, seed=20)
@@ -341,21 +518,27 @@ def main() -> int:
                     "kernel's")
     emit({"phase": "ab", "case": "-5 kernel vs plain", "identical": True,
           "bytes": len(s_kernel)})
-    round_trip(s_kernel, clip)
+    ref_s = round_trip(s_kernel, clip)
+    emit({"phase": "ab", "case": "-5 round trip", "ok": True,
+          "reference_decode_s": ref_s,
+          "device_decode_s": device_round_trip(s_kernel, clip)})
     for level in (0, 8):
         s, _ = encode(clip, level)
-        round_trip(s, clip)
+        ref_s = round_trip(s, clip)
         emit({"phase": "ab", "case": f"-{level} round trip", "ok": True,
-              "bytes": len(s)})
+              "bytes": len(s), "reference_decode_s": ref_s,
+              "device_decode_s": device_round_trip(s, clip)})
     burst = signals.make_transient_signal(20 * RATE, seed=21)
     s, benc = encode(burst, 5)
-    round_trip(s, burst)
+    ref_s = round_trip(s, burst)
     emit({"phase": "ab", "case": "transient clip round trip", "ok": True,
-          "misfit_frames_safe_reencoded": benc.misfit_frames})
+          "misfit_frames_safe_reencoded": benc.misfit_frames,
+          "reference_decode_s": ref_s,
+          "device_decode_s": device_round_trip(s, burst)})
     if benc.misfit_frames <= 0:
         return fail("the transient clip sent no frame to the safe re-encode")
 
-    # ---- 6. times at the main path's shape ----
+    # ---- 6. times at the main path's shapes ----
     captured = {}
     real_pack = frame_mod.pack_cuda.pack_fields64
 
@@ -384,6 +567,8 @@ def main() -> int:
     kernel_ms2 = cuda_time_ms(lambda: pack_cuda.pack_fields64(
         nz, pay, pb, W))
     plain_ms2 = cuda_time_ms(lambda: bitpack.pack_fields64(nz, pay, pb, W))
+    k1_device_ms = kernel_device_ms(lambda: pack_cuda.pack_fields64(
+        nz, pay, pb, W), "pack_fields64_kernel")
     # each input read once (nzeros, payload, pbits), each output written
     # once: the deposit's words are uint32 (that the kernel stores them
     # zero-extended in int64 is the port's layout, not the function's
@@ -394,27 +579,83 @@ def main() -> int:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
     emit({"phase": "times", "kernel": "pack_fields64", "B": B, "S": S,
-          "W": W, "kernel_ms_runs": [kernel_ms, kernel_ms2],
+          "W": W, "device_ms": k1_device_ms,
+          "kernel_ms_runs": [kernel_ms, kernel_ms2],
           "plain_ms_runs": [plain_ms, plain_ms2], "bytes": nbytes,
           "operations": nops})
-    k_ms = min(kernel_ms, kernel_ms2)
-    plain_ms = min(plain_ms, plain_ms2)
-    emit({"kernels": [{
-        "name": "pack_fields64", "route": "cuda",
-        "source": pack_cuda.SOURCE, "replaces": pack_cuda.REPLACES,
-        "launches": k1_launches, "max_abs_err": max_err,
-        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes this deposit",
-    }]})
-    # ---- 7. where the time goes in a steady encode ----
-    emit(profile_encode(signals.make_test_signal(10 * RATE, seed=7)))
+    k1 = {"name": "pack_fields64", "route": "cuda",
+          "source": pack_cuda.SOURCE, "replaces": pack_cuda.REPLACES,
+          "launches": k1_launches, "max_abs_err": max_err,
+          "ms": k1_device_ms,
+          "kernel_ms": min(kernel_ms, kernel_ms2),
+          "plain_ms": min(plain_ms, plain_ms2),
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+          "library_ms": None,
+          "library_note": "no single PyTorch call computes this deposit"}
+
+    # K2 on the main path's first full decode batch
+    arrays, k2kw = first_decode_batch(stream)
+    words2d, lane_start, segs = (torch.from_numpy(a).cuda() for a in arrays)
+    ok, err, n_ovf = k2_compare([words2d, lane_start, segs], k2kw)
+    if not ok:
+        return fail("K2 differs from its plain version on the main path's "
+                    "first batch")
+    k2_err = max(k2_err, err)
+
+    def k2_kernel():
+        rice_cuda.rice_codes(words2d, lane_start, segs, **k2kw)
+
+    def k2_plain():
+        bitunpack.rice_codes_plain(words2d, lane_start, segs, **k2kw)
+    plain_ms = cuda_time_ms(k2_plain, warmup=1, runs=5)
+    kernel_ms = cuda_time_ms(k2_kernel)
+    kernel_ms2 = cuda_time_ms(k2_kernel)
+    plain_ms2 = cuda_time_ms(k2_plain, warmup=1, runs=5)
+    k2_device_ms = kernel_device_ms(k2_kernel, "rice_codes_kernel")
+    # each input read once (the batch's stream words, lane_start, the SEG
+    # segment slots of each lane), each output written once (res [T, L]
+    # int32 or int64, ovf one byte a lane); the operations count the codes
+    # this batch really decodes (real segments, at most T a lane)
+    T, SEG = k2kw["T"], k2kw["SEG"]
+    L = arrays[1].shape[0]
+    counts = ((arrays[2] >> 7) & 0xFF) * (arrays[2] != bitunpack.SEG_INERT)
+    codes = int(counts.sum(axis=1).clip(max=T).sum())
+    nbytes = (arrays[0].nbytes + L * 4 + L * SEG * 4
+              + T * L * (8 if k2kw["wide"] else 4) + L)
+    nops = codes * K2_OPS_PER_CODE
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
+    emit({"phase": "times", "kernel": "rice_codes", "L": L, "T": T,
+          "NROW": k2kw["NROW"], "SEG": SEG, "wide": k2kw["wide"],
+          "codes": codes, "ovf_lanes": n_ovf, "device_ms": k2_device_ms,
+          "kernel_ms_runs": [kernel_ms, kernel_ms2],
+          "plain_ms_runs": [plain_ms, plain_ms2], "bytes": nbytes,
+          "operations": nops})
+    k2 = {"name": "rice_codes", "route": "cuda",
+          "source": rice_cuda.SOURCE, "replaces": rice_cuda.REPLACES,
+          "launches": k2_launches, "max_abs_err": k2_err,
+          "ms": k2_device_ms,
+          "kernel_ms": min(kernel_ms, kernel_ms2),
+          "plain_ms": min(plain_ms, plain_ms2),
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+          "library_ms": None,
+          "library_note": "no PyTorch call decodes Rice codes"}
+    emit({"kernels": [k1, k2]})
+
+    # ---- 7. where the time goes in a steady encode and decode ----
+    short = signals.make_test_signal(10 * RATE, seed=7)
+    emit(profile_run(lambda: encode(short, 5), "encode_-5",
+                     ("flac.search", "flac.assign", "flac.assemble",
+                      "flac.pack"), ("pack_fields64_kernel",)))
+    short_stream, _ = encode(short, 5)
+    emit(profile_run(lambda: decode_stream_tpu(short_stream), "decode",
+                     ("flac.tile_scan", "flac.upload", "flac.codes",
+                      "flac.restore", "flac.fetch"), ("rice_codes_kernel",)))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                 "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": dev_info})
     return 0
 
 

@@ -1,9 +1,12 @@
-"""flac_tpu_torch — the flac_tpu batched FLAC encoder in PyTorch and CUDA.
+"""flac_tpu_torch — the flac_tpu batched FLAC codec in PyTorch and CUDA.
 
 A second package beside the JAX reference (`flac_tpu`): the same batched
 encoder (presets -0..-8, mono to 8 channels, 8-24 bit) as plain PyTorch
 tensor code on an explicit device, with the bit-pack deposit of the
-quad layout as a hand-written CUDA kernel (`csrc/pack_fields64.cu`).
+quad layout as a hand-written CUDA kernel (`csrc/pack_fields64.cu`); and
+the device decode engine (`decode_stream_tpu`): the native tile skip-walk
+on the host, the Rice code scan as a hand-written CUDA kernel
+(`csrc/rice_codes.cu`), restore and stereo undo as PyTorch ops.
 
 Entry points run on the GPU unless the caller passes `device="cpu"`; they
 raise when asked for a GPU that is not there.
@@ -17,7 +20,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .config import EncoderConfig            # noqa: E402
+from .decoder import decode_stream_tpu       # noqa: E402
 from .encoder import StreamEncoder, encode_file_to_flac  # noqa: E402
 
-__all__ = ["EncoderConfig", "StreamEncoder", "encode_file_to_flac"]
+__all__ = ["EncoderConfig", "StreamEncoder", "decode_stream_tpu",
+           "encode_file_to_flac"]
 __version__ = "0.1.0"

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import flac_tpu_torch
-from flac_tpu_torch import EncoderConfig, kernels
+from flac_tpu_torch import EncoderConfig, decode_stream_tpu, kernels
 from flac_tpu_torch.encoder import StreamEncoder, encode_file_to_flac
 
 REPO = Path(__file__).resolve().parents[1]
@@ -74,6 +74,46 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         encode_file_to_flac(pcm, cfg, device="cuda")
     assert encode_file_to_flac(pcm, cfg, device="cpu")[:4] == b"fLaC"
+
+
+def test_decode_defaults_to_the_gpu_and_raises_without_one(no_gpu):
+    pcm = np.zeros((2, 3000), np.int32)
+    stream = encode_file_to_flac(pcm, EncoderConfig.from_preset(
+        5, blocksize=1024), device="cpu")
+    for engine in ("device", "host"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            decode_stream_tpu(stream, engine=engine)
+    st = decode_stream_tpu(stream, device="cpu")
+    assert st.md5_ok and np.array_equal(st.samples, pcm)
+
+
+@pytest.mark.parametrize("what", ["fast", "scan", "auto", "tolerant"])
+def test_unported_decode_features_raise(what):
+    stream = encode_file_to_flac(np.zeros((2, 3000), np.int32),
+                                 EncoderConfig.from_preset(5, blocksize=1024),
+                                 device="cpu")
+    kw = {"tolerant": True} if what == "tolerant" else {"engine": what}
+    with pytest.raises(NotImplementedError):
+        decode_stream_tpu(stream, device="cpu", **kw)
+
+
+def test_import_builds_no_native_library_or_kernel():
+    """Importing every module of the package leaves the native runtime and
+    the CUDA kernels unbuilt and unloaded: they are built at first use."""
+    code = (
+        "import importlib, pkgutil\n"
+        "import flac_tpu_torch\n"
+        "for m in pkgutil.walk_packages(flac_tpu_torch.__path__,\n"
+        "                               'flac_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from flac_tpu_torch import kernels, native\n"
+        "from flac_tpu_torch.ops import pack_cuda, rice_cuda\n"
+        "print(native._lib is None, kernels.LOADED == {},\n"
+        "      pack_cuda._lib is None, rice_cuda._lib is None)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True"] * 4
 
 
 def test_tf32_is_off():
