@@ -10,18 +10,22 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
 2. build:   nvcc builds both kernel sources of flac_tpu_torch/csrc/
             (pack_fields64.cu, rice_codes.cu; one nvcc each, started
             together) while g++ builds the native host runtime; the probes
-            P1 and P2 run.
+            P1 and P2 run; each kernel's registers, spills and static
+            shared memory from ptxas.
 3. kernels: each kernel against its plain PyTorch version on the GPU:
-            K1 bit-identical on random, edge and real-shape field lists; K2
-            (narrow and wide) on the tile tables of real -5 and -8 streams
-            and on synthetic bitstreams (ops/rice_synth.py): `ovf`
-            identical on every lane, the codes on every lane without it.
+            K1 bit-identical on random, edge, cluster (ops/pack_synth.py)
+            and real-shape field lists; K2 (narrow and wide) on the tile
+            tables of real -5 and -8 streams, on synthetic bitstreams and
+            on the staging lanes (ops/rice_synth.py): `ovf` identical on
+            every lane, the codes on every lane without it.
 4. main:    the main path at full size: a 180 s 44.1 kHz 16-bit stereo
             track encoded at -5 (blocksize 4096, 64 frames a batch) on the
             GPU, then decoded on the GPU by decode_stream_tpu(engine=
             "device") (1024 frames a batch), each with the kernels' launch
-            counts read just after; the decode must give the samples back
-            with a matching MD5 and equal the port's host engine.
+            counts (and K2's count of CTAs that staged) read just after;
+            the decode must give the samples back with a matching MD5 and
+            equal the port's host engine; every CTA of every K2 launch
+            must have staged, as the host mirror of the rule predicts.
 5. ab:      a 20 s clip at -5 through the plain packer must give the same
             bytes as through the kernel; -5, -0 and -8 clips and a transient
             clip (which sends frames through the safe re-encode) must
@@ -31,7 +35,8 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             per launch (torch.profiler), `kernel_ms` and `plain_ms`, the
             kernel's and its plain version's time per call (CUDA events
             around back-to-back calls), and its bound, printed as one
-            `kernels` line.
+            `kernels` line with each kernel's ptxas usage, K1's cluster
+            size and K2's staged CTAs per main-path launch.
 7. profile: torch.profiler over a 10 s encode and a 10 s decode: the
             device's busy share, time by stage (the flac.* ranges) and the
             top kernels; the tables go to OUT_DIR/profile_*.txt.
@@ -63,6 +68,33 @@ RATE = 44100
 TRACK_SECONDS = 180          # one album track: 31.75 MB of 16-bit stereo
 DECODE_BATCH = 1024          # frames a decode batch (the reference's)
 K2_OPS_PER_CODE = 30         # segment pop, 3 window reads, clz, shifts, zigzag
+
+
+def ptxas_usage(report: str, kernel: str) -> dict:
+    """Registers, spill bytes and static shared memory of each function of
+    nvcc's -Xptxas -v `report` whose name contains `kernel`."""
+    import re
+    out, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+            if fn:
+                out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem_static_bytes"] = int(m.group(1)) if m else 0
+    return out
 
 
 def emit(obj) -> None:
@@ -162,31 +194,42 @@ def pack_cases():
     pay = rng.integers(0, 1 << 62, (64, 2263), dtype=np.int64) & (
         (np.int64(1) << pb.astype(np.int64)) - 1)
     cases.append(("-5 shape B64 S2263 W8192", nz, pay, pb, 8192))
-    return cases
+    from flac_tpu_torch.ops import pack_synth
+    return cases + [(f"cluster: {c[0]}", *c[1:])
+                    for c in pack_synth.cluster_cases()]
 
 
 # ---------------------------------------------------------------------------
 # phase 3 cases: K2 against its plain version
 # ---------------------------------------------------------------------------
 
-def first_decode_batch(stream: bytes):
-    """The host arrays of the first decode batch of `stream` (up to 1024
-    frames of its first shape), as the device engine builds them:
-    ((words2d, lane_start, segs), K2's static arguments)."""
+def decode_batch_inputs(stream: bytes, first_only: bool = False) -> list:
+    """The host arrays of each decode batch of `stream`, as the device
+    engine builds them (each (blocksize, channels) group in stream order,
+    DECODE_BATCH frames a batch): [((words2d, lane_start, segs), K2's
+    static arguments)], or only the first batch's."""
     import numpy as np
     from flac_tpu_torch import decoder_device as dd
     from flac_tpu_torch.decoder import scan_frames
     from flac_tpu_torch.ref_decoder import parse_metadata
     st, pos = parse_metadata(stream, 4)
     frames = scan_frames(stream, st, pos)
-    shape = (frames[0]["blocksize"], frames[0]["channels"])
-    idxs = [i for i, f in enumerate(frames)
-            if (f["blocksize"], f["channels"]) == shape][:DECODE_BATCH]
+    groups: dict = {}
+    for i, f in enumerate(frames):
+        groups.setdefault((f["blocksize"], f["channels"]), []).append(i)
     arr = np.frombuffer(stream, np.uint8)
-    prep = dd._prep_batch(arr, frames, idxs, *shape)
-    arrays, kw = dd.batch_inputs(arr, *prep)
-    return arrays[:3], dict(T=dd._tile_T(shape[0]), NROW=kw["NROW"],
-                            SEG=kw["SEG"], wide=kw["wide"])
+    out = []
+    for (blocksize, channels), idxs in groups.items():
+        for lo in range(0, len(idxs), DECODE_BATCH):
+            prep = dd._prep_batch(arr, frames, idxs[lo:lo + DECODE_BATCH],
+                                  blocksize, channels)
+            arrays, kw = dd.batch_inputs(arr, *prep)
+            out.append((arrays[:3], dict(
+                T=dd._tile_T(blocksize), NROW=kw["NROW"], SEG=kw["SEG"],
+                wide=kw["wide"])))
+            if first_only:
+                return out
+    return out
 
 
 def k2_compare(args, kw) -> tuple[bool, int, int]:
@@ -212,7 +255,7 @@ def k2_cases(clips: dict):
     from flac_tpu_torch.ops import rice_synth
     cases = []
     for label, stream in clips.items():
-        arrays, kw = first_decode_batch(stream)
+        [(arrays, kw)] = decode_batch_inputs(stream, first_only=True)
         for wide in (False, True):
             cases.append((f"{label} stream, {'wide' if wide else 'narrow'}",
                           arrays, dict(kw, wide=wide)))
@@ -224,6 +267,10 @@ def k2_cases(clips: dict):
                           f"{len(arrays[1])} lanes", arrays,
                           dict(T=rice_synth.T, NROW=rice_synth.NROW,
                                SEG=rice_synth.SEG, wide=wide)))
+        cases.append((f"staging lanes {'wide' if wide else 'narrow'}",
+                      rice_synth.staging_lanes(6, wide=wide),
+                      dict(T=rice_synth.T, NROW=rice_synth.STAGING_NROW,
+                           SEG=rice_synth.SEG, wide=wide)))
     return cases
 
 
@@ -414,10 +461,13 @@ def main() -> int:
         for lib_name, report in reports.items():
             f.write(f"== {lib_name} (parallel build {build_s:.1f} s)\n"
                     f"{report}\n")
+    usage = {"pack_fields64": ptxas_usage(reports["pack_fields64"],
+                                          "pack_fields64_kernel"),
+             "rice_codes": ptxas_usage(reports["rice_codes"],
+                                       "rice_codes_kernel")}
     emit({"phase": "build", "nvcc_seconds": round(build_s, 2),
           "native_seconds": round(host_s, 2), "probes": ["P1", "P2"],
-          "ptxas": {k: [ln.strip() for ln in r.splitlines()
-                        if "registers" in ln] for k, r in reports.items()}})
+          "ptxas": usage})
 
     # ---- 3. each kernel against its plain version ----
     max_err = 0
@@ -439,8 +489,10 @@ def main() -> int:
     for label, arrays, static in k2_cases(clips):
         ok, err, n_ovf = k2_compare(
             [torch.from_numpy(a).cuda() for a in arrays], static)
+        staged = rice_cuda.staged_ctas(arrays[1], static["NROW"])
         emit({"phase": "kernels", "kernel": "rice_codes", "case": label,
               "lanes": len(arrays[1]), "ovf_lanes": n_ovf, **static,
+              "staged_ctas": int(staged.sum()), "ctas": len(staged),
               "identical": ok, "max_abs_err": err})
         if not ok:
             return fail(f"K2 differs from its plain version on '{label}'")
@@ -482,12 +534,14 @@ def main() -> int:
     decode_stream_tpu(stream)                                # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    staged_before = rice_cuda.staged_ctas_count()
     rice_cuda.launches = 0
     t0 = time.perf_counter()
     st = decode_stream_tpu(stream, max_batch=DECODE_BATCH)
     torch.cuda.synchronize()
     dec_wall = time.perf_counter() - t0
     k2_launches = rice_cuda.launches
+    k2_staged = rice_cuda.staged_ctas_count() - staged_before
     batches = decode_batches(st.frames)
     emit({"phase": "main", "decode": "device", "warm_up_s": warm_s,
           "decode_wall_s": dec_wall,
@@ -501,6 +555,21 @@ def main() -> int:
     if k2_launches <= 0 or k2_launches != batches:
         return fail(f"K2 launched {k2_launches} times on the main path, "
                     f"expected one per decode batch ({batches})")
+    # the staged CTAs of each main-path launch, by the host mirror of the
+    # kernel's rule; their sum must be the kernel's own count
+    per_launch = []
+    for arrays, kw in decode_batch_inputs(stream):
+        staged = rice_cuda.staged_ctas(arrays[1], kw["NROW"])
+        per_launch.append([int(staged.sum()), len(staged)])
+    emit({"phase": "main", "decode": "staging",
+          "staged_ctas_per_launch": per_launch,
+          "staged_ctas_counted_by_kernel": k2_staged})
+    if sum(s for s, _ in per_launch) != k2_staged:
+        return fail(f"K2 counted {k2_staged} staged CTAs on the main path, "
+                    f"the host mirror of its rule {per_launch}")
+    if any(s != n for s, n in per_launch):
+        return fail(f"not every CTA of the main path's K2 launches staged: "
+                    f"{per_launch}")
     t0 = time.perf_counter()
     host = decode_stream_tpu(stream, engine="host")
     host_s = time.perf_counter() - t0
@@ -592,10 +661,13 @@ def main() -> int:
           "bound_ms": max(bytes_ms, ops_ms),
           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
           "library_ms": None,
-          "library_note": "no single PyTorch call computes this deposit"}
+          "library_note": "no single PyTorch call computes this deposit",
+          "cluster": pack_cuda.CLUSTER,
+          "smem_dynamic_bytes": pack_cuda.rank_words(W) * 4,
+          "ptxas": usage["pack_fields64"]}
 
     # K2 on the main path's first full decode batch
-    arrays, k2kw = first_decode_batch(stream)
+    [(arrays, k2kw)] = decode_batch_inputs(stream, first_only=True)
     words2d, lane_start, segs = (torch.from_numpy(a).cuda() for a in arrays)
     ok, err, n_ovf = k2_compare([words2d, lane_start, segs], k2kw)
     if not ok:
@@ -628,7 +700,8 @@ def main() -> int:
     ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
     emit({"phase": "times", "kernel": "rice_codes", "L": L, "T": T,
           "NROW": k2kw["NROW"], "SEG": SEG, "wide": k2kw["wide"],
-          "codes": codes, "ovf_lanes": n_ovf, "device_ms": k2_device_ms,
+          "codes": codes, "ovf_lanes": n_ovf,
+          "staged_ctas_per_launch": per_launch, "device_ms": k2_device_ms,
           "kernel_ms_runs": [kernel_ms, kernel_ms2],
           "plain_ms_runs": [plain_ms, plain_ms2], "bytes": nbytes,
           "operations": nops})
@@ -641,7 +714,10 @@ def main() -> int:
           "bound_ms": max(bytes_ms, ops_ms),
           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
           "library_ms": None,
-          "library_note": "no PyTorch call decodes Rice codes"}
+          "library_note": "no PyTorch call decodes Rice codes",
+          "staged_ctas_per_launch": per_launch,
+          "smem_dynamic_bytes": rice_cuda.STAGE_ROWS * 64,
+          "ptxas": usage["rice_codes"]}
     emit({"kernels": [k1, k2]})
 
     # ---- 7. where the time goes in a steady encode and decode ----

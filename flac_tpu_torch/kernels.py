@@ -48,13 +48,15 @@ def _library_path(name: str) -> Path:
 def _build(names) -> dict:
     """Build every missing library of `names` with one nvcc per source, all
     started together, so the sources cost one build time, not the sum.
-    Returns {name: nvcc's report, or "cached"}; raises with the compiler's
-    output if a build fails."""
+    Returns {name: nvcc's report}, kept beside each library (or "cached"
+    for a library built without one); raises with the compiler's output if
+    a build fails."""
     reports, procs = {}, {}
     for name in names:
         lib = _library_path(name)
         if lib.exists():
-            reports[name] = "cached"
+            saved = lib.with_suffix(".txt")
+            reports[name] = saved.read_text() if saved.exists() else "cached"
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -68,6 +70,7 @@ def _build(names) -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for csrc/{name}.cu:\n{out}")
             continue
+        lib.with_suffix(".txt").write_text(out)
         os.replace(tmp, lib)      # atomic: concurrent builds agree
         reports[name] = out
     if failed:
@@ -77,8 +80,8 @@ def _build(names) -> dict:
 
 def load_all(names) -> dict:
     """Build the missing libraries of `names` in parallel, then load each;
-    returns {name: nvcc's report (register counts, spills), or "cached" if
-    the library was built before}."""
+    returns {name: nvcc's report (register counts, spills, shared
+    memory)}."""
     for name, report in _build([n for n in names
                                  if n not in LOADED]).items():
         LOADED[name] = (ctypes.CDLL(str(_library_path(name))), report)

@@ -2,18 +2,24 @@
 
 Replaces flac_tpu/ops/pack_pallas.py:_kernel (a bf16 one-hot matmul per
 byte plane on the TPU's matrix unit).  The source is
-csrc/pack_fields64.cu: one CTA per frame, a block-wide scan of the field
-lengths, then the three word contributions of each field OR'ed into a
-shared-memory tile of the frame's words, stored coalesced (see the source
-for the design).
+csrc/pack_fields64.cu, designed for Hopper: a thread block cluster of
+CLUSTER CTAs per frame.  Each CTA loads its share of the frame's fields
+into registers in one batch and scans it once; the CTAs exchange their
+shares' bit totals through distributed shared memory; the frame's word
+words that can hold bits (`used_words`) are split among the cluster's
+shared memories (`rank_words` words a CTA), the rest of the row is stored
+as zeros before the deposit, and each field's three word contributions
+are OR'ed into the tile of the CTA that owns the word, local or remote;
+each CTA stores its words with 16-byte stores (see the source for the
+design).
 
 Bound: per -5 batch (B=64 frames, S=2263 fields, W=8192 words) the deposit
 must read 64*2263*16 B ~ 2.3 MB and write 64*8192*4 B ~ 2.1 MB of uint32
 words: ~1.3 us of HBM time at 3.35 TB/s, with about 16 integer operations
 per field.  (The kernel stores each word zero-extended in int64, the port's
 word type, which doubles its own writes; the bound counts the function's.)
-It is bound by bytes on paper and by its launch in practice; chip_smoke.py
-measures it.
+It is bound by bytes on paper and by a few dependent memory latencies and
+cluster barriers in practice; chip_smoke.py measures it.
 
 Unlike the TPU kernel it has no word-capacity cap: it fills all
 `max_words`, so its result is exactly that of the plain version,
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -36,10 +43,35 @@ from . import bitpack
 SOURCE = "flac_tpu_torch/csrc/pack_fields64.cu"
 REPLACES = "flac_tpu/ops/pack_pallas.py:88"     # _kernel
 _LIB_NAME = "pack_fields64"
+CLUSTER = 2                  # CTAs a frame (CLUSTER in the source)
+TILE_WORDS_MAX = 16384       # words a CTA's tile holds
 
 launches = 0          # kernel launches of pack_fields64_cuda in this process
 _lib = None
 _probed: set = set()  # devices on which P1 passed
+
+
+def used_words(nzeros, pbits, W: int) -> int:
+    """The words of one frame's [W] row that can hold bits, as the kernel
+    reckons them: ceil(total bits / 32), at most W, when no nzeros is
+    negative and the int32 total stays below 2^31 (positions then only
+    grow); else all W.  The kernel stores the rest as zeros first."""
+    nz = np.asarray(nzeros, np.int64)
+    total = int((nz + np.asarray(pbits, np.int64)).sum()) & 0xFFFFFFFF
+    if (nz < 0).any() or total >= 1 << 31:
+        return W
+    return min(W, (total + 31) >> 5)
+
+
+def rank_words(W: int, used: int | None = None) -> int:
+    """Words of a pass over a frame's `used` words (used_words; W if None)
+    that each CTA of the cluster owns: rank r owns [r * n, (r + 1) * n) of
+    the pass, n a multiple of 4 words, at most TILE_WORDS_MAX and at most
+    the launch's tile of ceil(W / CLUSTER) words.  More than CLUSTER * n
+    used words take several passes."""
+    used = W if used is None else used
+    tile = min(TILE_WORDS_MAX, (-(-W // CLUSTER) + 3) & ~3)
+    return min(tile, (-(-used // CLUSTER) + 3) & ~3)
 
 
 def _bound_library() -> ctypes.CDLL:

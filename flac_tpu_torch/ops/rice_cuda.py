@@ -3,23 +3,30 @@
 Replaces flac_tpu/ops/bitunpack.py:_rice_kernel (a Pallas kernel that keeps
 each block of lanes' gathered windows in VMEM and extracts words by one-hot
 sums, because the TPU has no cheap per-lane gather).  The source is
-csrc/rice_codes.cu: one thread per lane, the segment queue in registers,
-words read straight from the uploaded stream (no materialised window), and
-res[t, lane] stored each step, coalesced across a warp.  Narrow lanes give
-int32 codes, wide lanes (33-bit side channels, raw widths above 32, Rice
-values of 2^32 or more) int64, both on the kernel.
+csrc/rice_codes.cu, designed for Hopper: one thread per lane, CTAs of
+STAGE_LANES lanes.  A CTA whose lanes' windows span at most STAGE_ROWS rows
+stages that span once in shared memory (coalesced 16-byte cp.async loads);
+one whose lanes lie farther apart reads global memory, in the same kernel
+(`staged_ctas` is the host mirror of that rule).  Each thread decodes from
+a 64-bit bit reservoir in registers, refilled a word at a time, with the
+segment queue in registers and res[t, lane] stored each step, coalesced
+across a warp.  Narrow lanes give int32 codes, wide lanes (33-bit side
+channels, raw widths above 32, Rice values of 2^32 or more) int64, both on
+the kernel.
 
 Bound: per full -5 batch (1024 frames of 4096 stereo samples: L = 65,536
 lanes, T = 128) the function reads the compressed stream once (~10.3 MB),
 segs (~2.1 MB) and lane_start (0.26 MB) and writes res (33.5 MB) and ovf:
 ~46 MB, ~14 us at 3.35 TB/s; its ~8.4 M codes at a few tens of integer
-operations each stay under that, so bytes bound it.  chip_smoke.py reckons
-the bound of the real batch it times.
+operations each stay under that, so bytes bound it.  In practice each
+lane's serial chain of codes holds it back.  chip_smoke.py reckons the
+bound of the real batch it times.
 
 `rice_codes` dispatches on the tensors' device: the plain version
 (`bitunpack.rice_codes_plain`) for CPU tensors, the kernel for CUDA tensors
 (it launches or raises; there is no fallback).  `launches` counts kernel
-launches.  P2, `probe`, runs once per device after the build and raises
+launches; `staged_ctas_count` reads the kernel's own count of CTAs that
+staged.  P2, `probe`, runs once per device after the build and raises
 unless the card computes what the host does.
 """
 
@@ -37,6 +44,8 @@ SOURCE = "flac_tpu_torch/csrc/rice_codes.cu"
 REPLACES = "flac_tpu/ops/bitunpack.py:201"     # _rice_kernel
 LIB_NAME = "rice_codes"
 SEG_MAX = 8
+STAGE_LANES = 128     # lanes a CTA (THREADS in the source)
+STAGE_ROWS = 768      # 16-word rows a CTA may stage: 48 KB
 
 launches = 0          # kernel launches of rice_codes_cuda in this process
 _lib = None
@@ -52,6 +61,9 @@ def _bound_library() -> ctypes.CDLL:
         lib.flac_rice_codes.argtypes = [p, ctypes.c_longlong, p, p, p, p] + [
             ctypes.c_int] * 6 + [p]
         lib.flac_rice_codes.restype = ctypes.c_int
+        lib.flac_rice_staged_ctas.argtypes = [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.flac_rice_staged_ctas.restype = ctypes.c_int
         lib.flac_probe_clz_shift.argtypes = [p, p, ctypes.c_int, p]
         lib.flac_probe_clz_shift.restype = ctypes.c_int
         _lib = lib
@@ -66,6 +78,33 @@ def _library() -> ctypes.CDLL:
         probe()
         _probed.add(dev)
     return lib
+
+
+def staged_ctas(lane_start, NROW: int) -> np.ndarray:
+    """The host mirror of K2's staging rule: for each CTA (STAGE_LANES
+    consecutive lanes, the last one partial), whether it stages its span in
+    shared memory.  A CTA stages when the rows its lanes' windows cover,
+    from the least lane_start >> 9 to the greatest plus NROW, number at most
+    STAGE_ROWS."""
+    rows = np.asarray(lane_start, np.int32).astype(np.int64) >> 9
+    n = -(-len(rows) // STAGE_LANES)
+    pad = n * STAGE_LANES - len(rows)
+    lo = np.pad(rows, (0, pad), constant_values=rows.max(initial=0))
+    hi = np.pad(rows, (0, pad), constant_values=rows.min(initial=0))
+    lo = lo.reshape(n, STAGE_LANES).min(axis=1)
+    hi = hi.reshape(n, STAGE_LANES).max(axis=1)
+    return hi - lo + NROW <= STAGE_ROWS
+
+
+def staged_ctas_count() -> int:
+    """The kernel's own count of CTAs that took the staged path, on the
+    current GPU, since the library was loaded (it synchronises)."""
+    lib = _bound_library()
+    torch.cuda.synchronize()
+    out = ctypes.c_longlong(0)
+    kernels.check(lib.flac_rice_staged_ctas(ctypes.byref(out)),
+                  "flac_rice_staged_ctas")
+    return out.value
 
 
 def probe_expected(v: np.ndarray) -> np.ndarray:
@@ -122,6 +161,8 @@ def rice_codes_cuda(words2d, lane_start, segs, *, T: int, NROW: int,
                          f"NROW={NROW}, T={T}")
     dev = words2d.device
     words = words2d.to(torch.int32).contiguous()    # keeps the low 32 bits
+    if words.data_ptr() % 16:                # cp.async copies 16 bytes
+        words = words.clone()
     ls = lane_start.to(torch.int32).contiguous()
     sg = segs[:, :SEG].to(torch.int32).contiguous()
     res = torch.empty((T, L), dtype=torch.int64 if wide else torch.int32,

@@ -17,7 +17,7 @@ from flac_tpu.ops import crc as jcrc
 from flac_tpu_torch import convert
 from flac_tpu_torch.ops import bitpack as tbp
 from flac_tpu_torch.ops import crc as tcrc
-from flac_tpu_torch.ops import pack_cuda
+from flac_tpu_torch.ops import pack_cuda, pack_synth
 
 # xdist runs several workers side by side, each with JAX's own threads;
 # one torch thread a worker keeps the port's many small CPU ops from
@@ -108,8 +108,9 @@ def test_k1_plain_dense_small_fields(interpret_pallas):
 
 
 def edge_cases64():
-    """63-bit fields, fields straddling three words, fields past W, and a
-    negative word index (dropped after one wrap by the reference)."""
+    """63-bit fields, fields straddling three words, fields past W, a
+    negative word index (dropped after one wrap by the reference), and the
+    cases of the kernel's cluster design (ops/pack_synth.py)."""
     rng = np.random.default_rng(63)
     out = []
     pb = np.full((4, 500), 63, np.int32)
@@ -129,7 +130,7 @@ def edge_cases64():
     pb = np.full((2, 40), 20, np.int32)
     pay = rng.integers(0, 1 << 20, (2, 40), dtype=np.int64)
     out.append(("negative", nz, pay, pb, 64))
-    return out
+    return out + pack_synth.cluster_cases()
 
 
 @pytest.mark.parametrize("case", edge_cases64(), ids=lambda c: c[0])

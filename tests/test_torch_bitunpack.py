@@ -7,9 +7,12 @@ branch on the CPU (its Pallas kernel is probed away there), on the tile
 tables of a stream the port encodes and on the synthetic lanes of
 `ops/rice_synth.py` (second-stage unary runs, runs of 128 or more, raw
 widths 0 to 63, a lane past its window, a lane that spends all its segment
-slots).  Both share one compile per width: same shapes, same static
-arguments.  The CUDA kernel needs a GPU: test_torch_rice_cuda.py holds it
-against the plain version there.
+slots), and on the staging lanes of `rice_synth.staging_lanes` (CTAs in
+reverse stream order, spread past the staging budget, a staged span past
+the last row, reservoir refills, long skips, a partial last CTA).  The
+host mirror of the kernel's staging rule (`rice_cuda.staged_ctas`) is
+checked on a real -5 batch and on those tables.  The CUDA kernel needs a
+GPU: test_torch_rice_cuda.py holds it against the plain version there.
 """
 
 import jax.numpy as jnp
@@ -129,6 +132,75 @@ def test_restore_undo_body_matches_reference(mode):
         np.testing.assert_array_equal(g.numpy(), w)
     oor = np.asarray(want[1])
     assert oor.any() and not oor.all()
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_staging_lanes_match_reference(wide):
+    """The staging lanes as one-tile mono subframes of order 0 (the restore
+    is the identity): codes and ovf bit-identical to flac_tpu's XLA
+    branch."""
+    words2d, lane_start, segs = rice_synth.staging_lanes(4, wide=wide)
+    L = len(lane_start)
+    assert L % rice_synth.CTA_LANES                  # a partial last CTA
+    zeros = np.zeros(L, np.int32)
+    arrays = (words2d, lane_start, segs, zeros, zeros,
+              np.zeros((L, 1), np.int32), zeros, zeros)
+    static = dict(T=rice_synth.T, NROW=rice_synth.STAGING_NROW,
+                  SEG=rice_synth.SEG, blocksize=rice_synth.T, channels=1,
+                  max_order=1, wide=wide, out16=False, bps=0)
+    want = jbu.rice_decode_restore(
+        jnp.asarray(words2d.view(np.uint32)),
+        *[jnp.asarray(a) for a in arrays[1:]], **static)
+    got = tbu.rice_decode_restore(*[torch.from_numpy(a) for a in arrays],
+                                  **static)
+    for what, w, g in zip(("pcm", "oor", "lane_ovf"), want, got):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype, what
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=what)
+    ovf = np.asarray(want[2])
+    assert ovf.sum() == 1 and ovf[rice_synth.CTA_LANES - 1]
+    # the last lane decodes into the clamped rows past the stream's end
+    last = np.asarray(want[0])[-1, 0]
+    assert np.count_nonzero(last[10:]) > 50
+
+
+def real_batch(frames=12):
+    """The host arrays of a -5 batch of stereo 4096-sample frames from the
+    port's encoder on the CPU, as the device engine builds them."""
+    pcm = signals.make_test_signal(4096 * frames, seed=5)
+    data = encode_file_to_flac(pcm, EncoderConfig.from_preset(5),
+                               device="cpu")
+    st, pos = parse_metadata(data, 4)
+    found = scan_frames(data, st, pos)
+    arr = np.frombuffer(data, np.uint8)
+    prep = tdd._prep_batch(arr, found, list(range(frames)), 4096, 2)
+    arrays, kw = tdd.batch_inputs(arr, *prep)
+    return arrays, kw
+
+
+def test_staged_ctas_mirror():
+    """Every CTA of a real -5 batch stages its span, in stream order and
+    reversed (two frames' lanes a CTA, however ordered); lanes shuffled
+    over the whole batch (137 KB) and the spread CTA of the staging lanes
+    read global memory; the partial last CTA counts."""
+    arrays, kw = real_batch()
+    ls = arrays[1]
+    n = -(-len(ls) // rice_cuda.STAGE_LANES)
+    assert n == 6 and arrays[0].nbytes > 2 * 1024 * 48
+    assert rice_cuda.staged_ctas(ls, kw["NROW"]).tolist() == [True] * n
+    assert rice_cuda.staged_ctas(ls[::-1], kw["NROW"]).all()
+    shuffled = np.random.default_rng(0).permutation(ls)
+    assert not rice_cuda.staged_ctas(shuffled, kw["NROW"]).any()
+    for wide in (False, True):
+        _, lane_start, _ = rice_synth.staging_lanes(4, wide=wide)
+        assert rice_cuda.staged_ctas(
+            lane_start, rice_synth.STAGING_NROW).tolist() == [
+                True, True, False, True]
+    # the rule's edge: a span of exactly STAGE_ROWS rows stages
+    edge = np.array([0, (rice_cuda.STAGE_ROWS - 5) << 9], np.int32)
+    assert rice_cuda.staged_ctas(edge, 5).tolist() == [True]
+    assert rice_cuda.staged_ctas(edge + 512 * np.array([0, 1]),
+                                 5).tolist() == [False]
 
 
 def test_rice_codes_wrapper_uses_the_plain_version_on_the_cpu():

@@ -18,7 +18,7 @@ import torch
 
 from flac_tpu_torch import EncoderConfig, ref_decoder, signals
 from flac_tpu_torch.encoder import StreamEncoder
-from flac_tpu_torch.ops import bitpack, pack_cuda
+from flac_tpu_torch.ops import bitpack, pack_cuda, pack_synth
 
 pytestmark = pytest.mark.gpu
 
@@ -32,7 +32,8 @@ def cuda():
 
 def cases():
     """Random fields, 63-bit fields, three-word straddles, fields past W,
-    negative positions, and many tiny fields."""
+    negative positions, many tiny fields, a frame wider than one CTA's
+    tile, and the cluster cases."""
     rng = np.random.default_rng(1)
     out = []
     pb = rng.integers(0, 61, (8, 640)).astype(np.int32)
@@ -67,7 +68,7 @@ def cases():
         (np.int64(1) << pb.astype(np.int64)) - 1)
     out.append(("two-tiles", np.zeros((2, 15000), np.int32), pay, pb,
                 32768))
-    return out
+    return out + pack_synth.cluster_cases()
 
 
 @pytest.mark.parametrize("case", cases(), ids=lambda c: c[0])

@@ -21,7 +21,7 @@ from flac_tpu_torch.encoder import StreamEncoder, encode_file_to_flac
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "flac_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "kernel_variants.py"]
 
 
 def test_import_leaves_no_jax_or_flac_tpu():
@@ -172,3 +172,57 @@ def test_chip_smoke_fails_without_gpu_or_package(where, tmp_path, no_gpu):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_kernel_variants_fails_without_gpu(no_gpu):
+    """The variant timer exits non-zero without a GPU."""
+    out = subprocess.run([sys.executable, str(REPO / "kernel_variants.py")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA GPU" in out.stderr
+
+
+@pytest.mark.parametrize("source, name, value", [
+    ("rice_codes.cu", "THREADS", "STAGE_LANES"),
+    ("rice_codes.cu", "STAGE_ROWS", "STAGE_ROWS"),
+    ("pack_fields64.cu", "CLUSTER", "CLUSTER"),
+    ("pack_fields64.cu", "TILE_WORDS_MAX", "TILE_WORDS_MAX")])
+def test_host_mirrors_match_the_kernel_sources(source, name, value):
+    """The constants that the host mirrors of the kernels' rules
+    (rice_cuda.staged_ctas, pack_cuda.rank_words) copy are the sources'."""
+    import re
+
+    from flac_tpu_torch.ops import pack_cuda, rice_cuda
+    text = (REPO / "flac_tpu_torch" / "csrc" / source).read_text()
+    consts = {m[0]: m[1] for m in re.findall(
+        r"constexpr int (\w+) = ([^;]+);", text)}
+    expr = consts[name]
+    for _ in range(3):                   # constants defined by constants
+        expr = re.sub(r"[A-Z_]{3,}", lambda m: f"({consts[m[0]]})", expr)
+    module = rice_cuda if source == "rice_codes.cu" else pack_cuda
+    assert eval(expr) == getattr(module, value)
+
+
+def test_chip_smoke_reads_the_ptxas_report():
+    """Registers, spills and static shared memory per kernel, from nvcc's
+    -Xptxas -v report as ptxas 12.x prints it."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    fn = "_ZN4anon17rice_codes_kernelILb0EEEv"
+    report = (
+        "ptxas info    : 8 bytes gmem\n"
+        f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {fn}\n"
+        "    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 1 barriers, 32 bytes smem\n"
+        "ptxas info    : Compiling entry function 'probe' for 'sm_90a'\n"
+        "ptxas info    : Used 12 registers, used 0 barriers\n")
+    assert chip_smoke.ptxas_usage(report, "rice_codes_kernel") == {
+        fn: {"spill_stores": 4, "spill_loads": 8, "registers": 32,
+             "smem_static_bytes": 32}}
+    assert chip_smoke.ptxas_usage(report, "probe") == {
+        "probe": {"registers": 12, "smem_static_bytes": 0}}

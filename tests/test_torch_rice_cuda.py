@@ -1,5 +1,6 @@
 """Kernel K2 (csrc/rice_codes.cu) and its probe P2 against the plain
-PyTorch version, on a CUDA GPU.
+PyTorch version, on a CUDA GPU, with the kernel's count of staged CTAs
+against the host mirror of its staging rule.
 
 Every test here carries the `gpu` marker and skips without a GPU; the
 kernel has no CPU mode (its plain version is held against flac_tpu in
@@ -32,7 +33,10 @@ def cuda():
 
 
 def _same(args, kw):
+    """K2 against its plain version; the kernel's count of staged CTAs must
+    move by what the host mirror of its rule predicts."""
     before = rice_cuda.launches
+    staged_before = rice_cuda.staged_ctas_count()
     kres, kovf = rice_cuda.rice_codes(*args, **kw)
     pres, povf = bitunpack.rice_codes_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -41,6 +45,8 @@ def _same(args, kw):
     assert torch.equal(kovf, povf)
     ok = ~povf
     assert torch.equal(kres[:, ok], pres[:, ok])
+    staged = rice_cuda.staged_ctas(args[1].cpu().numpy(), kw["NROW"])
+    assert rice_cuda.staged_ctas_count() - staged_before == staged.sum()
     return povf
 
 
@@ -56,6 +62,19 @@ def test_k2_matches_plain_synthetic(cuda, wide, lanes):
     assert ovf.any()
 
 
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_k2_matches_plain_staging_lanes(cuda, wide):
+    """Reverse-order, spread (global path) and partial CTAs, staged spans
+    past the last row, refills, runs of 31-127, skips of 60,000+ bits."""
+    arrays = rice_synth.staging_lanes(6, wide=wide)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    ovf = _same(args, dict(T=rice_synth.T, NROW=rice_synth.STAGING_NROW,
+                           SEG=rice_synth.SEG, wide=wide))
+    assert rice_cuda.staged_ctas(arrays[1], rice_synth.STAGING_NROW).tolist(
+        ) == [True, True, False, True]
+    assert int(ovf.sum()) == 1
+
+
 @pytest.mark.parametrize("preset", [5, 8])
 def test_k2_matches_plain_on_a_stream(cuda, preset):
     pcm = signals.make_test_signal(4096 * 20 + 999, seed=preset)
@@ -69,6 +88,7 @@ def test_k2_matches_plain_on_a_stream(cuda, preset):
         arrays, kw = dd.batch_inputs(arr, *prep)
         args = [torch.from_numpy(a).to(cuda) for a in arrays[:3]]
         _same(args, dict(T=128, NROW=kw["NROW"], SEG=kw["SEG"], wide=wide))
+        assert rice_cuda.staged_ctas(arrays[1], kw["NROW"]).all()
 
 
 def test_p2_probe(cuda):
