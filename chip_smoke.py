@@ -7,39 +7,53 @@
 Phases, in order, each printing one JSON line; any failure exits non-zero:
 
 1. device:  the GPU's name, and nvidia-smi's name and power limit line.
-2. build:   nvcc builds both kernel sources of flac_tpu_torch/csrc/
-            (pack_fields64.cu, rice_codes.cu; one nvcc each, started
-            together) while g++ builds the native host runtime; the probes
-            P1 and P2 run; each kernel's registers, spills and static
-            shared memory from ptxas.
+2. build:   nvcc builds the three kernel sources of flac_tpu_torch/csrc/
+            (pack_fields64.cu, rice_codes.cu, restore.cu; one nvcc each,
+            started together) while g++ builds the native host runtime; the
+            probes P1 and P2 run; each kernel's registers, spills and
+            static shared memory from ptxas (K3 must not spill).
 3. kernels: each kernel against its plain PyTorch version on the GPU:
             K1 bit-identical on random, edge, cluster (ops/pack_synth.py)
             and real-shape field lists; K2 (narrow and wide) on the tile
             tables of real -5 and -8 streams, on synthetic bitstreams and
             on the staging lanes (ops/rice_synth.py): `ovf` identical on
-            every lane, the codes on every lane without it.
+            every lane, the codes on every lane without it; K3 bit-identical
+            (PCM and flags) on the corners of ops/restore_synth.py (every
+            order bucket, int32 wrap, wide int64, int16 narrowing, 1, 2 and
+            6 channels with every stereo assignment) and on the first
+            native.parse_frames batch of the -5 and -8 clips.
 4. main:    the main path at full size: a 180 s 44.1 kHz 16-bit stereo
             track encoded at -5 (blocksize 4096, 64 frames a batch) on the
-            GPU, then decoded on the GPU by decode_stream_tpu(engine=
-            "device") (1024 frames a batch), each with the kernels' launch
-            counts (and K2's count of CTAs that staged) read just after;
-            the decode must give the samples back with a matching MD5 and
-            equal the port's host engine; every CTA of every K2 launch
-            must have staged, as the host mirror of the rule predicts.
+            GPU, then decoded on the GPU 1024 frames a batch by
+            decode_stream_tpu with engine "device" (K2 and K3) and with
+            engine "fast" (the native full parse and K3), each with the
+            kernels' launch counts (and K2's count of CTAs that staged)
+            read just after; each decode must give the samples back with a
+            matching MD5, equal the port's host engine and launch K3 once a
+            decode batch; every CTA of every K2 launch must have staged, as
+            the host mirror of the rule predicts.  The MB/s of the three
+            engines, the link probe and the engine "auto" picks.
 5. ab:      a 20 s clip at -5 through the plain packer must give the same
             bytes as through the kernel; -5, -0 and -8 clips and a transient
             clip (which sends frames through the safe re-encode) must
             round-trip through the reference decoder and through the device
-            decode on the GPU.
+            decode on the GPU; a tolerant decode on the GPU of the -5 clip
+            with a corrupted and a cut frame must equal the host engine's
+            (samples and errors); the "scan" engine on the GPU must equal
+            the host engine on a short -0 clip (blocksize 1152).
 6. times:   each kernel at the main path's shapes: `ms`, its device time
-            per launch (torch.profiler), `kernel_ms` and `plain_ms`, the
+            per launch (torch.profiler; CUDA events around calls queued
+            behind a sleep kernel, `ms_queued_events`, beside it, and in
+            its place where three traces miss launches, as `ms_by` says),
+            `kernel_ms` and `plain_ms`, the
             kernel's and its plain version's time per call (CUDA events
             around back-to-back calls), and its bound, printed as one
             `kernels` line with each kernel's ptxas usage, K1's cluster
             size and K2's staged CTAs per main-path launch.
-7. profile: torch.profiler over a 10 s encode and a 10 s decode: the
-            device's busy share, time by stage (the flac.* ranges) and the
-            top kernels; the tables go to OUT_DIR/profile_*.txt.
+7. profile: torch.profiler over a 10 s encode and 10 s decodes with the
+            "device" and "fast" engines: the device's busy share, time by
+            stage (the flac.* ranges) and the top kernels; the tables go to
+            OUT_DIR/profile_*.txt.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
 register report, the profile tables) go to OUT_DIR, beside this script.
@@ -68,6 +82,11 @@ RATE = 44100
 TRACK_SECONDS = 180          # one album track: 31.75 MB of 16-bit stereo
 DECODE_BATCH = 1024          # frames a decode batch (the reference's)
 K2_OPS_PER_CODE = 30         # segment pop, 3 window reads, clz, shifts, zigzag
+# K3 a sample: a multiply and an add a tap of the subframe's order, then the
+# shift, the residual add, the wasted-bit shift, the stereo undo (~3) and
+# the two range compares
+K3_OPS_PER_TAP = 2
+K3_OPS_PER_SAMPLE = 8
 
 
 def ptxas_usage(report: str, kernel: str) -> dict:
@@ -125,24 +144,64 @@ def cuda_time_ms(fn, warmup: int = 5, runs: int = 25) -> float:
     return a.elapsed_time(b) / runs
 
 
-def kernel_device_ms(fn, kernel: str, runs: int = 25) -> float:
-    """Device milliseconds of one launch of the CUDA kernel whose name
-    contains `kernel`, from torch.profiler's trace of `runs` calls of `fn`
-    after a warm call: the kernel alone, without the host's launch gaps."""
+def queued_device_ms(fn, runs: int = 25) -> float:
+    """Device milliseconds of one call of `fn`: the median over `runs` calls
+    of CUDA events recorded just before and after each call, all queued
+    while a sleep kernel holds the stream, so that the card runs them back
+    to back and no host launch gap falls between a pair.  Counts whatever
+    else the call launches (a wrapper's fills) with the kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
+    held = torch.cuda.Event()
+    cycles = 1 << 26                     # ~35 ms at the H100's 1.98 GHz
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        held.record()
+        for a, b in pairs:
+            a.record()
             fn()
+            b.record()
+        # the sleep still running means every call was queued behind it
+        queued = not held.query()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in events)
-    if count != runs:
-        raise AssertionError(f"the profiler saw {count} launches of "
-                             f"{kernel}, expected {runs}")
-    return sum(_device_us(e, True) for e in events) / count / 1e3
+        if queued:
+            return statistics.median(a.elapsed_time(b) for a, b in pairs)
+        cycles *= 4
+    raise AssertionError("the host could not queue the calls within the "
+                         "longest sleep")
+
+
+def kernel_device_ms(fn, kernel: str, runs: int = 25,
+                     attempts: int = 3) -> dict:
+    """Device milliseconds of one launch of the CUDA kernel whose name
+    contains `kernel`: {"ms", "ms_by" (how "ms" was taken),
+    "ms_queued_events" (`queued_device_ms`, always taken beside it)}.
+    "ms" comes from torch.profiler's trace of `runs` calls of `fn` after a
+    warm call: the kernel alone, without the host's launch gaps.  CUPTI now
+    and then delivers no kernel record of a traced window; a trace that
+    does not hold exactly `runs` launches is taken again, and after
+    `attempts` such traces "ms" is the queued events' time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    queued = queued_device_ms(fn, runs)
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in events)
+        if count == runs:
+            return {"ms": sum(_device_us(e, True) for e in events) / count
+                    / 1e3, "ms_by": "torch.profiler",
+                    "ms_queued_events": queued}
+        emit({"phase": "times", "kernel": kernel, "trace": attempt,
+              "profiler_launches_seen": count, "expected": runs})
+    return {"ms": queued, "ms_by": "cuda events, calls queued",
+            "ms_queued_events": queued}
 
 
 # ---------------------------------------------------------------------------
@@ -203,13 +262,12 @@ def pack_cases():
 # phase 3 cases: K2 against its plain version
 # ---------------------------------------------------------------------------
 
-def decode_batch_inputs(stream: bytes, first_only: bool = False) -> list:
-    """The host arrays of each decode batch of `stream`, as the device
-    engine builds them (each (blocksize, channels) group in stream order,
-    DECODE_BATCH frames a batch): [((words2d, lane_start, segs), K2's
-    static arguments)], or only the first batch's."""
+def stream_batches(stream: bytes):
+    """The decode batches of `stream` as the engines form them (each
+    (blocksize, channels) group in stream order, DECODE_BATCH frames a
+    batch): yields (stream bytes as uint8, frames, frame indices,
+    blocksize, channels, bits per sample)."""
     import numpy as np
-    from flac_tpu_torch import decoder_device as dd
     from flac_tpu_torch.decoder import scan_frames
     from flac_tpu_torch.ref_decoder import parse_metadata
     st, pos = parse_metadata(stream, 4)
@@ -218,17 +276,26 @@ def decode_batch_inputs(stream: bytes, first_only: bool = False) -> list:
     for i, f in enumerate(frames):
         groups.setdefault((f["blocksize"], f["channels"]), []).append(i)
     arr = np.frombuffer(stream, np.uint8)
-    out = []
     for (blocksize, channels), idxs in groups.items():
         for lo in range(0, len(idxs), DECODE_BATCH):
-            prep = dd._prep_batch(arr, frames, idxs[lo:lo + DECODE_BATCH],
-                                  blocksize, channels)
-            arrays, kw = dd.batch_inputs(arr, *prep)
-            out.append((arrays[:3], dict(
-                T=dd._tile_T(blocksize), NROW=kw["NROW"], SEG=kw["SEG"],
-                wide=kw["wide"])))
-            if first_only:
-                return out
+            yield (arr, frames, idxs[lo:lo + DECODE_BATCH], blocksize,
+                   channels, st.bits_per_sample)
+
+
+def decode_batch_inputs(stream: bytes, first_only: bool = False) -> list:
+    """The host arrays of each decode batch of `stream` as the device
+    engine builds them: [((words2d, lane_start, segs), K2's static
+    arguments)], or only the first batch's."""
+    from flac_tpu_torch import decoder_device as dd
+    out = []
+    for arr, frames, idxs, blocksize, channels, _ in stream_batches(stream):
+        prep = dd._prep_batch(arr, frames, idxs, blocksize, channels)
+        arrays, kw = dd.batch_inputs(arr, *prep)
+        out.append((arrays[:3], dict(T=dd._tile_T(blocksize),
+                                     NROW=kw["NROW"], SEG=kw["SEG"],
+                                     wide=kw["wide"])))
+        if first_only:
+            break
     return out
 
 
@@ -271,6 +338,62 @@ def k2_cases(clips: dict):
                       rice_synth.staging_lanes(6, wide=wide),
                       dict(T=rice_synth.T, NROW=rice_synth.STAGING_NROW,
                            SEG=rice_synth.SEG, wide=wide)))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 3 cases: K3 against its plain version
+# ---------------------------------------------------------------------------
+
+RESTORE_KEYS = ("res", "order", "shift", "qlp", "wasted", "assignment")
+
+
+def restore_batch_inputs(stream: bytes, first_only: bool = False) -> list:
+    """The host arrays of each decode batch of `stream` as the "fast"
+    engine gives them to K3 (the native full parse, int16 residuals where
+    they fit): [(arrays, K3's static arguments)], or only the first
+    batch's."""
+    from flac_tpu_torch import decoder_fast as df
+    out = []
+    for arr, frames, idxs, blocksize, channels, bps in \
+            stream_batches(stream):
+        pg, asg = df._parse_batch(arr, frames, idxs, blocksize, channels)
+        arrays, kw = df.restore_inputs(pg, asg, blocksize, channels, bps)
+        out.append((dict(zip(RESTORE_KEYS, arrays)), kw))
+        if first_only:
+            break
+    return out
+
+
+def k3_compare(t: dict, kw) -> tuple[bool, int]:
+    """K3 and its plain version on the same GPU tensors (res cut to the
+    blocksize).  Returns (PCM and flags identical, max |difference|)."""
+    import torch
+    from flac_tpu_torch.ops import bitunpack, restore_cuda
+    args = (t["res"][:, :kw["blocksize"]], *(t[k] for k in RESTORE_KEYS[1:]))
+    kpcm, koor = restore_cuda.restore_undo(*args, **kw)
+    ppcm, poor = bitunpack.restore_undo_body(*args, **kw)
+    torch.cuda.synchronize()
+    same = (kpcm.dtype == ppcm.dtype and torch.equal(kpcm, ppcm)
+            and torch.equal(koor, poor))
+    err = 0 if same or kpcm.shape != ppcm.shape else int(
+        (kpcm.to(torch.int64) - ppcm.to(torch.int64)).abs().max())
+    return same, err
+
+
+def k3_cases(clips: dict):
+    """(label, host arrays, static arguments): the synthetic corners, then
+    the first parsed batch of each clip's stream, as the "fast" engine
+    gives it (int16 residuals, int16 PCM) and as the "device" engine does
+    (int32 residuals)."""
+    from flac_tpu_torch.ops import restore_synth
+    cases = list(restore_synth.cases())
+    for label, stream in clips.items():
+        [(arrays, kw)] = restore_batch_inputs(stream, first_only=True)
+        cases.append((f"{label} stream, first parsed batch", arrays, kw))
+        cases.append((f"{label} stream, int32 residuals, int32 PCM",
+                      dict(arrays, res=arrays["res"].astype("int32")),
+                      dict(kw, out16=False)))
     return cases
 
 
@@ -338,11 +461,12 @@ def decode_batches(frames: list) -> int:
     return sum(-(-n // DECODE_BATCH) for n in groups.values())
 
 
-def encode(pcm, level: int, **kw):
+def encode(pcm, level: int, blocksize: int = 4096, **kw):
     from flac_tpu_torch import EncoderConfig
     from flac_tpu_torch.encoder import StreamEncoder
     buf = io.BytesIO()
-    enc = StreamEncoder(buf, EncoderConfig.from_preset(level, blocksize=4096),
+    enc = StreamEncoder(buf, EncoderConfig.from_preset(level,
+                                                       blocksize=blocksize),
                         device="cuda", batch_frames=64, **kw)
     enc.process(pcm)
     enc.finish()
@@ -426,8 +550,9 @@ def main() -> int:
         from flac_tpu_torch import (EncoderConfig, decode_stream_tpu,
                                     kernels, native, signals)
         from flac_tpu_torch.models import frame as frame_mod
+        from flac_tpu_torch import decoder as decoder_mod
         from flac_tpu_torch.ops import bitpack, bitunpack, pack_cuda, \
-            rice_cuda
+            restore_cuda, rice_cuda
     except ImportError as e:
         return fail(f"the flac_tpu_torch package is not here ({e})")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -445,13 +570,14 @@ def main() -> int:
           "cuda": torch.version.cuda})
     print(smi, flush=True)
 
-    # ---- 2. build both kernel sources together, and the native runtime;
+    # ---- 2. build the kernel sources together, and the native runtime;
     # run the probes ----
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
         host_lib = pool.submit(native.lib)
-        reports = kernels.load_all(["pack_fields64", "rice_codes"])
+        reports = kernels.load_all(["pack_fields64", "rice_codes",
+                                    "restore"])
         build_s = time.perf_counter() - t0
         host_lib.result()
     host_s = time.perf_counter() - t0
@@ -464,10 +590,17 @@ def main() -> int:
     usage = {"pack_fields64": ptxas_usage(reports["pack_fields64"],
                                           "pack_fields64_kernel"),
              "rice_codes": ptxas_usage(reports["rice_codes"],
-                                       "rice_codes_kernel")}
+                                       "rice_codes_kernel"),
+             "restore": ptxas_usage(reports["restore"], "restore_kernel")}
     emit({"phase": "build", "nvcc_seconds": round(build_s, 2),
           "native_seconds": round(host_s, 2), "probes": ["P1", "P2"],
           "ptxas": usage})
+    k3_spills = {fn: u for fn, u in usage["restore"].items()
+                 if u.get("spill_stores") or u.get("spill_loads")}
+    if len(usage["restore"]) != 2 * len(restore_cuda.ORDER_BUCKETS) \
+            or k3_spills:
+        return fail(f"K3's instantiations (narrow and wide a bucket) spill "
+                    f"or are missing: {usage['restore']}")
 
     # ---- 3. each kernel against its plain version ----
     max_err = 0
@@ -497,6 +630,17 @@ def main() -> int:
         if not ok:
             return fail(f"K2 differs from its plain version on '{label}'")
         k2_err = max(k2_err, err)
+    k3_err = 0
+    for label, arrays, static in k3_cases(clips):
+        t = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+        ok, err = k3_compare(t, static)
+        emit({"phase": "kernels", "kernel": "restore", "case": label,
+              "subframes": int(arrays["res"].shape[0]),
+              "res": str(arrays["res"].dtype), **static,
+              "identical": ok, "max_abs_err": err})
+        if not ok:
+            return fail(f"K3 differs from its plain version on '{label}'")
+        k3_err = max(k3_err, err)
     if args.quick:
         emit({"phase": "done", "quick": True,
               "seconds": time.perf_counter() - t_start})
@@ -535,19 +679,20 @@ def main() -> int:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     staged_before = rice_cuda.staged_ctas_count()
-    rice_cuda.launches = 0
+    rice_cuda.launches = restore_cuda.launches = 0
     t0 = time.perf_counter()
     st = decode_stream_tpu(stream, max_batch=DECODE_BATCH)
     torch.cuda.synchronize()
     dec_wall = time.perf_counter() - t0
     k2_launches = rice_cuda.launches
+    k3_launches = restore_cuda.launches
     k2_staged = rice_cuda.staged_ctas_count() - staged_before
     batches = decode_batches(st.frames)
     emit({"phase": "main", "decode": "device", "warm_up_s": warm_s,
           "decode_wall_s": dec_wall,
           "decode_mb_per_s": pcm_bytes / 1e6 / dec_wall,
           "encode_mb_per_s": enc_mbps, "frames": len(st.frames),
-          "launches": {"rice_codes": k2_launches},
+          "launches": {"rice_codes": k2_launches, "restore": k3_launches},
           "decode_batches": batches})
     if not st.md5_ok or not np.array_equal(st.samples, pcm):
         return fail("the device decode of the main track differs from the "
@@ -555,6 +700,9 @@ def main() -> int:
     if k2_launches <= 0 or k2_launches != batches:
         return fail(f"K2 launched {k2_launches} times on the main path, "
                     f"expected one per decode batch ({batches})")
+    if k3_launches != batches:
+        return fail(f"K3 launched {k3_launches} times in the device "
+                    f"engine's decode, expected one per batch ({batches})")
     # the staged CTAs of each main-path launch, by the host mirror of the
     # kernel's rule; their sum must be the kernel's own count
     per_launch = []
@@ -571,12 +719,47 @@ def main() -> int:
         return fail(f"not every CTA of the main path's K2 launches staged: "
                     f"{per_launch}")
     t0 = time.perf_counter()
+    decode_stream_tpu(stream, engine="fast")                 # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rice_cuda.launches = restore_cuda.launches = 0
+    t0 = time.perf_counter()
+    fast = decode_stream_tpu(stream, engine="fast", max_batch=DECODE_BATCH)
+    torch.cuda.synchronize()
+    fast_wall = time.perf_counter() - t0
+    k3_fast_launches = restore_cuda.launches
+    emit({"phase": "main", "decode": "fast", "warm_up_s": warm_s,
+          "decode_wall_s": fast_wall,
+          "decode_mb_per_s": pcm_bytes / 1e6 / fast_wall,
+          "launches": {"rice_codes": rice_cuda.launches,
+                       "restore": k3_fast_launches},
+          "decode_batches": batches})
+    if not fast.md5_ok or not np.array_equal(fast.samples, pcm):
+        return fail("the fast engine's decode of the main track differs "
+                    "from the input")
+    if k3_fast_launches != batches or rice_cuda.launches:
+        return fail(f"the fast engine launched K3 {k3_fast_launches} times "
+                    f"(expected {batches}) and K2 {rice_cuda.launches} "
+                    "times (expected 0)")
+    decode_stream_tpu(stream, engine="host")                 # warm-up
+    t0 = time.perf_counter()
     host = decode_stream_tpu(stream, engine="host")
     host_s = time.perf_counter() - t0
     if not np.array_equal(host.samples, st.samples):
         return fail("the host engine's decode differs from the device's")
+    cores = os.cpu_count() or 1
+    link = decoder_mod.probe_link_bandwidth("cuda")
     emit({"phase": "main", "round_trip": "ok", "md5": "match",
-          "host_engine": "equal", "host_decode_s": host_s})
+          "host_engine": "equal", "host_decode_s": host_s,
+          "decode_mb_per_s": {"device": pcm_bytes / 1e6 / dec_wall,
+                              "fast": pcm_bytes / 1e6 / fast_wall,
+                              "host": pcm_bytes / 1e6 / host_s},
+          "cpu_count": cores,
+          "host_mb_per_s_per_core": pcm_bytes / 1e6 / host_s
+          / min(cores, 8),
+          "link_mb_per_s": link,
+          "auto_picks": decoder_mod._pick_engine(st.frames,
+                                                 torch.device("cuda"))})
 
     # ---- 5. A/B through the path ----
     clip = signals.make_test_signal(20 * RATE, seed=20)
@@ -606,6 +789,42 @@ def main() -> int:
           "device_decode_s": device_round_trip(s, burst)})
     if benc.misfit_frames <= 0:
         return fail("the transient clip sent no frame to the safe re-encode")
+    # tolerant decoding on the GPU: a corrupted and a cut frame
+    frames = decode_stream_tpu(s_kernel, engine="host").frames
+    bad = bytearray(s_kernel)
+    f3, f7 = frames[3], frames[7]
+    bad[f3["offset"] + f3["size"] // 2] ^= 0x10
+    bad = bytes(bad[:f7["offset"] + f7["size"] // 2]
+                + bad[f7["offset"] + f7["size"]:])
+    want = decode_stream_tpu(bad, tolerant=True, engine="host")
+    for engine in ("device", "fast"):
+        t0 = time.perf_counter()
+        got = decode_stream_tpu(bad, tolerant=True, engine=engine)
+        torch.cuda.synchronize()
+        tol_s = time.perf_counter() - t0
+        same = (np.array_equal(got.samples, want.samples)
+                and got.errors == want.errors)
+        emit({"phase": "ab", "case": f"tolerant decode, {engine} engine",
+              "equal_to_host": same, "errors": got.errors,
+              "decode_s": tol_s})
+        if not same or len(got.errors) < 2:
+            return fail(f"the tolerant {engine} decode differs from the "
+                        "host engine's, or found too few errors")
+    # the "scan" engine (plain torch ops, the oracle) on a short -0 clip
+    short0 = signals.make_test_signal(RATE, seed=0)
+    s0, _ = encode(short0, 0, blocksize=1152)
+    t0 = time.perf_counter()
+    got = decode_stream_tpu(s0, engine="scan")
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    host0 = decode_stream_tpu(s0, engine="host")
+    same = (got.md5_ok and np.array_equal(got.samples, host0.samples)
+            and np.array_equal(got.samples, short0))
+    emit({"phase": "ab", "case": "scan engine, 1 s at -0, blocksize 1152",
+          "equal_to_host": same, "frames": len(got.frames),
+          "decode_s": scan_s})
+    if not same:
+        return fail("the scan engine's decode differs from the host's")
 
     # ---- 6. times at the main path's shapes ----
     captured = {}
@@ -636,7 +855,7 @@ def main() -> int:
     kernel_ms2 = cuda_time_ms(lambda: pack_cuda.pack_fields64(
         nz, pay, pb, W))
     plain_ms2 = cuda_time_ms(lambda: bitpack.pack_fields64(nz, pay, pb, W))
-    k1_device_ms = kernel_device_ms(lambda: pack_cuda.pack_fields64(
+    k1_dev = kernel_device_ms(lambda: pack_cuda.pack_fields64(
         nz, pay, pb, W), "pack_fields64_kernel")
     # each input read once (nzeros, payload, pbits), each output written
     # once: the deposit's words are uint32 (that the kernel stores them
@@ -648,14 +867,14 @@ def main() -> int:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
     emit({"phase": "times", "kernel": "pack_fields64", "B": B, "S": S,
-          "W": W, "device_ms": k1_device_ms,
+          "W": W, "device_ms": k1_dev["ms"],
           "kernel_ms_runs": [kernel_ms, kernel_ms2],
           "plain_ms_runs": [plain_ms, plain_ms2], "bytes": nbytes,
           "operations": nops})
     k1 = {"name": "pack_fields64", "route": "cuda",
           "source": pack_cuda.SOURCE, "replaces": pack_cuda.REPLACES,
           "launches": k1_launches, "max_abs_err": max_err,
-          "ms": k1_device_ms,
+          **k1_dev,
           "kernel_ms": min(kernel_ms, kernel_ms2),
           "plain_ms": min(plain_ms, plain_ms2),
           "bound_ms": max(bytes_ms, ops_ms),
@@ -684,7 +903,7 @@ def main() -> int:
     kernel_ms = cuda_time_ms(k2_kernel)
     kernel_ms2 = cuda_time_ms(k2_kernel)
     plain_ms2 = cuda_time_ms(k2_plain, warmup=1, runs=5)
-    k2_device_ms = kernel_device_ms(k2_kernel, "rice_codes_kernel")
+    k2_dev = kernel_device_ms(k2_kernel, "rice_codes_kernel")
     # each input read once (the batch's stream words, lane_start, the SEG
     # segment slots of each lane), each output written once (res [T, L]
     # int32 or int64, ovf one byte a lane); the operations count the codes
@@ -701,14 +920,14 @@ def main() -> int:
     emit({"phase": "times", "kernel": "rice_codes", "L": L, "T": T,
           "NROW": k2kw["NROW"], "SEG": SEG, "wide": k2kw["wide"],
           "codes": codes, "ovf_lanes": n_ovf,
-          "staged_ctas_per_launch": per_launch, "device_ms": k2_device_ms,
+          "staged_ctas_per_launch": per_launch, "device_ms": k2_dev["ms"],
           "kernel_ms_runs": [kernel_ms, kernel_ms2],
           "plain_ms_runs": [plain_ms, plain_ms2], "bytes": nbytes,
           "operations": nops})
     k2 = {"name": "rice_codes", "route": "cuda",
           "source": rice_cuda.SOURCE, "replaces": rice_cuda.REPLACES,
           "launches": k2_launches, "max_abs_err": k2_err,
-          "ms": k2_device_ms,
+          **k2_dev,
           "kernel_ms": min(kernel_ms, kernel_ms2),
           "plain_ms": min(plain_ms, plain_ms2),
           "bound_ms": max(bytes_ms, ops_ms),
@@ -718,7 +937,76 @@ def main() -> int:
           "staged_ctas_per_launch": per_launch,
           "smem_dynamic_bytes": rice_cuda.STAGE_ROWS * 64,
           "ptxas": usage["rice_codes"]}
-    emit({"kernels": [k1, k2]})
+
+    # K3 on the main path's first full decode batch, as the device engine
+    # gives it: K2's codes as the [S, N] residual matrix, int16 PCM out
+    from flac_tpu_torch import decoder_device as dd
+    arr = np.frombuffer(stream, np.uint8)
+    prep = dd._prep_batch(arr, st.frames, list(range(DECODE_BATCH)), 4096, 2)
+    barrays, bkw = dd.batch_inputs(arr, *prep)
+    tensors = [torch.from_numpy(a).cuda() for a in barrays]
+    res_tl, _ = rice_cuda.rice_codes(*tensors[:3], T=dd._tile_T(4096),
+                                     NROW=bkw["NROW"], SEG=bkw["SEG"],
+                                     wide=bkw["wide"])
+    S = tensors[3].shape[0]
+    k3t = dict(zip(RESTORE_KEYS, [res_tl.t().reshape(S, -1)[:, :4096],
+                                  *tensors[3:]]))
+    k3kw = dict(blocksize=4096, channels=2, max_order=bkw["max_order"],
+                wide=bkw["wide"], out16=True, bps=16)
+    ok, err = k3_compare(k3t, k3kw)
+    if not ok:
+        return fail("K3 differs from its plain version on the main path's "
+                    "first batch")
+    k3_err = max(k3_err, err)
+    k3args = (k3t["res"], *(k3t[k] for k in RESTORE_KEYS[1:]))
+
+    def k3_kernel():
+        restore_cuda.restore_undo(*k3args, **k3kw)
+
+    def k3_plain():
+        bitunpack.restore_undo_body(*k3args, **k3kw)
+    plain_ms = cuda_time_ms(k3_plain, warmup=0, runs=1)
+    kernel_ms = cuda_time_ms(k3_kernel)
+    kernel_ms2 = cuda_time_ms(k3_kernel)
+    plain_ms2 = cuda_time_ms(k3_plain, warmup=0, runs=1)
+    k3_dev = kernel_device_ms(k3_kernel, "restore_kernel")
+    # the fast engine's input: int16 residuals of the same frames
+    [(farrays, fkw)] = restore_batch_inputs(stream, first_only=True)
+    ft = {k: torch.from_numpy(v).cuda() for k, v in farrays.items()}
+    fargs = (ft["res"], *(ft[k] for k in RESTORE_KEYS[1:]))
+    k3_fast_ms = kernel_device_ms(
+        lambda: restore_cuda.restore_undo(*fargs, **fkw),
+        "restore_kernel")["ms"]
+    # each input read once (res as the device engine hands it over, in
+    # int32; order, shift, wasted, the taps, the assignments), each output
+    # written once (int16 PCM, a flag a frame); the operations count each
+    # subframe's own order, not the bucket's
+    N = 4096
+    B = S // 2
+    order_np = barrays[3].astype(np.int64)
+    nbytes = (S * N * 4 + S * 4 * 3 + S * bkw["max_order"] * 4 + B * 4
+              + S * N * 2 + B)
+    nops = int(N * (K3_OPS_PER_TAP * order_np + K3_OPS_PER_SAMPLE).sum())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
+    emit({"phase": "times", "kernel": "restore", "S": S, "N": N,
+          "max_order": bkw["max_order"], "device_ms": k3_dev["ms"],
+          "device_ms_fast_engine_input": k3_fast_ms,
+          "kernel_ms_runs": [kernel_ms, kernel_ms2],
+          "plain_ms_runs": [plain_ms, plain_ms2], "bytes": nbytes,
+          "operations": nops})
+    k3 = {"name": "restore", "route": "cuda",
+          "source": restore_cuda.SOURCE, "replaces": restore_cuda.REPLACES,
+          "launches": k3_launches, "launches_fast_engine": k3_fast_launches,
+          "max_abs_err": k3_err, **k3_dev,
+          "kernel_ms": min(kernel_ms, kernel_ms2),
+          "plain_ms": min(plain_ms, plain_ms2),
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+          "library_ms": None,
+          "library_note": "no PyTorch call computes an integer IIR restore",
+          "ptxas": usage["restore"]}
+    emit({"kernels": [k1, k2, k3]})
 
     # ---- 7. where the time goes in a steady encode and decode ----
     short = signals.make_test_signal(10 * RATE, seed=7)
@@ -728,7 +1016,12 @@ def main() -> int:
     short_stream, _ = encode(short, 5)
     emit(profile_run(lambda: decode_stream_tpu(short_stream), "decode",
                      ("flac.tile_scan", "flac.upload", "flac.codes",
-                      "flac.restore", "flac.fetch"), ("rice_codes_kernel",)))
+                      "flac.restore", "flac.fetch"),
+                     ("rice_codes_kernel", "restore_kernel")))
+    emit(profile_run(lambda: decode_stream_tpu(short_stream, engine="fast"),
+                     "decode_fast",
+                     ("flac.parse", "flac.upload", "flac.restore",
+                      "flac.fetch"), ("restore_kernel",)))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": dev_info})

@@ -4,9 +4,11 @@ A second package beside the JAX reference (`flac_tpu`): the same batched
 encoder (presets -0..-8, mono to 8 channels, 8-24 bit) as plain PyTorch
 tensor code on an explicit device, with the bit-pack deposit of the
 quad layout as a hand-written CUDA kernel (`csrc/pack_fields64.cu`); and
-the device decode engine (`decode_stream_tpu`): the native tile skip-walk
-on the host, the Rice code scan as a hand-written CUDA kernel
-(`csrc/rice_codes.cu`), restore and stereo undo as PyTorch ops.
+the decoder (`decode_stream_tpu`, strict or tolerant) with its engines:
+"device" (the native tile skip-walk on the host, the Rice code scan
+`csrc/rice_codes.cu` and the restore `csrc/restore.cu` as hand-written CUDA
+kernels), "fast" (the native full parse, then the restore kernel), "host"
+(all-CPU native), "scan" (plain torch ops, the oracle) and "auto".
 
 Entry points run on the GPU unless the caller passes `device="cpu"`; they
 raise when asked for a GPU that is not there.

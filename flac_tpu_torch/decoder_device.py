@@ -8,8 +8,8 @@ Port of flac_tpu/decoder_device.py.  Per batch of same-shape frames:
           wait for a batch's walk, the part the pool does not hide;
   upload: the batch's slice of the COMPRESSED stream as big-endian words
           in 16-word rows, plus the lane and subframe tables (flac.upload);
-  device: kernel K2 decodes the codes (flac.codes), the batched LPC restore
-          and stereo undo run as torch ops (flac.restore);
+  device: kernel K2 decodes the codes (flac.codes), kernel K3 runs the
+          batched LPC restore and stereo undo (flac.restore);
   fetch:  `.cpu()` of the PCM and the flags (flac.fetch), then the commit:
           status handling, host re-decode of overflowing frames, MD5.
 
@@ -27,14 +27,13 @@ import torch
 from torch.profiler import record_function
 
 from . import native
-from .decoder_fast import StreamHasher, _group_arrays
+from .decoder_fast import _PIPELINE_DEPTH, StreamHasher, _group_arrays
+from .ops import restore_cuda
 from .ops.bitunpack import rice_decode_restore
 from .ref_decoder import DecodedStream, FlacDecodeError
 
-_ORDER_BUCKETS = (1, 2, 4, 8, 12, 16, 32)
 _NROW_BUCKETS = (2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 48, 64)
 _SEG_BUCKETS = (2, 4, 6, 8)
-_PIPELINE_DEPTH = 3     # batches the tile scan runs ahead, and in flight
 
 
 def _bucket(v: int, buckets) -> int:
@@ -86,7 +85,7 @@ def batch_inputs(arr, tg, offsets, sizes, asg):
     NROW = _bucket(-(-(tg.max_tile_bits + 511 + 160) // 512),
                    _NROW_BUCKETS)
     SEG = _bucket(tg.max_segs + 1, _SEG_BUCKETS)
-    mo = _bucket(int(tg.order.max(initial=0)), _ORDER_BUCKETS)
+    mo = restore_cuda.kernel_order(int(tg.order.max(initial=0)))
     arrays = (words2d, lane_start, np.ascontiguousarray(tg.segs[:, :SEG]),
               tg.order, tg.shift, np.ascontiguousarray(tg.qlp[:, :mo]),
               tg.wasted, asg)

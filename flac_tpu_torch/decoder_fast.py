@@ -1,10 +1,26 @@
-"""Host-side pieces of the batched decoders: the frame tables, the stream
-MD5, the all-CPU engine and the false-sync repair.
+"""The "fast" decode engine (native full parse + kernel K3 on the device)
+and the host-side pieces of the batched decoders: the frame tables, the
+stream MD5, the all-CPU engine and the false-sync repair.
 
-Port of the host half of flac_tpu/decoder_fast.py.  The "fast" engine
-itself (native full parse, then the batched restore on the device) is not
-ported yet; `decode_frame_list_host` is the all-CPU engine, the device
-engine's per-frame fallback, and an independent check of it.
+Port of flac_tpu/decoder_fast.py.  The fast engine splits each batch where
+the hardware boundary is:
+
+  host:   ft_parse_frames walks each frame's bits once on a pool of 2
+          threads that runs _PIPELINE_DEPTH batches ahead (ctypes releases
+          the GIL), extracting residuals and coefficients in the uniform
+          LPC-restore form and checking the CRC-16 (range flac.parse is the
+          main thread's wait for a batch's parse);
+  upload: the residuals, as int16 where they fit, and the subframe tables
+          (flac.upload);
+  device: the restore, wasted-bit shift, stereo undo and range check of
+          every subframe at once: kernel K3 (flac.restore);
+  fetch:  `.cpu()` of the PCM and the flags (flac.fetch), then the commit.
+
+Left out from the reference: the subframe-count padding (it exists to
+reuse XLA compiles) and the fetch pool with `copy_to_host_async` (it exists
+for the TPU's remote link).  `decode_frame_list_host` is the all-CPU
+engine, the device engine's per-frame fallback, and an independent check of
+both.
 """
 
 from __future__ import annotations
@@ -13,10 +29,37 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
+from torch.profiler import record_function
 
 from . import format as fmt
 from . import native
+from .ops import restore_cuda
 from .ref_decoder import DecodedStream, FlacDecodeError
+
+_PIPELINE_DEPTH = 3     # batches the host stage runs ahead, and in flight
+
+
+def restore_and_undo(res, order, shift, qlp, wasted, assignment, *,
+                     blocksize: int, channels: int, max_order: int,
+                     wide: bool = False, out16: bool = False, bps: int = 0):
+    """Uniform batched subframe restore + stereo undo (K3, through
+    `restore_cuda.restore_undo`: the plain version for CPU tensors).
+
+    res:        [S, N] int16/int32 (int64 when wide) normalized residuals
+    order/shift/wasted: [S] int32;  qlp: [S, max_order] int32
+    assignment: [B] int32 (S = B * channels)
+    Returns ([B, channels, N] PCM (int16 when out16, else int32/int64),
+             [B] bool out-of-range flags: the stream_decoder.c:2458-2472
+             bps-range lost-sync check, taken BEFORE any narrowing so that
+             wrapped int16 values cannot evade it).  bps=0 disables the
+             check.
+    """
+    with record_function("flac.restore"):
+        return restore_cuda.restore_undo(
+            res, order, shift, qlp, wasted, assignment, blocksize=blocksize,
+            channels=channels, max_order=max_order, wide=wide, out16=out16,
+            bps=bps)
 
 
 def _group_arrays(frames, idxs, channels):
@@ -45,6 +88,136 @@ def _group_arrays(frames, idxs, channels):
                  and c == 1))
             ch_bps[j, c] = f["bps"] + extra
     return offsets, start_bits, sizes, asg, ch_bps
+
+
+def _parse_batch(arr, frames, idxs, blocksize, channels):
+    """The native full parse of one batch (runs on the parse pool)."""
+    offsets, start_bits, sizes, asg, ch_bps = _group_arrays(
+        frames, idxs, channels)
+    wide = int(ch_bps.max()) >= 32 if len(idxs) else False
+    pg = native.parse_frames(arr, offsets, start_bits, sizes, ch_bps,
+                             blocksize, wide=wide)
+    return pg, asg
+
+
+def restore_inputs(pg, asg, blocksize: int, channels: int, bps: int):
+    """The host arrays of one parsed batch as `restore_and_undo` takes them:
+    (res, order, shift, qlp, wasted, assignment), res as int16 where every
+    value fits (halving the upload), and its static arguments."""
+    res = pg.res
+    if not pg.wide and res.max(initial=0) < 32768 \
+            and res.min(initial=0) >= -32768:
+        res = res.astype(np.int16)
+    mo = restore_cuda.kernel_order(int(pg.order.max(initial=0)))
+    arrays = (res, pg.order, pg.shift, np.ascontiguousarray(pg.qlp[:, :mo]),
+              pg.wasted, asg)
+    return arrays, dict(blocksize=blocksize, channels=channels,
+                        max_order=mo, wide=pg.wide,
+                        out16=(bps <= 16 and not pg.wide), bps=bps)
+
+
+def _dispatch_batch(pg, asg, blocksize, channels, bps, device):
+    """Upload one parsed batch and launch its restore.  Returns (pcm, oor)
+    on the device, in flight."""
+    arrays, kw = restore_inputs(pg, asg, blocksize, channels, bps)
+    with record_function("flac.upload"):
+        tensors = [torch.from_numpy(a).to(device) for a in arrays]
+    return restore_and_undo(*tensors, **kw)
+
+
+def decode_frame_list_fast(data, st: DecodedStream, frames: list, *,
+                           device, verify_crc: bool = True,
+                           max_batch: int = 1024,
+                           on_crc_error: str = "raise",
+                           md5_hasher: StreamHasher | None = None) -> list:
+    """Batched fast decode of an explicit frame-header list on `device`;
+    same contract as decoder.decode_frame_list ([C, N] int32 per frame,
+    None for frames dropped under on_crc_error="drop")."""
+    results: list[np.ndarray | None] = [None] * len(frames)
+    groups: dict[tuple, list[int]] = {}
+    for i, f in enumerate(frames):
+        groups.setdefault((f["blocksize"], f["channels"]), []).append(i)
+    arr = np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray) \
+        else data
+    batches = []
+    for (blocksize, channels), idxs in groups.items():
+        for lo in range(0, len(idxs), max_batch):
+            batches.append((blocksize, channels, idxs[lo:lo + max_batch]))
+
+    def commit(out, pg, idxs):
+        F = len(idxs)
+        bad: dict[int, str] = {}
+        for j in range(F):
+            s = int(pg.status[j])
+            if s in (native.FT_OK, native.FT_EXTENT_MISMATCH):
+                continue
+            if s == native.FT_CRC16_BAD and not verify_crc:
+                continue
+            label = ("FRAME_CRC_MISMATCH" if s == native.FT_CRC16_BAD
+                     else "LOST_SYNC")
+            if on_crc_error == "raise":
+                kind = ("CRC16 mismatch" if s == native.FT_CRC16_BAD
+                        else "parse failure (lost sync)")
+                raise FlacDecodeError(
+                    f"frame {kind} at frame {frames[idxs[j]]['number']}")
+            bad[j] = label
+        with record_function("flac.fetch"):
+            sig_np, oor_flags = (v.cpu().numpy() for v in out)
+        if sig_np.dtype != np.int32:
+            sig_np = sig_np.astype(np.int32)
+        # decoded-sample range check (stream_decoder.c:2458-2472), taken on
+        # the device before the narrowing (see restore_and_undo)
+        for j in np.nonzero(oor_flags)[0]:
+            j = int(j)
+            if j in bad:
+                continue
+            if on_crc_error == "raise":
+                raise FlacDecodeError(
+                    "decoded sample out of bps range (lost sync) at "
+                    f"frame {frames[idxs[j]]['number']}")
+            bad[j] = "LOST_SYNC"
+        for j, i in enumerate(idxs):
+            if j in bad:
+                if not hasattr(st, "errors"):
+                    st.errors = []
+                st.errors.append((bad[j], frames[i]["number"]))
+                continue
+            results[i] = sig_np[j]
+        if md5_hasher is not None:
+            if bad:
+                md5_hasher.valid = False
+            else:
+                md5_hasher.add_packed(sig_np, idxs)
+
+    parse_pool = ThreadPoolExecutor(max_workers=2)
+    inflight = []
+    try:
+        # the parse runs ahead of dispatch, but only a bounded window, so a
+        # long file never holds more than ~_PIPELINE_DEPTH batches of
+        # residuals in memory
+        parse_futs: dict[int, object] = {}
+
+        def ensure_parsed(upto: int):
+            for j in range(upto + 1):
+                if j < len(batches) and j not in parse_futs:
+                    bs_j, ch_j, idx_j = batches[j]
+                    parse_futs[j] = parse_pool.submit(
+                        _parse_batch, arr, frames, idx_j, bs_j, ch_j)
+
+        for bi, (blocksize, channels, idxs) in enumerate(batches):
+            ensure_parsed(bi + _PIPELINE_DEPTH)
+            bps = st.bits_per_sample or max(frames[i]["bps"] for i in idxs)
+            with record_function("flac.parse"):
+                pg, asg = parse_futs.pop(bi).result()
+            out = _dispatch_batch(pg, asg, blocksize, channels, bps, device)
+            inflight.append((out, pg, idxs))
+            while len(inflight) > _PIPELINE_DEPTH:
+                commit(*inflight.pop(0))
+        while inflight:
+            commit(*inflight.pop(0))
+    finally:
+        parse_pool.shutdown(wait=True, cancel_futures=True)
+    return results
 
 
 class StreamHasher:

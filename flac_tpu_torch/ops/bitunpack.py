@@ -14,8 +14,11 @@ and a short table of segments {skip, count, param, kind}.  On the device:
      XLA-scan branch of the reference, steps 1-2); `rice_cuda.rice_codes`
      launches the hand-written kernel for CUDA tensors;
   2. the lanes reshape to the [S, N] residual matrix (tiles are contiguous
-     sample ranges) and `restore_undo_body` runs the uniform LPC restore,
-     the wasted-bit shift and the stereo undo over every subframe at once.
+     sample ranges) and the uniform LPC restore, the wasted-bit shift and
+     the stereo undo run over every subframe at once: `restore_undo_body`
+     is their plain version (the reference's XLA scan, as an eager loop);
+     `restore_cuda.restore_undo` launches the hand-written kernel K3 for
+     CUDA tensors.
 
 dtype policy: stream words are uint32 carried in int64 in [0, 2^32) (or
 their bits as int32); 32-bit shifts follow XLA's rule that a shift at or
@@ -28,7 +31,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import format as fmt
-from . import bitops, rice_cuda
+from . import bitops, restore_cuda, rice_cuda
 
 # segment packing (must mirror flac_native.cpp tile_run):
 #   int32 = skip:16 @15 | count:8 @7 | param:6 @1 | kind:1 @0
@@ -45,7 +48,8 @@ def restore_undo_body(res, order, shift, qlp, wasted, assignment, *,
                       blocksize: int, channels: int, max_order: int,
                       wide: bool = False, out16: bool = False, bps: int = 0):
     """Uniform batched subframe restore + stereo undo (lpc.c:978 and
-    stream_decoder.c:3476-3526, one sample loop over all subframes).
+    stream_decoder.c:3476-3526, one sample loop over all subframes): kernel
+    K3's plain version.
 
     res: [S, N] residuals (int16/int32, int64 when wide); order/shift/
     wasted: [S]; qlp: [S, >= max_order]; assignment: [B] (S = B*channels).
@@ -256,7 +260,7 @@ def rice_decode_restore(words2d, lane_start, segs, order, shift, qlp,
                         wasted, assignment, *, T: int, NROW: int, SEG: int,
                         blocksize: int, channels: int, max_order: int,
                         wide: bool = False, out16: bool = False, bps: int = 0):
-    """Code scan (K2) + LPC restore + stereo undo of one batch.
+    """Code scan (K2) + LPC restore and stereo undo (K3) of one batch.
 
     words2d:    [R, 16] the stream as big-endian words in aligned 16-word
                 rows (64-byte granules), uint32 bits in int32 or int64
@@ -277,7 +281,7 @@ def rice_decode_restore(words2d, lane_start, segs, order, shift, qlp,
     with record_function("flac.restore"):
         # lanes -> residual matrix (a reshape: tiles tile the samples)
         res = res_tl.t().reshape(S, tiles * T)[:, :blocksize]
-        pcm, oor = restore_undo_body(
+        pcm, oor = restore_cuda.restore_undo(
             res, order, shift, qlp, wasted, assignment, blocksize=blocksize,
             channels=channels, max_order=max_order, wide=wide, out16=out16,
             bps=bps)

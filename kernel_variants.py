@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of kernels K1 and K2 goes, on one NVIDIA GPU.
+"""Where the time of kernels K1, K2 and K3 goes, on one NVIDIA GPU.
 
-    python3 kernel_variants.py            # every variant of both kernels
-    python3 kernel_variants.py --k1       # K1's only (or --k2)
+    python3 kernel_variants.py            # every variant of every kernel
+    python3 kernel_variants.py --k1       # K1's only (or --k2, --k3)
     python3 kernel_variants.py --other "old=DIR"  # and DIR/*.cu as they are
 
 Each variant is the kernel's source with one change (a constant, a part of
@@ -10,8 +10,9 @@ the work cut out or moved, or timestamps), built by nvcc into a library of
 its own under flac_tpu_torch/build/variants/ and timed at the main path's
 shapes: K1 on a -5 batch's fields (64 frames of 2263 fields into 8192
 words), K2 on the first full decode batch of a 100 s -5 stream (65,536
-lanes of 128 codes).  A variant that cuts work out computes a wrong
-result; it is timed only.  `ms` is the device time of one launch
+lanes of 128 codes), K3 on the same batch's residuals (2048 subframes of
+4096 samples, int32 in, int16 out).  A variant that cuts work out
+computes a wrong result; it is timed only.  `ms` is the device time of one launch
 (torch.profiler over 50 launches), taken in turns with the unchanged
 kernel ("base") so drift shows.  A "phases" variant also reports, from
 one more launch, each CTA's clock64() at numbered points of the kernel
@@ -148,6 +149,31 @@ K2_VARIANTS = [
          "    PH(2);\n"),
         ("    ovf_out[lane] = ovf ? 1 : 0;\n",
          "    ovf_out[lane] = ovf ? 1 : 0;\n    PH(3);\n    PHMAX(4);\n"),
+        ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
+]
+
+
+K3_LOAD = ("        load_group<XT>(nxt, rrow, rbytes, n0 + GROUP, N,\n"
+           "                       vec_in && n0 + GROUP < N, "
+           "live && n0 + GROUP < N);\n")
+K3_VARIANTS = [
+    ("base", []),
+    # residuals made up in registers: no device-memory reads in the loop
+    ("no loads", [(K3_LOAD, "#pragma unroll\n        for (int u = 0; u < "
+                            "GROUP; ++u) nxt[u] = (XT)(n0 + u);\n")]),
+    # the range flag keeps every sample live
+    ("no stores", [("        if (live) store_group<XT>(",
+                    "        if (live && n0 < 0) store_group<XT>(")]),
+    ("no stereo shuffle", [("        if (C == 2) {",
+                            "        if (C == 2 && n0 < 0) {")]),
+    ("phases", [
+        ("namespace {\n", "namespace {\n" + PHASE_DEFS),
+        ("    XT cur[GROUP];\n", "    PHSTART();\n    XT cur[GROUP];\n"),
+        ("    for (int n0 = 0; n0 < N; n0 += GROUP) {\n",
+         "    PH(1);\n    for (int n0 = 0; n0 < N; n0 += GROUP) {\n"
+         "        if (n0 == 512) PH(2);\n"),
+        ("    if (live && bad) oor[frame] = 1;\n",
+         "    PH(3);\n    if (live && bad) oor[frame] = 1;\n    PHMAX(4);\n"),
         ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
 ]
 
@@ -290,13 +316,43 @@ def k2_inputs():
     return [torch.from_numpy(a).cuda() for a in arrays], kw
 
 
+def k3_inputs():
+    """K3's arguments on the first full decode batch of a 100 s -5 stream,
+    as the device engine hands them over: the codes of K2 as the [S, N]
+    residual matrix (int32), the subframe tables, int16 PCM out."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import RATE, encode
+    from flac_tpu_torch import decoder_device as dd
+    from flac_tpu_torch import native, signals
+    from flac_tpu_torch.decoder import scan_frames
+    from flac_tpu_torch.ops import bitunpack
+    from flac_tpu_torch.ref_decoder import parse_metadata
+    stream, _ = encode(signals.make_test_signal(100 * RATE, seed=180), 5)
+    st, pos = parse_metadata(stream, 4)
+    frames = scan_frames(stream, st, pos)
+    arr = np.frombuffer(stream, np.uint8)
+    prep = dd._prep_batch(arr, frames, list(range(1024)), 4096, 2)
+    assert (prep[0].status == native.FT_OK).all()
+    arrays, kw = dd.batch_inputs(arr, *prep)
+    t = [torch.from_numpy(a).cuda() for a in arrays]
+    res_tl, _ = bitunpack.rice_codes_plain(*t[:3], T=128, NROW=kw["NROW"],
+                                           SEG=kw["SEG"], wide=False)
+    S = t[3].shape[0]
+    res = res_tl.t().reshape(S, -1)[:, :4096].contiguous()
+    return res, t[3:], kw["max_order"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--k1", action="store_true")
     ap.add_argument("--k2", action="store_true")
+    ap.add_argument("--k3", action="store_true")
     ap.add_argument("--other", action="append", default=[],
                     metavar="LABEL=DIR",
-                    help="also time DIR's pack_fields64.cu/rice_codes.cu")
+                    help="also time DIR's pack_fields64.cu/rice_codes.cu/"
+                         "restore.cu")
     args = ap.parse_args()
     others = dict(o.split("=", 1) for o in args.other)
     import torch
@@ -304,19 +360,23 @@ def main() -> int:
         print("kernel_variants: no CUDA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from flac_tpu_torch.ops import pack_cuda, rice_cuda
+    from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    do_k1 = args.k1 or not args.k2
-    do_k2 = args.k2 or not args.k1
-    with ThreadPoolExecutor(2) as pool:
+    every = not (args.k1 or args.k2 or args.k3)
+    do_k1, do_k2, do_k3 = (every or args.k1), (every or args.k2), \
+        (every or args.k3)
+    with ThreadPoolExecutor(3) as pool:
         f1 = pool.submit(build, "pack_fields64", K1_VARIANTS, others) \
             if do_k1 else None
         f2 = pool.submit(build, "rice_codes", K2_VARIANTS, others) \
             if do_k2 else None
+        f3 = pool.submit(build, "restore", K3_VARIANTS, others) \
+            if do_k3 else None
         libs1 = f1.result() if f1 else {}
         libs2 = f2.result() if f2 else {}
+        libs3 = f3.result() if f3 else {}
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     p = ctypes.c_void_p
     if do_k1:
@@ -366,6 +426,34 @@ def main() -> int:
             print(json.dumps({"kernel": "K2", "variant": name, "ms": ms,
                               "base_ms": base, "L": L, **kw, **extra,
                               "ptxas": regs}), flush=True)
+    if do_k3:
+        res, (order, shift, qlp, wasted, asg), mo = k3_inputs()
+        S, N = res.shape
+        pcm = torch.empty((S, N), dtype=torch.int16, device="cuda")
+        oor = torch.zeros((S // 2,), dtype=torch.bool, device="cuda")
+        i = ctypes.c_int
+        for name, (lib, regs) in libs3.items():
+            lib.flac_restore.argtypes = [p, i, ctypes.c_longlong, i, p, p, p,
+                                         i, p, p, p, i, i, p, i, i, i, i, i,
+                                         p]
+
+            def run(lib=lib):
+                code = lib.flac_restore(
+                    res.data_ptr(), 4, N, 1, order.data_ptr(),
+                    shift.data_ptr(), qlp.data_ptr(), mo, wasted.data_ptr(),
+                    asg.data_ptr(), pcm.data_ptr(), 1, 1, oor.data_ptr(), S,
+                    N, 2, 0, 16, stream())
+                if code:
+                    raise SystemExit(f"K3 {name!r}: CUDA error {code}")
+            ms = device_ms(run, "restore_kernel", runs=20)
+            base = device_ms(lambda: run(libs3["base"][0]),
+                             "restore_kernel", runs=20)
+            extra = (phases(lib, run, -(-S // restore_cuda.THREADS))
+                     if name == "phases" else {})
+            print(json.dumps({"kernel": "K3", "variant": name, "ms": ms,
+                              "base_ms": base, "S": S, "N": N,
+                              "max_order": mo, **extra, "ptxas": regs}),
+                  flush=True)
     print(smi, flush=True)
     return 0
 

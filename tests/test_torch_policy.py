@@ -1,7 +1,7 @@
 """Rules of the flac_tpu_torch package: it never imports JAX or flac_tpu,
 its entry points run on the GPU unless asked for the CPU (and raise when
-there is none), what is not ported raises NotImplementedError, and
-chip_smoke.py fails without a GPU."""
+there is none, whatever the engine), what is not ported raises
+NotImplementedError, and chip_smoke.py fails without a GPU."""
 
 import ast
 import io
@@ -17,6 +17,7 @@ import torch
 
 import flac_tpu_torch
 from flac_tpu_torch import EncoderConfig, decode_stream_tpu, kernels
+from flac_tpu_torch.decoder import ENGINES, decode_stream_auto
 from flac_tpu_torch.encoder import StreamEncoder, encode_file_to_flac
 
 REPO = Path(__file__).resolve().parents[1]
@@ -80,21 +81,32 @@ def test_decode_defaults_to_the_gpu_and_raises_without_one(no_gpu):
     pcm = np.zeros((2, 3000), np.int32)
     stream = encode_file_to_flac(pcm, EncoderConfig.from_preset(
         5, blocksize=1024), device="cpu")
-    for engine in ("device", "host"):
+    for engine in ENGINES:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             decode_stream_tpu(stream, engine=engine)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_stream_tpu(stream, tolerant=True)
     st = decode_stream_tpu(stream, device="cpu")
     assert st.md5_ok and np.array_equal(st.samples, pcm)
 
 
-@pytest.mark.parametrize("what", ["fast", "scan", "auto", "tolerant"])
+@pytest.mark.parametrize("what", ["fast", "scan", "auto", "tolerant",
+                                  "ogg"])
 def test_unported_decode_features_raise(what):
-    stream = encode_file_to_flac(np.zeros((2, 3000), np.int32),
-                                 EncoderConfig.from_preset(5, blocksize=1024),
-                                 device="cpu")
+    """Ogg input is not ported and raises NotImplementedError.  The engines
+    and the tolerant mode that raised it before are ported: they decode on
+    the CPU when asked to."""
+    pcm = np.zeros((2, 3000), np.int32)
+    pcm[:, 1000:] = 7
+    stream = encode_file_to_flac(pcm, EncoderConfig.from_preset(
+        5, blocksize=1024), device="cpu")
+    if what == "ogg":
+        with pytest.raises(NotImplementedError, match="Ogg"):
+            decode_stream_auto(b"OggS" + stream, device="cpu")
+        return
     kw = {"tolerant": True} if what == "tolerant" else {"engine": what}
-    with pytest.raises(NotImplementedError):
-        decode_stream_tpu(stream, device="cpu", **kw)
+    st = decode_stream_tpu(stream, device="cpu", **kw)
+    assert st.md5_ok and np.array_equal(st.samples, pcm)
 
 
 def test_import_builds_no_native_library_or_kernel():
@@ -107,13 +119,14 @@ def test_import_builds_no_native_library_or_kernel():
         "                               'flac_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from flac_tpu_torch import kernels, native\n"
-        "from flac_tpu_torch.ops import pack_cuda, rice_cuda\n"
+        "from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda\n"
         "print(native._lib is None, kernels.LOADED == {},\n"
-        "      pack_cuda._lib is None, rice_cuda._lib is None)\n")
+        "      pack_cuda._lib is None, rice_cuda._lib is None,\n"
+        "      restore_cuda._lib is None)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["True"] * 4
+    assert out.stdout.split() == ["True"] * 5
 
 
 def test_tf32_is_off():
@@ -187,20 +200,24 @@ def test_kernel_variants_fails_without_gpu(no_gpu):
     ("rice_codes.cu", "THREADS", "STAGE_LANES"),
     ("rice_codes.cu", "STAGE_ROWS", "STAGE_ROWS"),
     ("pack_fields64.cu", "CLUSTER", "CLUSTER"),
-    ("pack_fields64.cu", "TILE_WORDS_MAX", "TILE_WORDS_MAX")])
+    ("pack_fields64.cu", "TILE_WORDS_MAX", "TILE_WORDS_MAX"),
+    ("restore.cu", "THREADS", "THREADS"),
+    ("restore.cu", "GROUP", "GROUP")])
 def test_host_mirrors_match_the_kernel_sources(source, name, value):
     """The constants that the host mirrors of the kernels' rules
-    (rice_cuda.staged_ctas, pack_cuda.rank_words) copy are the sources'."""
+    (rice_cuda.staged_ctas, pack_cuda.rank_words) and the restore's wrapper
+    (its alignment rule) copy are the sources'."""
     import re
 
-    from flac_tpu_torch.ops import pack_cuda, rice_cuda
+    from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda
     text = (REPO / "flac_tpu_torch" / "csrc" / source).read_text()
     consts = {m[0]: m[1] for m in re.findall(
         r"constexpr int (\w+) = ([^;]+);", text)}
     expr = consts[name]
     for _ in range(3):                   # constants defined by constants
         expr = re.sub(r"[A-Z_]{3,}", lambda m: f"({consts[m[0]]})", expr)
-    module = rice_cuda if source == "rice_codes.cu" else pack_cuda
+    module = {"rice_codes.cu": rice_cuda, "pack_fields64.cu": pack_cuda,
+              "restore.cu": restore_cuda}[source]
     assert eval(expr) == getattr(module, value)
 
 
