@@ -11,7 +11,10 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             (pack_fields64.cu, rice_codes.cu, restore.cu; one nvcc each,
             started together) while g++ builds the native host runtime; the
             probes P1 and P2 run; each kernel's registers, spills and
-            static shared memory from ptxas (K3 must not spill).
+            static shared memory from ptxas (K3 must not spill), and K3's
+            dynamic shared memory (its rings) for each residual width,
+            which must equal the host mirror's; the chain probe of
+            kernel_variants.py builds beside them.
 3. kernels: each kernel against its plain PyTorch version on the GPU:
             K1 bit-identical on random, edge, cluster (ops/pack_synth.py)
             and real-shape field lists; K2 (narrow and wide) on the tile
@@ -20,7 +23,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             every lane, the codes on every lane without it; K3 bit-identical
             (PCM and flags) on the corners of ops/restore_synth.py (every
             order bucket, int32 wrap, wide int64, int16 narrowing, 1, 2 and
-            6 channels with every stereo assignment) and on the first
+            6 channels with every stereo assignment, the ring's chunk
+            edges, unaligned rows, a 65535-sample frame, a partial CTA,
+            taps past 16 bits and out-of-range shifts) and on the first
             native.parse_frames batch of the -5 and -8 clips.
 4. main:    the main path at full size: a 180 s 44.1 kHz 16-bit stereo
             track encoded at -5 (blocksize 4096, 64 frames a batch) on the
@@ -49,7 +54,11 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             kernel's and its plain version's time per call (CUDA events
             around back-to-back calls), and its bound, printed as one
             `kernels` line with each kernel's ptxas usage, K1's cluster
-            size and K2's staged CTAs per main-path launch.
+            size and K2's staged CTAs per main-path launch.  K3 is timed
+            on both engines' inputs (int32 and int16 residuals) with its
+            chain floor (N x the chain probe's cycles a sample / the SM
+            clock) beside the bound; the device engine's transpose copy
+            of K2's codes is timed on its own line before it.
 7. profile: torch.profiler over a 10 s encode and 10 s decodes with the
             "device" and "fast" engines: the device's busy share, time by
             stage (the flac.* ranges) and the top kernels; the tables go to
@@ -574,12 +583,15 @@ def main() -> int:
     # run the probes ----
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    import kernel_variants
+    with ThreadPoolExecutor(max_workers=2) as pool:
         host_lib = pool.submit(native.lib)
+        probe_lib = pool.submit(kernel_variants.build_chain_probe)
         reports = kernels.load_all(["pack_fields64", "rice_codes",
                                     "restore"])
         build_s = time.perf_counter() - t0
         host_lib.result()
+        probe_lib = probe_lib.result()
     host_s = time.perf_counter() - t0
     pack_cuda.probe()
     rice_cuda.probe()
@@ -592,15 +604,27 @@ def main() -> int:
              "rice_codes": ptxas_usage(reports["rice_codes"],
                                        "rice_codes_kernel"),
              "restore": ptxas_usage(reports["restore"], "restore_kernel")}
+    # K3's dynamic shared memory (its rings), by the kernel's own count and
+    # by the host mirror, for each residual width, narrow and wide
+    k3_lib = restore_cuda._library()
+    k3_smem = {f"{8 * rb}-bit res, {'wide' if wide else 'narrow'}":
+               (k3_lib.flac_restore_smem(rb, int(wide)),
+                restore_cuda.smem_bytes(rb, wide))
+               for rb in (2, 4, 8) for wide in (False, True)}
     emit({"phase": "build", "nvcc_seconds": round(build_s, 2),
           "native_seconds": round(host_s, 2), "probes": ["P1", "P2"],
-          "ptxas": usage})
+          "ptxas": usage,
+          "restore_smem_dynamic_bytes": {k: v[0] for k, v in
+                                         k3_smem.items()}})
     k3_spills = {fn: u for fn, u in usage["restore"].items()
                  if u.get("spill_stores") or u.get("spill_loads")}
     if len(usage["restore"]) != 2 * len(restore_cuda.ORDER_BUCKETS) \
             or k3_spills:
         return fail(f"K3's instantiations (narrow and wide a bucket) spill "
                     f"or are missing: {usage['restore']}")
+    if any(a != b or a > 232448 for a, b in k3_smem.values()):
+        return fail(f"K3's dynamic shared memory differs from the host "
+                    f"mirror or passes 227 KB: {k3_smem}")
 
     # ---- 3. each kernel against its plain version ----
     max_err = 0
@@ -949,6 +973,14 @@ def main() -> int:
                                      NROW=bkw["NROW"], SEG=bkw["SEG"],
                                      wide=bkw["wide"])
     S = tensors[3].shape[0]
+    # the device engine's lanes -> residual matrix copy
+    # (ops/bitunpack.py rice_decode_restore), timed on its own
+    transpose_ms = queued_device_ms(
+        lambda: res_tl.t().reshape(S, -1), runs=25)
+    emit({"phase": "times", "step": "res_tl.t().reshape(S, -1)",
+          "shape": list(res_tl.shape), "dtype": str(res_tl.dtype),
+          "device_ms_queued_events": transpose_ms,
+          "bytes": 2 * res_tl.numel() * res_tl.element_size()})
     k3t = dict(zip(RESTORE_KEYS, [res_tl.t().reshape(S, -1)[:, :4096],
                                   *tensors[3:]]))
     k3kw = dict(blocksize=4096, channels=2, max_order=bkw["max_order"],
@@ -974,9 +1006,13 @@ def main() -> int:
     [(farrays, fkw)] = restore_batch_inputs(stream, first_only=True)
     ft = {k: torch.from_numpy(v).cuda() for k, v in farrays.items()}
     fargs = (ft["res"], *(ft[k] for k in RESTORE_KEYS[1:]))
-    k3_fast_ms = kernel_device_ms(
-        lambda: restore_cuda.restore_undo(*fargs, **fkw),
-        "restore_kernel")["ms"]
+    k3_fast = kernel_device_ms(
+        lambda: restore_cuda.restore_undo(*fargs, **fkw), "restore_kernel")
+    # the chain's floor: each CTA's N samples at the probe's cycles a
+    # sample (the folded form, which the main path takes) and SM clock
+    probe = kernel_variants.chain_probe(probe_lib)
+    chain_floor_ms = (4096 * probe["folded_cycles_per_sample"]
+                      / probe["cycles_per_ns"] / 1e6)
     # each input read once (res as the device engine hands it over, in
     # int32; order, shift, wasted, the taps, the assignments), each output
     # written once (int16 PCM, a flag a frame); the operations count each
@@ -991,7 +1027,8 @@ def main() -> int:
     ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
     emit({"phase": "times", "kernel": "restore", "S": S, "N": N,
           "max_order": bkw["max_order"], "device_ms": k3_dev["ms"],
-          "device_ms_fast_engine_input": k3_fast_ms,
+          "device_ms_fast_engine_input": k3_fast["ms"],
+          "chain_probe": probe, "chain_floor_ms": chain_floor_ms,
           "kernel_ms_runs": [kernel_ms, kernel_ms2],
           "plain_ms_runs": [plain_ms, plain_ms2], "bytes": nbytes,
           "operations": nops})
@@ -999,10 +1036,16 @@ def main() -> int:
           "source": restore_cuda.SOURCE, "replaces": restore_cuda.REPLACES,
           "launches": k3_launches, "launches_fast_engine": k3_fast_launches,
           "max_abs_err": k3_err, **k3_dev,
+          "ms_int16_input": k3_fast["ms"],
+          "ms_int16_input_by": k3_fast["ms_by"],
           "kernel_ms": min(kernel_ms, kernel_ms2),
           "plain_ms": min(plain_ms, plain_ms2),
           "bound_ms": max(bytes_ms, ops_ms),
           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+          "chain_floor_ms": chain_floor_ms,
+          "transpose_copy_ms": transpose_ms,
+          "smem_dynamic_bytes": restore_cuda.smem_bytes(
+              k3t["res"].element_size(), bkw["wide"]),
           "library_ms": None,
           "library_note": "no PyTorch call computes an integer IIR restore",
           "ptxas": usage["restore"]}

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import format as fmt
+from .restore_cuda import K, SUBS
 
 ASSIGNMENTS = (fmt.CHANNEL_ASSIGNMENT_INDEPENDENT,
                fmt.CHANNEL_ASSIGNMENT_LEFT_SIDE,
@@ -130,4 +131,43 @@ def cases() -> list:
     add("max_order 5 (not a bucket: zero taps padded to 8)",
         batch(13, B=3, C=2, N=24, max_order=5, taps="random"),
         blocksize=24, channels=2, max_order=5)
+    # the kernel's design: chunks of K samples, CTAs of SUBS subframes
+    for n in (K - 1, K + 1):
+        add(f"N = {n}, one sample {'below' if n < K else 'past'} a chunk",
+            batch(14 + n % 2, B=4, C=2, N=n, max_order=8, taps="random",
+                  res_bits=12), blocksize=n, channels=2, max_order=8,
+            bps=16)
+    add("order 32, N = 33: the warm-up ends at the last sample",
+        batch(16, B=3, C=2, N=33, max_order=32, taps="random",
+              orders=[32] * 6), blocksize=33, channels=2, max_order=32)
+    for dt, cols in ((np.int16, 1), (np.int32, 1)):
+        width = np.dtype(dt).itemsize
+        add(f"{width * 8}-bit residuals, rows of {(2 * K + cols) * width} "
+            "bytes (not a multiple of 16)",
+            batch(17 + width, B=5, C=2, N=2 * K, max_order=4, taps="random",
+                  res_bits=11, res_dtype=dt, extra_cols=cols),
+            blocksize=2 * K, channels=2, max_order=4, out16=True, bps=16)
+    add("one stereo frame of 65535 samples",
+        batch(21, B=1, C=2, N=65535, max_order=2, res_bits=14,
+              res_dtype=np.int16, wasted_max=1),
+        blocksize=65535, channels=2, max_order=2, out16=True, bps=16)
+    add(f"stereo, {2 * 21} subframes (a partial last CTA)",
+        batch(22, B=21, C=2, N=100, max_order=12, taps="random"),
+        blocksize=100, channels=2, max_order=12, bps=16)
+    # CTA 0 folds (15-bit taps, shifts 0..31), CTA 1 has taps past 16 bits,
+    # the partial CTA 2 shifts of -1, 31, 32 and 63
+    edge = batch(23, B=40, C=2, N=120, max_order=8, taps="random",
+                 res_bits=14, orders=[8, 3, 0, 1] * 20)
+    rng = np.random.default_rng(24)
+    edge["shift"][:SUBS] = rng.integers(0, 32, SUBS)
+    edge["shift"][:2] = (31, 0)
+    big = rng.integers(1 << 15, 1 << 22, (SUBS, 8)) * rng.choice((-1, 1),
+                                                                (SUBS, 8))
+    edge["qlp"][SUBS:2 * SUBS] = np.where(rng.random((SUBS, 8)) < 0.3, big,
+                                          edge["qlp"][SUBS:2 * SUBS])
+    edge["qlp"][SUBS, 0] = 1 << 15               # one past the 16-bit range
+    edge["shift"][SUBS:2 * SUBS] = rng.integers(0, 20, SUBS)
+    edge["shift"][2 * SUBS:] = np.resize([-1, 31, 32, 63], 80 - 2 * SUBS)
+    add("taps past 16 bits, shifts -1/31/32/63, beside a folding CTA",
+        edge, blocksize=120, channels=2, max_order=8, bps=16)
     return out

@@ -11,7 +11,11 @@ its own under flac_tpu_torch/build/variants/ and timed at the main path's
 shapes: K1 on a -5 batch's fields (64 frames of 2263 fields into 8192
 words), K2 on the first full decode batch of a 100 s -5 stream (65,536
 lanes of 128 codes), K3 on the same batch's residuals (2048 subframes of
-4096 samples, int32 in, int16 out).  A variant that cuts work out
+4096 samples, int16 out) as each engine gives them: int32 (the device
+engine) and int16 (the fast engine).  Before K3's variants, a one-thread
+probe times the recursion's chain (cycles a sample, generic and folded,
+and the SM clock); each K3 line carries the chain floor it gives,
+N x cycles / clock.  A variant that cuts work out
 computes a wrong result; it is timed only.  `ms` is the device time of one launch
 (torch.profiler over 50 launches), taken in turns with the unchanged
 kernel ("base") so drift shows.  A "phases" variant also reports, from
@@ -153,29 +157,147 @@ K2_VARIANTS = [
 ]
 
 
-K3_LOAD = ("        load_group<XT>(nxt, rrow, rbytes, n0 + GROUP, N,\n"
-           "                       vec_in && n0 + GROUP < N, "
-           "live && n0 + GROUP < N);\n")
+K3_WAITS = ("        bar_wait(full_in + 8 * ist, (c / IN_STAGES) & 1);\n"
+            "        bar_wait(empty_out + 8 * ost, ((c / OUT_STAGES) & 1) ^ 1);\n")
+K3_ARRIVES = ("        bar_arrive(empty_in + 8 * (c % IN_STAGES));\n"
+              "        bar_arrive(full_out + 8 * (c % OUT_STAGES));\n")
+K3_ADVANCE = "        ++c;\n        u0 = 0;\n        if (c < nch) acquire();\n"
+K3_ROLES = "    if (warp == 0) {\n        recurse<MO, WIDE>"
+# the recursion warp alone, its residuals made up in registers: no
+# producer, no epilogue, no barrier
+K3_ALONE = [
+    (K3_WAITS, ""), (K3_ARRIVES, ""),
+    ("    auto load = [&]() { load_round<R, XT>(r, src, rb, u0); };",
+     "    auto load = [&]() {\n#pragma unroll\n"
+     "        for (int u = 0; u < R; ++u)\n"
+     "            r[u] = (XT)(c * K + u0 + u + lane);\n    };"),
+    (K3_ROLES, "    if (warp != 0) return;\n" + K3_ROLES)]
+# the folded form's chain only (a wrong result): none of the MO - 1 older
+# taps' FP64 multiply-adds
+K3_NO_TAPS = [("            for (int j = 1; j < MO; ++j) {",
+               "            for (int j = 1; j < 1; ++j) {")]
 K3_VARIANTS = [
     ("base", []),
-    # residuals made up in registers: no device-memory reads in the loop
-    ("no loads", [(K3_LOAD, "#pragma unroll\n        for (int u = 0; u < "
-                            "GROUP; ++u) nxt[u] = (XT)(n0 + u);\n")]),
-    # the range flag keeps every sample live
-    ("no stores", [("        if (live) store_group<XT>(",
-                    "        if (live && n0 < 0) store_group<XT>(")]),
-    ("no stereo shuffle", [("        if (C == 2) {",
-                            "        if (C == 2 && n0 < 0) {")]),
+    ("chain only", K3_ALONE),
+    ("no off-chain taps", K3_NO_TAPS),
+    # both: the probe's work (a funnel shift, a multiply-add and the fold
+    # a sample) in the kernel's loop
+    ("bare chain", K3_ALONE + K3_NO_TAPS),
+    # the folded chain's step by mad.wide.s32 (ptxas: a product and two
+    # adds) instead of the carry chain
+    ("mad.wide chain", [("        V = mad_cc(q0, x, C);",
+                         "        V = mad_wide(q0, x, C);")]),
+    # every round in the generic form (int64 multiply-adds for every tap,
+    # as before the folded form moved the older taps to the FP64 pipe)
+    ("generic form", [("        if (folded && !warm) break;",
+                       "        if (folded && !warm && c < 0) break;")]),
+    # the residuals not folded into the sums (a wrong result): the cost of
+    # r << sh and its add on the recursion warp
+    ("no fold", [("        const long long rs = u + 2 < R ? "
+                  "fold(r[u + 2 < R ? u + 2 : 0], sh)\n"
+                  "                                       : 0;",
+                  "        const long long rs = 0;")]),
+    # the epilogue warps wait and release the x ring and do nothing else
+    ("no epilogue", [("            if (pass >= passes) break;\n"
+                      "            const int slot = first + 8 * pass;",
+                      "            if (pass >= passes || c >= 0) break;\n"
+                      "            const int slot = first + 8 * pass;")]),
+    ("ring depth 2", [("constexpr int IN_STAGES = 3;",
+                       "constexpr int IN_STAGES = 2;")]),
+    # clock64 per role: 1 the recursion's first chunk in, 2 its end, 3 the
+    # producer's end, 4 the epilogue's end (the later warp); 5 and 6 the
+    # recursion's cycles waiting for residuals and for a free x stage
     ("phases", [
         ("namespace {\n", "namespace {\n" + PHASE_DEFS),
-        ("    XT cur[GROUP];\n", "    PHSTART();\n    XT cur[GROUP];\n"),
-        ("    for (int n0 = 0; n0 < N; n0 += GROUP) {\n",
-         "    PH(1);\n    for (int n0 = 0; n0 < N; n0 += GROUP) {\n"
-         "        if (n0 == 512) PH(2);\n"),
-        ("    if (live && bad) oor[frame] = 1;\n",
-         "    PH(3);\n    if (live && bad) oor[frame] = 1;\n    PHMAX(4);\n"),
+        ("    __syncthreads();\n" + K3_ROLES,
+         "    __syncthreads();\n    PHSTART();\n" + K3_ROLES),
+        ("    int c = 0, u0 = 0;\n",
+         "    int c = 0, u0 = 0;\n    long long w_in = 0, w_out = 0;\n"),
+        (K3_WAITS,
+         "        long long t = clock64();\n"
+         "        bar_wait(full_in + 8 * ist, (c / IN_STAGES) & 1);\n"
+         "        w_in += clock64() - t;\n"
+         "        if (c == 0) PH(1);\n"
+         "        t = clock64();\n"
+         "        bar_wait(empty_out + 8 * ost, ((c / OUT_STAGES) & 1) ^ 1);\n"
+         "        w_out += clock64() - t;\n"),
+        (K3_ADVANCE,
+         K3_ADVANCE + "        if (c == nch) {\n"
+         "            PH(2);\n"
+         "            if (threadIdx.x == 0) {\n"
+         "                long long* ph = g_ph + blockIdx.x * 10;\n"
+         "                ph[5] = ph[0] + w_in;\n"
+         "                ph[6] = ph[0] + w_out;\n"
+         "            }\n"
+         "        }\n"),
+        ("        bar_arrive(full + 8 * st);\n    }\n}\n",
+         "        bar_arrive(full + 8 * st);\n    }\n"
+         "    if (lane == 0) g_ph[blockIdx.x * 10 + 3] = clock64();\n}\n"),
+        ("    // one store of 1 a flagged slot",
+         "    PHMAX(4);\n    // one store of 1 a flagged slot"),
         ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
 ]
+
+# One thread's chain of dependent samples, as the recursion runs it: the
+# generic form (x = (int)(P >> sh) + r; P = q * x + c by mad.wide) and the
+# folded one (x = the low word of P >> sh by one funnel shift; P = q * x + c
+# by the kernel's carry chain of two 32-bit multiply-adds, the residual in
+# c off the chain).  Prints cycles a sample and the SM clock.
+CHAIN_PROBE = r"""
+#include <cuda_runtime.h>
+__device__ __forceinline__ long long mad_wide(int a, int b, long long c) {
+    long long d;
+    asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "r"(b), "l"(c));
+    return d;
+}
+__device__ __forceinline__ long long mad_cc(int a, int b, long long c) {
+    unsigned lo, hi;
+    asm("mad.lo.cc.u32 %0, %2, %3, %4;\n\t"
+        "madc.hi.s32 %1, %2, %3, %5;"
+        : "=r"(lo), "=r"(hi)
+        : "r"(a), "r"(b), "r"((unsigned)c),
+          "r"((unsigned)((unsigned long long)c >> 32)));
+    return (long long)(((unsigned long long)hi << 32) | lo);
+}
+__device__ __forceinline__ long long gtimer() {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+__global__ void chain_probe(long long* out, int n, int q, int sh,
+                            long long c) {
+    long long P = c;
+    const long long g0 = gtimer(), t0 = clock64();
+    for (int i = 0; i < n; i += 8) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            const int x = (int)(P >> sh) + (i + u);
+            P = mad_wide(q, x, c);
+        }
+    }
+    const long long t1 = clock64();
+    long long F = c;
+    for (int i = 0; i < n; i += 8) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            const int x = (int)__funnelshift_r(
+                (unsigned)F, (unsigned)((unsigned long long)F >> 32), sh);
+            F = mad_cc(q, x, c + ((long long)(i + u) << sh));
+        }
+    }
+    const long long t2 = clock64(), g1 = gtimer();
+    if (threadIdx.x == 0) {
+        out[0] = t1 - t0; out[1] = t2 - t1; out[2] = g1 - g0;
+    }
+    out[3 + threadIdx.x] = P + F;
+}
+// `lanes` threads (1 or 32) of one warp run the chains side by side
+extern "C" int flac_chain_probe(long long* out, int n, int q, int sh,
+                                int lanes, void* stream) {
+    chain_probe<<<1, lanes, 0, (cudaStream_t)stream>>>(out, n, q, sh, 12345);
+    return (int)cudaGetLastError();
+}
+"""
 
 
 def build(kernel: str, variants, others) -> dict:
@@ -207,8 +329,9 @@ def build(kernel: str, variants, others) -> dict:
              str(path.with_suffix(".so")), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
+    outs = {name: proc.communicate()[0] for name, (_, proc) in jobs.items()}
     for name, (lib, proc) in jobs.items():
-        out, _ = proc.communicate()
+        out = outs[name]
         if proc.returncode != 0:
             if name == "base":
                 raise SystemExit(f"nvcc failed for {kernel}:\n{out}")
@@ -318,12 +441,14 @@ def k2_inputs():
 
 def k3_inputs():
     """K3's arguments on the first full decode batch of a 100 s -5 stream,
-    as the device engine hands them over: the codes of K2 as the [S, N]
-    residual matrix (int32), the subframe tables, int16 PCM out."""
+    as each engine hands them over: {"int32": the device engine's (the
+    codes of K2 as the [S, N] residual matrix), "int16": the fast engine's
+    (the native full parse's residuals)}, each (res, [order, shift, qlp,
+    wasted, assignment], max_order); int16 PCM out."""
     import numpy as np
     import torch
 
-    from chip_smoke import RATE, encode
+    from chip_smoke import RATE, encode, restore_batch_inputs
     from flac_tpu_torch import decoder_device as dd
     from flac_tpu_torch import native, signals
     from flac_tpu_torch.decoder import scan_frames
@@ -341,7 +466,116 @@ def k3_inputs():
                                            SEG=kw["SEG"], wide=False)
     S = t[3].shape[0]
     res = res_tl.t().reshape(S, -1)[:, :4096].contiguous()
-    return res, t[3:], kw["max_order"]
+    [(farrays, fkw)] = restore_batch_inputs(stream, first_only=True)
+    ft = [torch.from_numpy(farrays[k]).cuda() for k in
+          ("order", "shift", "qlp", "wasted", "assignment")]
+    assert farrays["res"].dtype == np.int16
+    return {"int32": (res, t[3:], kw["max_order"]),
+            "int16": (torch.from_numpy(farrays["res"]).cuda(), ft,
+                      fkw["max_order"])}
+
+
+def build_chain_probe() -> ctypes.CDLL:
+    """nvcc the chain probe (CHAIN_PROBE) into a library of its own."""
+    from flac_tpu_torch import kernels
+    OUT.mkdir(parents=True, exist_ok=True)
+    src = OUT / "chain_probe.cu"
+    src.write_text(CHAIN_PROBE)
+    lib_path = src.with_suffix(".so")
+    out = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o",
+                          str(lib_path), str(src)], capture_output=True,
+                         text=True)
+    if out.returncode:
+        raise RuntimeError(f"nvcc failed for the chain probe:\n{out.stdout}"
+                           f"{out.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.flac_chain_probe.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    return lib
+
+
+def chain_probe(lib=None, n: int = 1 << 16) -> dict:
+    """One thread's chain, `n` dependent samples of each form: cycles a
+    sample (generic: shift, add, multiply-add; folded: funnel shift,
+    multiply-add) and the SM clock in cycles a ns over the run; and the
+    same with a whole warp's 32 lanes each running a chain (`warp_*`), as
+    the recursion warp does."""
+    import torch
+    lib = lib or build_chain_probe()
+    buf = torch.zeros(3 + 32, dtype=torch.int64, device="cuda")
+    out = {"samples": n}
+    for lanes, key in ((32, "warp_"), (1, "")):
+        for _ in range(2):                           # the second is timed
+            if lib.flac_chain_probe(buf.data_ptr(), n, 3, 12, lanes,
+                                    torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError("the chain probe did not launch")
+            torch.cuda.synchronize()
+        generic, folded, ns = buf[:3].tolist()
+        out[key + "generic_cycles_per_sample"] = generic / n
+        out[key + "folded_cycles_per_sample"] = folded / n
+        out[key + "cycles_per_ns"] = (generic + folded) / ns
+    return out
+
+
+def write_sass(libs: dict, out: Path,
+               kernel: str = "restore_kernelILi8ELb0E") -> None:
+    """cuobjdump's SASS of the function `kernel` names (by default the
+    narrow order-8 K3, which the main path launches) in each built
+    library, one file a variant (~0.8 MB each; a whole library's is ~18
+    MB)."""
+    from flac_tpu_torch import kernels
+    tool = Path(kernels.nvcc_path()).with_name("cuobjdump")
+    out.mkdir(parents=True, exist_ok=True)
+    for name, (lib, _) in libs.items():
+        sass = subprocess.run([str(tool), "-sass", lib._name],
+                              capture_output=True, text=True).stdout
+        keep = [f for f in sass.split("Function : ")
+                if kernel in f.partition("\n")[0]]
+        slug = "".join(ch if ch.isalnum() else "_" for ch in name)
+        (out / f"restore_sass_{slug}.txt").write_text("".join(keep))
+
+
+def time_k3(libs: dict, inputs: dict, probe: dict) -> None:
+    """Time each built K3 library (`build`'s {name: (library, ptxas
+    lines)}) on each of `k3_inputs`, in turns with "base", and print a
+    JSON line each with the chain floor from `probe`."""
+    import torch
+
+    from flac_tpu_torch.ops import restore_cuda
+    p, i = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, (lib, regs) in libs.items():
+        lib.flac_restore.argtypes = [p, i, ctypes.c_longlong, i, p, p, p, i,
+                                     p, p, p, i, i, p, i, i, i, i, i, p]
+        for label, (res, (order, shift, qlp, wasted, asg), mo) in \
+                inputs.items():
+            S, N = res.shape
+            pcm = torch.empty((S, N), dtype=torch.int16, device="cuda")
+            oor = torch.zeros((S // 2,), dtype=torch.bool, device="cuda")
+
+            def run(lib=lib, res=res, order=order, shift=shift, qlp=qlp,
+                    wasted=wasted, asg=asg, mo=mo, pcm=pcm, oor=oor):
+                code = lib.flac_restore(
+                    res.data_ptr(), res.element_size(), N, 1,
+                    order.data_ptr(), shift.data_ptr(), qlp.data_ptr(), mo,
+                    wasted.data_ptr(), asg.data_ptr(), pcm.data_ptr(), 1, 1,
+                    oor.data_ptr(), S, N, 2, 0, 16, stream)
+                if code:
+                    raise SystemExit(f"K3 {name!r}: CUDA error {code}")
+            ms = device_ms(run, "restore_kernel", runs=20)
+            base = device_ms(lambda: run(libs["base"][0]), "restore_kernel",
+                             runs=20)
+            extra = (phases(lib, run, -(-S // restore_cuda.SUBS))
+                     if name == "phases" else {})
+            # each CTA's chain of N samples at the probe's cycles a sample
+            # and clock
+            floor = N * probe["folded_cycles_per_sample"] \
+                / probe["cycles_per_ns"] / 1e6
+            print(json.dumps({"kernel": "K3", "variant": name,
+                              "input": label, "ms": ms, "base_ms": base,
+                              "chain_floor_ms": floor, "S": S, "N": N,
+                              "max_order": mo, **extra, "ptxas": regs}),
+                  flush=True)
 
 
 def main() -> int:
@@ -349,6 +583,10 @@ def main() -> int:
     ap.add_argument("--k1", action="store_true")
     ap.add_argument("--k2", action="store_true")
     ap.add_argument("--k3", action="store_true")
+    ap.add_argument("--sass", metavar="DIR",
+                    help="write cuobjdump's SASS of the K3 variants' "
+                         "narrow order-8 kernel (the main path's) to "
+                         "DIR/restore_sass_<variant>.txt")
     ap.add_argument("--other", action="append", default=[],
                     metavar="LABEL=DIR",
                     help="also time DIR's pack_fields64.cu/rice_codes.cu/"
@@ -360,7 +598,7 @@ def main() -> int:
         print("kernel_variants: no CUDA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda
+    from flac_tpu_torch.ops import pack_cuda, rice_cuda
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -427,33 +665,12 @@ def main() -> int:
                               "base_ms": base, "L": L, **kw, **extra,
                               "ptxas": regs}), flush=True)
     if do_k3:
-        res, (order, shift, qlp, wasted, asg), mo = k3_inputs()
-        S, N = res.shape
-        pcm = torch.empty((S, N), dtype=torch.int16, device="cuda")
-        oor = torch.zeros((S // 2,), dtype=torch.bool, device="cuda")
-        i = ctypes.c_int
-        for name, (lib, regs) in libs3.items():
-            lib.flac_restore.argtypes = [p, i, ctypes.c_longlong, i, p, p, p,
-                                         i, p, p, p, i, i, p, i, i, i, i, i,
-                                         p]
-
-            def run(lib=lib):
-                code = lib.flac_restore(
-                    res.data_ptr(), 4, N, 1, order.data_ptr(),
-                    shift.data_ptr(), qlp.data_ptr(), mo, wasted.data_ptr(),
-                    asg.data_ptr(), pcm.data_ptr(), 1, 1, oor.data_ptr(), S,
-                    N, 2, 0, 16, stream())
-                if code:
-                    raise SystemExit(f"K3 {name!r}: CUDA error {code}")
-            ms = device_ms(run, "restore_kernel", runs=20)
-            base = device_ms(lambda: run(libs3["base"][0]),
-                             "restore_kernel", runs=20)
-            extra = (phases(lib, run, -(-S // restore_cuda.THREADS))
-                     if name == "phases" else {})
-            print(json.dumps({"kernel": "K3", "variant": name, "ms": ms,
-                              "base_ms": base, "S": S, "N": N,
-                              "max_order": mo, **extra, "ptxas": regs}),
-                  flush=True)
+        probe = chain_probe()
+        print(json.dumps({"kernel": "K3", "probe": "chain", **probe}),
+              flush=True)
+        if args.sass:
+            write_sass(libs3, Path(args.sass))
+        time_k3(libs3, k3_inputs(), probe)
     print(smi, flush=True)
     return 0
 

@@ -202,10 +202,17 @@ def test_kernel_variants_fails_without_gpu(no_gpu):
     ("pack_fields64.cu", "CLUSTER", "CLUSTER"),
     ("pack_fields64.cu", "TILE_WORDS_MAX", "TILE_WORDS_MAX"),
     ("restore.cu", "THREADS", "THREADS"),
-    ("restore.cu", "GROUP", "GROUP")])
+    ("restore.cu", "GROUP", "GROUP"),
+    ("restore.cu", "SUBS", "SUBS"),
+    ("restore.cu", "K", "K"),
+    ("restore.cu", "IN_STAGES", "IN_STAGES"),
+    ("restore.cu", "OUT_STAGES", "OUT_STAGES"),
+    ("restore.cu", "IN_PAD", "IN_PAD"),
+    ("restore.cu", "BARS_BYTES", "BARS_BYTES")])
 def test_host_mirrors_match_the_kernel_sources(source, name, value):
     """The constants that the host mirrors of the kernels' rules
-    (rice_cuda.staged_ctas, pack_cuda.rank_words) and the restore's wrapper
+    (rice_cuda.staged_ctas, pack_cuda.rank_words, the restore's
+    folded_subframes, round_len and smem_bytes) and the restore's wrapper
     (its alignment rule) copy are the sources'."""
     import re
 

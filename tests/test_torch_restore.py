@@ -111,6 +111,50 @@ def test_plain_restore_matches_flac_tpu_on_a_parsed_batch():
     assert not oor.any()
 
 
+@pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)
+def test_host_mirror_matches_plain(case):
+    """The kernel's arithmetic in numpy (lookahead accumulators, the folded
+    shift, the per-CTA rule, rounds and warm-up) equals the plain version."""
+    label, arrays, kw = CASES[case]
+    pcm, oor = bitunpack.restore_undo_body(*_args(_tensors(arrays), kw), **kw)
+    mpcm, moor = restore_cuda.mirror_restore(
+        *(arrays[k] for k in ("res", "order", "shift", "qlp", "wasted",
+                              "assignment")), **kw)
+    assert mpcm.dtype == pcm.numpy().dtype, label
+    np.testing.assert_array_equal(mpcm, pcm.numpy(), err_msg=label)
+    np.testing.assert_array_equal(moor, oor.numpy(), err_msg=label)
+
+
+def test_folded_rule_takes_the_generic_path_where_it_must():
+    """No subframe whose taps pass 16 signed bits or whose shift is outside
+    0..31 folds, nor any other subframe of its CTA, nor a wide batch; the
+    corners reach both forms."""
+    seen = set()
+    for label, arrays, kw in CASES:
+        q = arrays["qlp"][:, :kw["max_order"]].astype(np.int64)
+        sh = arrays["shift"].astype(np.int64)
+        fold = restore_cuda.folded_subframes(q, sh, kw["wide"])
+        ok = ((q >= -(1 << 15)) & (q < 1 << 15)).all(1) & (sh >= 0) \
+            & (sh <= 31)
+        assert not (fold & ~ok).any(), label
+        cta = np.arange(len(sh)) // restore_cuda.SUBS
+        for c in np.unique(cta):
+            f = fold[cta == c]
+            want = ok[cta == c].all() and not kw["wide"]
+            assert f.all() == want and f.any() == want, label
+        seen.update(fold.tolist())
+    assert seen == {False, True}
+
+
+def test_ring_fits_the_card():
+    """The widest launch's dynamic shared memory (int64 residuals, int64
+    samples) fits the 227 KB a CTA may take on an H100."""
+    assert restore_cuda.smem_bytes(8, True) <= 232448
+    assert restore_cuda.K % restore_cuda.round_len(12) == 0
+    assert all(restore_cuda.K % restore_cuda.round_len(m) == 0
+               for m in restore_cuda.ORDER_BUCKETS)
+
+
 def test_kernel_order_buckets():
     assert [restore_cuda.kernel_order(m) for m in (0, 1, 3, 5, 8, 9, 13, 17,
                                                    32)] == \
