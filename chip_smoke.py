@@ -63,6 +63,27 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             "device" and "fast" engines: the device's busy share, time by
             stage (the flac.* ranges) and the top kernels; the tables go to
             OUT_DIR/profile_*.txt.
+8. api:     the library API on the GPU.  The 180 s track at -5 in the
+            `with` form of StreamEncoder, with a seek table every 10 s, a
+            VORBIS_COMMENT, a PICTURE, a progress callback and verify=True:
+            the bytes must equal the same encode's with verify=False, K2
+            and K3 must launch once for each written batch (the callback
+            must see every batch), each seek point must land on its frame's
+            header; encode MB/s with and without verify, beside the main
+            path's encode run just before and just after them.  A bit flipped in
+            the packed words on the GPU must make verify raise before a
+            frame byte is written.  64 seeded FlacReader reads with the seek
+            table (a fresh reader each, seek_absolute) and 64 without must
+            equal the source (ms a read).  A 30 s clip through OggFlacSink
+            must decode on the GPU (decode_stream_auto) with the MD5, and a
+            ranged Ogg decode must equal its slice (MB/s).  In a temp
+            directory a Chain edit past the padding and a SimpleIterator
+            delete must keep the audio (decoded on the GPU) and the file
+            mode.  Each path's K1, K2 and K3 launches, counted from 0 just
+            before it, go into the `kernels` line as
+            `launches_library_api`.
+
+The `kernels` line comes after phase 8.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
 register report, the profile tables) go to OUT_DIR, beside this script.
@@ -480,6 +501,279 @@ def encode(pcm, level: int, blocksize: int = 4096, **kw):
     enc.process(pcm)
     enc.finish()
     return buf.getvalue(), enc
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the library API on the card
+# ---------------------------------------------------------------------------
+
+API_READS = 64               # seeded FlacReader reads, with and without a table
+OGG_SECONDS = 30
+
+
+def _reset_counts():
+    from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda
+    pack_cuda.launches = rice_cuda.launches = restore_cuda.launches = 0
+
+
+def _counts() -> dict:
+    from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda
+    return {"pack_fields64": pack_cuda.launches,
+            "rice_codes": rice_cuda.launches,
+            "restore": restore_cuda.launches}
+
+
+def _api_extra():
+    """A VORBIS_COMMENT and a PICTURE as raw (type, body) blocks."""
+    from flac_tpu_torch import metadata as md
+    vc = md.VorbisCommentBlock()
+    vc.set("TITLE", "chip smoke")
+    vc.set("ARTIST", "flac_tpu_torch")
+    pic = md.PictureBlock(picture_type=3, mime_type="image/png",
+                          description="cover", width=1, height=1, depth=24,
+                          data=b"\x89PNG\r\n\x1a\n" + bytes(4000))
+    return [(vc.TYPE, vc.to_bytes()), (pic.TYPE, pic.to_bytes())]
+
+
+def _api_encode(pcm, verify: bool, out=None, **kw):
+    """The 180 s track at -5 through the `with` form of StreamEncoder on
+    the card, with a seek table every 10 s, tags and a picture.  Returns
+    (stream bytes or None, progress calls, wall seconds, launches, the
+    encoder)."""
+    import torch
+    from flac_tpu_torch import EncoderConfig
+    from flac_tpu_torch import metadata as md
+    from flac_tpu_torch.encoder import StreamEncoder
+    buf = out if out is not None else io.BytesIO()
+    calls = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    with StreamEncoder(
+            buf, EncoderConfig.from_preset(5, blocksize=4096),
+            device="cuda", batch_frames=64, verify=verify,
+            seektable=md.SeekTableBlock.template_spaced(pcm.shape[1], RATE,
+                                                        10.0),
+            extra_metadata=_api_extra(),
+            progress_callback=lambda *a: calls.append(a), **kw) as enc:
+        enc.process(pcm)
+        enc.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (buf.getvalue() if out is None else None), calls, wall, \
+        _counts(), enc
+
+
+def library_api(pcm, plain_stream: bytes, expect_quad: int) -> dict:
+    """Phase 8.  Raises AssertionError on the first check that fails.
+    Returns each path's kernel launches, as counted from 0 just before it
+    and read just after."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from flac_tpu_torch import EncoderConfig, decode_stream_tpu, ogg
+    from flac_tpu_torch import encoder as encoder_mod
+    from flac_tpu_torch import metadata as md
+    from flac_tpu_torch.decoder import decode_stream_auto, parse_frame_header
+    from flac_tpu_torch.encoder import StreamEncoder
+    from flac_tpu_torch.ref_decoder import parse_metadata
+    from flac_tpu_torch.seek import FlacReader
+    launches = {}
+    pcm_bytes = pcm.size * 2
+
+    def control_wall():
+        """The main path's encode (no API feature) in this phase's host
+        state: the control that the API encodes' MB/s are read against."""
+        t0 = time.perf_counter()
+        encode(pcm, 5)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # verify on the card: K2 and K3 once for each written batch
+    c_walls = [control_wall()]
+    stream, calls, v_wall, launches["verify_encode"], enc = _api_encode(
+        pcm, True)
+    unverified, _, u_wall, launches["encode_with_metadata"], _ = \
+        _api_encode(pcm, False)
+    c_walls.append(control_wall())
+    n_frames = -(-pcm.shape[1] // 4096)
+    v = launches["verify_encode"]
+    steps = np.diff([0] + [c[0] for c in calls])
+    emit({"phase": "api",
+          "case": f"verify encode, -5, {pcm.shape[1] // RATE} s",
+          "encode_mb_per_s": {"verify": pcm_bytes / 1e6 / v_wall,
+                              "no_verify": pcm_bytes / 1e6 / u_wall,
+                              "main_path_config": [pcm_bytes / 1e6 / w
+                                                   for w in c_walls]},
+          "encode_wall_s": {"verify": v_wall, "no_verify": u_wall,
+                            "main_path_config": c_walls},
+          "written_batches": len(calls), "launches": v,
+          "launches_without_verify": launches["encode_with_metadata"],
+          "bytes": len(stream)})
+    if stream != unverified:
+        raise AssertionError("the verify=True stream differs from the "
+                             "verify=False stream")
+    if v["rice_codes"] != len(calls) or v["restore"] != len(calls):
+        raise AssertionError(f"verify launched K2/K3 {v} for {len(calls)} "
+                             "written batches: not once a batch")
+    if v["pack_fields64"] != expect_quad or \
+            launches["encode_with_metadata"] != {
+                "pack_fields64": expect_quad, "rice_codes": 0, "restore": 0}:
+        raise AssertionError(f"K1 launches {v}, "
+                             f"{launches['encode_with_metadata']}, expected "
+                             f"{expect_quad} and no decode without verify")
+    if calls[-1][0] != n_frames or steps.min() < 1 or steps.max() > 64:
+        raise AssertionError(f"the progress callback missed batches: {calls}")
+    st, first = parse_metadata(stream, 4)
+    if first != enc._first_frame_offset or \
+            stream[first:] != plain_stream[parse_metadata(plain_stream,
+                                                          4)[1]:]:
+        raise AssertionError("the frames differ from the main path's encode "
+                             "of the same track")
+    table = md.Chain.read(stream).get(md.SeekTableBlock.TYPE)
+    points = [p for p in table.points if not p.is_placeholder]
+    for p in points:
+        h = parse_frame_header(stream, first + p.stream_offset, st)
+        if h is None or h["number"] * 4096 != p.sample_number:
+            raise AssertionError(f"seek point {p} is not on its frame")
+    if len(points) != -(-pcm.shape[1] // (10 * RATE)) or \
+            not table.is_legal():
+        raise AssertionError(f"seek table: {len(points)} points")
+    emit({"phase": "api", "case": "seek table", "points": len(points),
+          "on_frame_headers": True,
+          "blocks": [t for t, _ in md.parse_metadata_blocks(stream)]})
+
+    # verify must catch a bit flipped in the packed words on the card
+    real = encoder_mod.encode_batch
+
+    def corrupted(*a, **k):
+        pf = real(*a, **k)
+        words = pf.words.clone()
+        words[3, 40] ^= 1 << 11
+        return pf._replace(words=words)
+    encoder_mod.encode_batch = corrupted
+    out = io.BytesIO()
+    try:
+        _api_encode(pcm[:, :20 * RATE], True, out=out)
+    except RuntimeError as e:
+        caught = str(e)
+    else:
+        caught = None
+    finally:
+        encoder_mod.encode_batch = real
+    # what reached the output must be the stream header and nothing more
+    written = out.getvalue()
+    header = parse_metadata(written, 4)[1]
+    emit({"phase": "api", "case": "verify catches a flipped bit",
+          "raised": caught, "bytes_written": len(written),
+          "header_bytes": header})
+    if caught is None or "stream NOT written" not in caught or \
+            len(written) != header:
+        raise AssertionError("verify let a corrupted batch through")
+
+    # seeking: 64 seeded reads with the seek table (a fresh reader each,
+    # seek_absolute from the best point) and 64 without (one reader)
+    rng = np.random.default_rng(64)
+    starts = rng.integers(0, pcm.shape[1] - 1, API_READS)
+    lens = rng.integers(1, 4 * 4096, API_READS)
+    FlacReader(plain_stream).read_range(0, 4096)            # warm-up
+    read_ms = {}
+    for label, data in (("with_table", stream),
+                        ("no_table", plain_stream)):
+        rd = FlacReader(data)
+        _reset_counts()
+        t0 = time.perf_counter()
+        for s0, n in zip(starts, lens):
+            s0, n = int(s0), int(n)
+            if label == "with_table":
+                rd = FlacReader(data)
+                rd.seek_absolute(s0)
+                got = rd.read(n)
+            else:
+                got = rd.read_range(s0, n)
+            if not np.array_equal(got, pcm[:, s0:s0 + n]):
+                raise AssertionError(f"read {label} at {s0}+{n} differs")
+        torch.cuda.synchronize()
+        read_ms[label] = (time.perf_counter() - t0) * 1e3 / API_READS
+        c = launches[f"reader_{label}"] = _counts()
+        if c["rice_codes"] < API_READS or c["restore"] < API_READS:
+            raise AssertionError(f"{API_READS} reads {label} launched {c}")
+    emit({"phase": "api", "case": f"FlacReader, {API_READS} seeded reads",
+          "ms_per_read": read_ms,
+          "launches": {k: launches[f"reader_{k}"] for k in read_ms}})
+
+    # Ogg: a 30 s clip at -5 through OggFlacSink, decoded on the card
+    clip = pcm[:, :OGG_SECONDS * RATE]
+    buf = io.BytesIO()
+    sink = ogg.OggFlacSink(buf)
+    _reset_counts()
+    with StreamEncoder(sink, EncoderConfig.from_preset(5, blocksize=4096),
+                       device="cuda", batch_frames=64) as enc:
+        enc.process(clip)
+        enc.finish()
+    sink.finalize()
+    launches["ogg_encode"] = _counts()
+    data = buf.getvalue()
+    decode_stream_auto(data)                                # warm-up
+    _reset_counts()
+    t0 = time.perf_counter()
+    st = decode_stream_auto(data)
+    torch.cuda.synchronize()
+    ogg_s = time.perf_counter() - t0
+    launches["ogg_decode"] = _counts()
+    if not st.md5_ok or not np.array_equal(st.samples, clip):
+        raise AssertionError("the Ogg decode differs from the clip")
+    lo, n = 11 * RATE + 123, 7 * RATE
+    _reset_counts()
+    mid = ogg.decode_ogg_flac_range(data, lo, n)
+    launches["ogg_range"] = _counts()
+    if not np.array_equal(mid.samples, clip[:, lo:lo + n]):
+        raise AssertionError("the ranged Ogg decode differs from the clip")
+    emit({"phase": "api", "case": f"Ogg, -5, {OGG_SECONDS} s",
+          "bytes": len(data), "decode_s": ogg_s,
+          "decode_mb_per_s": clip.size * 2 / 1e6 / ogg_s,
+          "md5": "match", "range": [lo, n],
+          "launches": {k: launches[k] for k in ("ogg_encode", "ogg_decode",
+                                                "ogg_range")}})
+    if min(launches["ogg_decode"]["rice_codes"],
+           launches["ogg_decode"]["restore"],
+           launches["ogg_range"]["rice_codes"],
+           launches["ogg_range"]["restore"],
+           launches["ogg_encode"]["pack_fields64"]) < 1:
+        raise AssertionError(f"the Ogg decodes did not run K2 and K3: "
+                             f"{launches}")
+
+    # metadata: a Chain edit past the padding, a SimpleIterator delete
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "track.flac")
+        with open(path, "wb") as f:
+            f.write(stream)
+        os.chmod(path, 0o640)
+        ch = md.Chain.read_file(path)
+        ch.get(md.VorbisCommentBlock.TYPE).set("LYRICS", "la " * 4000)
+        ch.write_file(path)
+        with md.SimpleIterator(path) as it:
+            while it.get_block_type() != md.PictureBlock.TYPE:
+                it.next()
+            it.delete_block(use_padding=False)
+        with open(path, "rb") as f:
+            edited = f.read()
+        mode = os.stat(path).st_mode & 0o777
+        _reset_counts()
+        st = decode_stream_tpu(edited)
+        torch.cuda.synchronize()
+        launches["decode_after_edit"] = _counts()
+    blocks = [t for t, _ in md.parse_metadata_blocks(edited)]
+    emit({"phase": "api", "case": "metadata edit",
+          "bytes": [len(stream), len(edited)], "blocks": blocks,
+          "mode": oct(mode), "launches": launches["decode_after_edit"]})
+    if not st.md5_ok or not np.array_equal(st.samples, pcm) or \
+            mode != 0o640 or md.PictureBlock.TYPE in blocks or \
+            len(edited) <= len(stream) or \
+            edited[parse_metadata(edited, 4)[1]:] != stream[first:]:
+        raise AssertionError("the edited file lost its audio, its mode or "
+                             "the edit")
+    return launches
 
 
 def _device_us(event, self_only: bool) -> float:
@@ -1049,7 +1343,6 @@ def main() -> int:
           "library_ms": None,
           "library_note": "no PyTorch call computes an integer IIR restore",
           "ptxas": usage["restore"]}
-    emit({"kernels": [k1, k2, k3]})
 
     # ---- 7. where the time goes in a steady encode and decode ----
     short = signals.make_test_signal(10 * RATE, seed=7)
@@ -1065,6 +1358,15 @@ def main() -> int:
                      "decode_fast",
                      ("flac.parse", "flac.upload", "flac.restore",
                       "flac.fetch"), ("restore_kernel",)))
+
+    # ---- 8. the library API on the card ----
+    t0 = time.perf_counter()
+    api = library_api(pcm, stream, expect)
+    emit({"phase": "api", "seconds": time.perf_counter() - t0})
+    for k in (k1, k2, k3):
+        k["launches_library_api"] = {path: c[k["name"]]
+                                     for path, c in api.items()}
+    emit({"kernels": [k1, k2, k3]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": dev_info})

@@ -20,8 +20,7 @@ tolerant=True decodes damaged streams as `flac -F` does: a leading ID3v2
 tag is skipped, a stream without a fLaC marker or STREAMINFO is decoded
 from its frame headers, bad frames are dropped and concealed with silence,
 missing frames become silence, and an MD5 mismatch is recorded instead of
-raised.  Ogg input (decode_stream_auto) is not ported yet and raises
-NotImplementedError.
+raised.  decode_stream_auto also takes Ogg FLAC (ogg.py).
 """
 
 from __future__ import annotations
@@ -746,9 +745,9 @@ def _assemble_with_concealment(st: DecodedStream, frames: list,
 
 
 def decode_stream_auto(data: bytes, **kw) -> DecodedStream:
-    """Container-sniffing decode: native FLAC here; Ogg FLAC raises
-    NotImplementedError until the Ogg layer is ported."""
-    if data[:4] == b"OggS":
-        raise NotImplementedError(
-            "flac_tpu_torch: Ogg FLAC decoding is not ported yet")
+    """Container-sniffing decode: native FLAC or Ogg FLAC by magic."""
+    from .ogg import decode_ogg_flac, is_ogg
+    if is_ogg(data):
+        kw.pop("tolerant", None)    # Ogg layer has its own CRC resync
+        return decode_ogg_flac(data, **kw)
     return decode_stream_tpu(data, **kw)

@@ -12,7 +12,10 @@ Port of flac_tpu/encoder.py.
 The host loop is plain: each batch is encoded on the device, its words
 come back with `.cpu()`, and its frames are written in order.  MD5 runs on
 the host (hashlib), and the STREAMINFO block is back-patched at finish
-exactly like update_metadata_ (stream_encoder.c:3139-3300).
+exactly like update_metadata_ (stream_encoder.c:3139-3300), with the seek
+table resolved to real frame positions.  With verify=True each batch is
+decoded back on the device (the "device" engine: K2, then K3) and compared
+with its input before a byte of it is written.
 
 encode_batch marks its stages as profiler ranges (flac.search,
 flac.assign, flac.assemble, and flac.pack inside assemble_frames): a few
@@ -21,6 +24,7 @@ microseconds of host time each while torch.profiler is not recording.
 
 from __future__ import annotations
 
+import bisect
 import functools
 import hashlib
 import io
@@ -32,11 +36,14 @@ from torch.profiler import record_function
 
 from . import format as fmt
 from .config import EncoderConfig
+from .decoder import decode_frame_list, parse_frame_header
 from .device import resolve_device
+from .metadata import SeekPoint
 from .models import frame as frame_mod
 from .models import stereo as stereo_mod
 from .models import subframe as subframe_mod
 from .ops import lpc as lpc_ops
+from .ref_decoder import DecodedStream, FlacDecodeError
 from .utils.bits import BitWriter
 
 
@@ -157,27 +164,26 @@ def _words_to_wbytes(words: torch.Tensor, ncols: int) -> np.ndarray:
 class StreamEncoder:
     """Host-side streaming encoder: buffers PCM, encodes batches of
     `batch_frames` frames on the device, writes the byte stream in order,
-    back-patches STREAMINFO at finish.
+    back-patches STREAMINFO (and the seek table) at finish.
 
     device: None means "cuda" (raises if no GPU is present); pass "cpu" to
     run on the CPU.  packer: the quad-layout deposit ("kernel" or
     "plain"), see models/frame.assemble_frames.
-
-    Not ported yet (each raises NotImplementedError): extra metadata
-    blocks, seek tables, verify=True, and container sinks such as Ogg.
+    extra_metadata: raw (type, body) blocks written after STREAMINFO and the
+    seek table, before the padding.  seektable: a metadata.SeekTableBlock
+    template (template_spaced, template_count, placeholders), resolved to
+    real frame positions at finish.  verify: decode every batch on the
+    device (decoder.decode_frame_list, the "device" engine) and compare it
+    sample for sample with the input before a byte of it is written.
+    progress_callback(frames_done, blocksize, bytes_written) runs after
+    each written batch.  An `out` with a `write_frames` method (the Ogg
+    sink, ogg.OggFlacSink) takes each batch with its frame lengths.
     """
 
     def __init__(self, out, cfg: EncoderConfig, *, batch_frames: int = 64,
                  padding: int = 4096, device=None, packer: str = "kernel",
                  extra_metadata: list | None = None, seektable=None,
-                 verify: bool = False):
-        if extra_metadata or seektable is not None or verify:
-            raise NotImplementedError(
-                "flac_tpu_torch: extra metadata, seek tables and verify=True "
-                "are not ported yet")
-        if hasattr(out, "write_frames"):
-            raise NotImplementedError(
-                "flac_tpu_torch: container sinks (Ogg) are not ported yet")
+                 verify: bool = False, progress_callback=None):
         self.out = out
         self.cfg = cfg.resolve()
         if self.cfg.max_subframe_bps > 32:
@@ -187,29 +193,53 @@ class StreamEncoder:
         self.device = resolve_device(device)
         self.packer = packer
         self.batch_frames = batch_frames
+        self.verify = verify
         self.blocksize = self.cfg.blocksize
         self._buf = np.zeros((self.cfg.channels, 0), np.int32)
         self._frame_number = 0
         self._md5 = hashlib.md5()
         self._info = StreamInfo(self.cfg)
         self._header_pos = None
+        self._seektable = seektable       # SeekTableBlock template or None
+        self._seektable_pos = None        # file offset of its body
+        self._frame_index = []            # (first_sample, offset, blocksize)
+        self._first_frame_offset = None
+        self._progress = progress_callback
+        self._bytes_written = 0
+        self._closed = False
         self.misfit_frames = 0    # quad-layout misfits re-encoded "safe"
-        self._write_stream_header(padding)
+        self._write_stream_header(padding, extra_metadata or [])
 
-    def _write_stream_header(self, padding: int):
+    def _write_stream_header(self, padding: int, extra: list):
         self.out.write(fmt.STREAM_SYNC_STRING)
         self._header_pos = self.out.tell()
         si = self._info.to_bytes()
+        is_last = padding <= 0 and not extra and self._seektable is None
         self.out.write(metadata_block_header(
-            fmt.METADATA_TYPE_STREAMINFO, len(si), padding <= 0))
+            fmt.METADATA_TYPE_STREAMINFO, len(si), is_last))
         self.out.write(si)
+        if self._seektable is not None:
+            # reserve the full table now; patched at finish like the
+            # reference's update_metadata_ (stream_encoder.c:3139-3300)
+            body = self._seektable.to_bytes()
+            last = padding <= 0 and not extra
+            self.out.write(metadata_block_header(
+                fmt.METADATA_TYPE_SEEKTABLE, len(body), last))
+            self._seektable_pos = self.out.tell()
+            self.out.write(body)
+        for i, blk in enumerate(extra):
+            last = (padding <= 0) and i == len(extra) - 1
+            self.out.write(metadata_block_header(blk[0], len(blk[1]), last))
+            self.out.write(blk[1])
         if padding > 0:
             self.out.write(metadata_block_header(
                 fmt.METADATA_TYPE_PADDING, padding, True))
             self.out.write(b"\x00" * padding)
+        self._first_frame_offset = self.out.tell()
 
     def process(self, pcm: np.ndarray):
         """pcm: [C, n] int32 samples, one row per channel."""
+        self._check_open()
         assert pcm.shape[0] == self.cfg.channels
         pcm = np.ascontiguousarray(pcm, np.int32)
         self._md5.update(interleave_for_md5(pcm, self.cfg.bits_per_sample))
@@ -311,19 +341,116 @@ class StreamEncoder:
             wbytes, lens = self._replace_bad_frames(
                 wbytes, lens, blocks, bad, N, base_frame)
         blob = b"".join(wbytes[i, :int(lens[i])].tobytes() for i in range(B))
-        self.out.write(blob)
+        if self.verify:
+            self._verify_batch(blocks, blob, lens, N, base_frame)
+        if self._seektable is not None:
+            base = self.out.tell() - self._first_frame_offset
+            offs = base + np.concatenate([[0], np.cumsum(lens[:-1])])
+            for i in range(B):
+                self._frame_index.append(
+                    ((base_frame + i) * self.blocksize, int(offs[i]), N))
+        if hasattr(self.out, "write_frames"):
+            # container sinks (Ogg) that packetize per frame take the
+            # batch with its length table instead of raw bytes
+            self.out.write_frames(blob, lens, N)
+        else:
+            self.out.write(blob)
+        self._bytes_written += len(blob)
         self._info.min_framesize = min(self._info.min_framesize,
                                        int(lens.min()))
         self._info.max_framesize = max(self._info.max_framesize,
                                        int(lens.max()))
+        if self._progress is not None:
+            self._progress(base_frame + B, self.blocksize,
+                           self._bytes_written)
+
+    def _verify_batch(self, blocks: np.ndarray, blob: bytes,
+                      lens: np.ndarray, N: int, base_frame: int):
+        """Encoder verify loopback (`-V`, stream_encoder.c:1287-1325,
+        2334-2352): decode every emitted frame on the device and compare it
+        sample for sample with the input before any byte reaches the
+        output."""
+        B = lens.shape[0]
+        st = DecodedStream()
+        st.sample_rate = self.cfg.sample_rate
+        st.channels = self.cfg.channels
+        st.bits_per_sample = self.cfg.bits_per_sample
+        # frame boundaries are exactly the emitted lengths: parse each
+        # header in place rather than re-scanning for sync
+        offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        frames = []
+        for i in range(B):
+            h = parse_frame_header(blob, int(offs[i]), st)
+            if h is None:
+                raise RuntimeError(
+                    f"verify: emitted frame {base_frame + i} has "
+                    "an invalid header (encoder bug)")
+            h["size"] = int(lens[i])
+            frames.append(h)
+        try:
+            decoded = decode_frame_list(blob, st, frames, device=self.device)
+        except FlacDecodeError as e:
+            raise RuntimeError(
+                f"verify: emitted frames fail to decode ({e}; stream NOT "
+                "written)") from e
+        for i, sig in enumerate(decoded):
+            if not np.array_equal(sig, blocks[i]):
+                bad = np.nonzero(sig != blocks[i])
+                raise RuntimeError(
+                    "verify mismatch in audio data: frame "
+                    f"{base_frame + i}, channel {int(bad[0][0])}, "
+                    f"sample {int(bad[1][0])} (stream NOT written)")
+
+    def _resolve_seektable(self):
+        """Fill template points with real frame positions (the encoder-side
+        seekpoint resolution of write_frame_/update_metadata_)."""
+        resolved, seen = [], set()
+        fidx = self._frame_index
+        starts = [f[0] for f in fidx]
+        for p in self._seektable.points:
+            if p.sample_number == fmt.SEEKPOINT_PLACEHOLDER or not fidx:
+                continue
+            i = bisect.bisect_right(starts, min(p.sample_number,
+                                                self._info.total_samples - 1))
+            i = max(0, i - 1)
+            fs, off, bs = fidx[i]
+            if fs not in seen:
+                seen.add(fs)
+                resolved.append(SeekPoint(fs, off, bs))
+        resolved.sort(key=lambda p: p.sample_number)
+        pad = len(self._seektable.points) - len(resolved)
+        resolved += [SeekPoint(fmt.SEEKPOINT_PLACEHOLDER, 0, 0)] * pad
+        self._seektable.points = resolved
+
+    def _check_open(self):
+        if self._closed:
+            raise RuntimeError("StreamEncoder is closed")
+
+    def close(self):
+        """Mark the encoder closed; later process() and finish() calls
+        raise.  Safe to call repeatedly.  The port holds no worker thread
+        or fetch pool, so there is nothing else to release."""
+        self._closed = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close()
+        return False
 
     def finish(self):
+        self._check_open()
         self._drain(final=True)
         self._info.md5 = self._md5.digest()
         if self.out.seekable():
             pos = self.out.tell()
             self.out.seek(self._header_pos + 4)
             self.out.write(self._info.to_bytes())
+            if self._seektable is not None:
+                self._resolve_seektable()
+                self.out.seek(self._seektable_pos)
+                self.out.write(self._seektable.to_bytes())
             self.out.seek(pos)
         return self._info
 
@@ -332,9 +459,9 @@ def encode_file_to_flac(pcm: np.ndarray, cfg: EncoderConfig,
                         out=None, **kw) -> bytes:
     """Convenience one-shot: pcm [C, n] int32 -> FLAC byte stream.
     Keyword arguments go to StreamEncoder (device, packer, batch_frames,
-    padding)."""
+    padding, extra_metadata, seektable, verify, progress_callback)."""
     buf = out or io.BytesIO()
-    enc = StreamEncoder(buf, cfg, **kw)
-    enc.process(pcm)
-    enc.finish()
+    with StreamEncoder(buf, cfg, **kw) as enc:
+        enc.process(pcm)
+        enc.finish()
     return buf.getvalue() if out is None else None

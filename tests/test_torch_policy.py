@@ -1,7 +1,12 @@
 """Rules of the flac_tpu_torch package: it never imports JAX or flac_tpu,
 its entry points run on the GPU unless asked for the CPU (and raise when
 there is none, whatever the engine), what is not ported raises
-NotImplementedError, and chip_smoke.py fails without a GPU."""
+NotImplementedError, and chip_smoke.py fails without a GPU.
+
+Features that were pinned here as unported while they were (seek tables,
+verify, extra metadata, the Ogg sink, Ogg decoding) are held against
+flac_tpu in test_torch_encoder_api.py, test_torch_seek.py and
+test_torch_ogg.py."""
 
 import ast
 import io
@@ -17,7 +22,7 @@ import torch
 
 import flac_tpu_torch
 from flac_tpu_torch import EncoderConfig, decode_stream_tpu, kernels
-from flac_tpu_torch.decoder import ENGINES, decode_stream_auto
+from flac_tpu_torch.decoder import ENGINES
 from flac_tpu_torch.encoder import StreamEncoder, encode_file_to_flac
 
 REPO = Path(__file__).resolve().parents[1]
@@ -34,13 +39,16 @@ def test_import_leaves_no_jax_or_flac_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flac_tpu')]\n"
-        "print(len(list(pkgutil.walk_packages(flac_tpu_torch.__path__))),\n"
-        "      sorted(bad))\n")
+        "print(' '.join(m.name for m in pkgutil.walk_packages(\n"
+        "    flac_tpu_torch.__path__, 'flac_tpu_torch.')))\n"
+        "print(sorted(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 5
+    walked, bad = out.stdout.splitlines()
+    assert {f"flac_tpu_torch.{m}" for m in (
+        "encoder", "decoder", "metadata", "seek", "cuesheet", "ogg",
+        "ops.restore_cuda")} <= set(walked.split())
     assert bad.strip() == "[]"
 
 
@@ -90,20 +98,14 @@ def test_decode_defaults_to_the_gpu_and_raises_without_one(no_gpu):
     assert st.md5_ok and np.array_equal(st.samples, pcm)
 
 
-@pytest.mark.parametrize("what", ["fast", "scan", "auto", "tolerant",
-                                  "ogg"])
+@pytest.mark.parametrize("what", ["fast", "scan", "auto", "tolerant"])
 def test_unported_decode_features_raise(what):
-    """Ogg input is not ported and raises NotImplementedError.  The engines
-    and the tolerant mode that raised it before are ported: they decode on
-    the CPU when asked to."""
+    """The engines and the tolerant mode that raised NotImplementedError
+    before they were ported decode on the CPU when asked to."""
     pcm = np.zeros((2, 3000), np.int32)
     pcm[:, 1000:] = 7
     stream = encode_file_to_flac(pcm, EncoderConfig.from_preset(
         5, blocksize=1024), device="cpu")
-    if what == "ogg":
-        with pytest.raises(NotImplementedError, match="Ogg"):
-            decode_stream_auto(b"OggS" + stream, device="cpu")
-        return
     kw = {"tolerant": True} if what == "tolerant" else {"engine": what}
     st = decode_stream_tpu(stream, device="cpu", **kw)
     assert st.md5_ok and np.array_equal(st.samples, pcm)
@@ -135,30 +137,11 @@ def test_tf32_is_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-class _PacketSink(io.BytesIO):
-    def write_frames(self, blob, lens, n):
-        raise AssertionError("not reached")
-
-
-@pytest.mark.parametrize("what", ["bps32-mid-side", "seektable", "verify",
-                                  "extra-metadata", "ogg-sink"])
+@pytest.mark.parametrize("what", ["bps32-mid-side"])
 def test_unported_features_raise(what):
-    cfg = EncoderConfig.from_preset(5, blocksize=1024)
-    kw = {"device": "cpu"}
-    out = io.BytesIO()
-    if what == "bps32-mid-side":
-        cfg = EncoderConfig.from_preset(5, blocksize=1024,
-                                        bits_per_sample=32)
-    elif what == "seektable":
-        kw["seektable"] = object()
-    elif what == "verify":
-        kw["verify"] = True
-    elif what == "extra-metadata":
-        kw["extra_metadata"] = [(4, b"x")]
-    else:
-        out = _PacketSink()
+    cfg = EncoderConfig.from_preset(5, blocksize=1024, bits_per_sample=32)
     with pytest.raises(NotImplementedError):
-        StreamEncoder(out, cfg, **kw)
+        StreamEncoder(io.BytesIO(), cfg, device="cpu")
 
 
 def test_nothing_is_built_on_import():

@@ -9,13 +9,16 @@ flac_tpu's, for each of the port's engines.  The `flac -F` oracle case
 needs the libFLAC binary and stays in test_resilience.py.
 """
 
+import io
+
 import numpy as np
 import pytest
 import torch
 
 from flac_tpu import native as jnative
+from flac_tpu import ogg as jogg
 from flac_tpu.decoder import decode_stream_tpu as ref_decode
-from flac_tpu_torch import EncoderConfig, decode_stream_tpu, signals
+from flac_tpu_torch import EncoderConfig, decode_stream_tpu, ogg, signals
 from flac_tpu_torch.decoder import decode_stream_auto, skip_id3v2
 from flac_tpu_torch.encoder import encode_file_to_flac
 from flac_tpu_torch.ref_decoder import FlacDecodeError
@@ -130,5 +133,14 @@ def test_decode_stream_auto(stream):
     st = decode_stream_auto(_midstream(pcm, data), tolerant=True,
                             device="cpu")
     np.testing.assert_array_equal(st.samples, pcm[:, 3 * N:])
-    with pytest.raises(NotImplementedError, match="Ogg"):
+    # Ogg input goes to the Ogg layer (tolerant is dropped there): a
+    # wrapped stream decodes; a bad page header raises as in flac_tpu
+    out = io.BytesIO()
+    ogg.wrap_flac_stream(data, out)
+    st = decode_stream_auto(out.getvalue(), tolerant=True, device="cpu")
+    np.testing.assert_array_equal(st.samples, pcm)
+    for pkg, kw in ((ogg, {"device": "cpu"}), (jogg, {"engine": "host"})):
+        with pytest.raises(pkg.OggError, match="unsupported Ogg version"):
+            pkg.decode_ogg_flac(b"OggS" + data, **kw)
+    with pytest.raises(ogg.OggError, match="unsupported Ogg version"):
         decode_stream_auto(b"OggS" + data, device="cpu")
