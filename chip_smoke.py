@@ -82,8 +82,35 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             mode.  Each path's K1, K2 and K3 launches, counted from 0 just
             before it, go into the `kernels` line as
             `launches_library_api`.
+9. cli:     the command lines on the GPU, in a temp directory.  The 180 s
+            track as a 16-bit WAV through `python -m flac_tpu_torch.cli -5`
+            in a fresh process (MB/s with the process start; the start
+            alone as a -t of a one-frame file in another), then the same
+            encode in this process through cli.main: both files must equal
+            StreamEncoder's bytes with the tool's padding and 10 s seek
+            table (that encode and the WAV read and write are timed
+            beside it), and K1 must launch once a quad-layout batch.
+            -d must give the WAV back byte for byte and -t must pass (K2
+            and K3 once a decode batch each); -V must write the same
+            bytes.  The
+            file, tagged by metaflac, re-encoded at -8 from FLAC (decoded
+            on the GPU): tags kept, round trip, MB/s and size beside -5's.
+            On a 30 s clip: --keep-foreign-metadata WAV -> FLAC -> WAV
+            byte for byte, --replay-gain tags equal to GainAnalyzer's,
+            --ogg then -d, --skip/--until on encode and decode, metaflac
+            --list, --add-replay-gain (in its own process, beside the
+            33-bit section: it decodes in pure Python; its tags must equal
+            --replay-gain's) and --export-tags-to=-, each timed.  A 60 s
+            96 kHz 32-bit stereo clip (tests/test_hires.py's recipe, its
+            first 4 blocks antiphase so the side passes 2^31) at -5
+            through the tool: no K1 (the safe layout), some frame on a side
+            channel, decoded by the "device" and "fast" engines with the
+            MD5 and equal to the host engine, size within 0.1% of the same
+            encode on the CPU.
+            Each path's K1, K2 and K3 launches, counted from 0 just before
+            it, go into the `kernels` line as `launches_cli`.
 
-The `kernels` line comes after phase 8.
+The `kernels` line comes after phase 9.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
 register report, the profile tables) go to OUT_DIR, beside this script.
@@ -431,10 +458,8 @@ def k3_cases(clips: dict):
 # phases 4-5 helpers
 # ---------------------------------------------------------------------------
 
-def quad_batches(cfg, n_samples: int, batch_frames: int) -> int:
-    """Batches of a StreamEncoder run that take the quad layout (and so
-    launch K1 once each), from the frame plan alone."""
-    from flac_tpu_torch import format as fmt
+def batch_blocksizes(cfg, n_samples: int, batch_frames: int) -> list:
+    """The blocksize of each batch a StreamEncoder run writes."""
     N = cfg.blocksize
     full = (n_samples - 1) // N                    # emitted before finish
     sizes = [N] * (-(-full // batch_frames))
@@ -442,13 +467,21 @@ def quad_batches(cfg, n_samples: int, batch_frames: int) -> int:
     sizes += [N] * (rest // N)
     if rest % N:
         sizes.append(rest % N)
+    return sizes
+
+
+def quad_batches(cfg, n_samples: int, batch_frames: int) -> int:
+    """Batches of a StreamEncoder run that take the quad layout (and so
+    launch K1 once each), from the frame plan alone."""
+    from flac_tpu_torch import format as fmt
 
     def quad(n):
         po = fmt.max_rice_partition_order_limited(
             cfg.max_residual_partition_order, n, 0)
         return (cfg.bits_per_sample <= 26 and n % 4 == 0
                 and max(n >> po, 1) % 4 == 0)
-    return sum(quad(n) for n in sizes)
+    return sum(quad(n) for n in batch_blocksizes(cfg, n_samples,
+                                                 batch_frames))
 
 
 def round_trip(stream: bytes, pcm) -> float:
@@ -773,6 +806,343 @@ def library_api(pcm, plain_stream: bytes, expect_quad: int) -> dict:
             edited[parse_metadata(edited, 4)[1]:] != stream[first:]:
         raise AssertionError("the edited file lost its audio, its mode or "
                              "the edit")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the command lines on the card
+# ---------------------------------------------------------------------------
+
+CLIP_SECONDS = 30            # the host features' clip
+HIRES_SECONDS = 60           # the 33-bit clip: a 32-bit stereo file at
+HIRES_RATE = 96000           # 96 kHz of signals.make_hires32_signal's samples
+
+
+def _cli_process(argv) -> float:
+    """`python -m flac_tpu_torch.cli argv` in a fresh process, the way a
+    user runs it.  Returns its wall seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "flac_tpu_torch.cli",
+                          *argv], cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"python -m flac_tpu_torch.cli {argv} exited "
+                             f"{out.returncode}: {out.stderr[-3000:]}")
+    return wall
+
+
+def _wav_with_chunks(pcm) -> bytes:
+    """A 16-bit WAV with a LIST chunk before its data and an odd-sized
+    chunk after it (the foreign metadata that flac keeps)."""
+    import struct
+    from flac_tpu_torch import container
+    payload = container._pcm_to_bytes(pcm, 16)
+    fmtc = struct.pack("<HHIIHH", 1, 2, RATE, RATE * 4, 4, 16)
+    info = b"INFOIART" + struct.pack("<I", 11) + b"chip smoke\x00\x00"
+    chunks = (b"fmt " + struct.pack("<I", len(fmtc)) + fmtc
+              + b"LIST" + struct.pack("<I", len(info)) + info
+              + b"data" + struct.pack("<I", len(payload)) + payload
+              + b"odd!" + struct.pack("<I", 5) + b"12345\x00")
+    return b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WAVE" + chunks
+
+
+def command_lines(pcm, stream5: bytes) -> dict:
+    """Phase 9.  Raises AssertionError on the first check that fails.
+    Returns each path's kernel launches, as counted from 0 just before it
+    and read just after."""
+    import collections
+    import contextlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from flac_tpu_torch import (EncoderConfig, cli, container,
+                                decode_stream_tpu, metaflac_cli, signals)
+    from flac_tpu_torch import metadata as md
+    from flac_tpu_torch import replaygain as rg
+    from flac_tpu_torch.encoder import encode_file_to_flac
+    from flac_tpu_torch.ref_decoder import parse_metadata
+    launches = {}
+    walls = {}
+    n = pcm.shape[1]
+    pcm_bytes = pcm.size * 2
+    tmp = tempfile.TemporaryDirectory()
+    rg_proc = None
+
+    def path(name):
+        return os.path.join(tmp.name, name)
+
+    def read(name):
+        with open(path(name), "rb") as f:
+            return f.read()
+
+    def write(name, data):
+        with open(path(name), "wb") as f:
+            f.write(data)
+
+    def run(label, argv, tool=cli.main):
+        """A command line in this process, its launches counted from 0
+        just before it and read just after; prints its stdout."""
+        _reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tool(argv)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        launches[label] = _counts()
+        if rc != 0:
+            raise AssertionError(f"{argv} returned {rc}")
+        return out.getvalue()
+
+    def library(samples, rate, bps, device):
+        """StreamEncoder with what the tool gives it at -5."""
+        table = md.SeekTableBlock(points=md.SeekTableBlock.template_spaced(
+            samples.shape[1], rate, 10.0).points)
+        return encode_file_to_flac(samples, EncoderConfig.from_preset(
+            5, sample_rate=rate, channels=2, bits_per_sample=bps),
+            padding=4096, seektable=table, device=device)
+
+    try:
+        # ---- encode from a shell, then in this process ----
+        t0 = time.perf_counter()
+        wav_bytes = container.write_wav(pcm, RATE, 16)
+        wav_write_s = time.perf_counter() - t0
+        write("t.wav", wav_bytes)
+        t0 = time.perf_counter()
+        container.sniff_and_read(wav_bytes)
+        wav_read_s = time.perf_counter() - t0
+        shell_s = _cli_process(["-5", "-s", "-o", path("shell.flac"),
+                                path("t.wav")])
+        write("one.flac", encode(pcm[:, :4096], 5)[0])
+        start_s = _cli_process(["-t", "-s", path("one.flac")])
+        run("encode_-5", ["-5", "-s", "-o", path("t.flac"), path("t.wav")])
+        data = read("t.flac")
+        cfg5 = EncoderConfig.from_preset(5, blocksize=4096).resolve()
+        quad5 = quad_batches(cfg5, n, 64)
+        t0 = time.perf_counter()
+        want = library(pcm, RATE, 16, "cuda")
+        torch.cuda.synchronize()
+        library_s = time.perf_counter() - t0
+        emit({"phase": "cli", "case": "encode -5, 180 s WAV",
+              "shell_wall_s": shell_s, "process_start_s": start_s,
+              "shell_mb_per_s": pcm_bytes / 1e6 / shell_s,
+              "in_process_wall_s": walls["encode_-5"],
+              "in_process_mb_per_s": pcm_bytes / 1e6 / walls["encode_-5"],
+              "library_encode_wall_s": library_s,
+              "library_encode_mb_per_s": pcm_bytes / 1e6 / library_s,
+              "wav_read_s": wav_read_s, "wav_write_s": wav_write_s,
+              "bytes": len(data), "launches": launches["encode_-5"],
+              "quad_batches": quad5})
+        if data != want or read("shell.flac") != want:
+            raise AssertionError("the tool's -5 file differs from "
+                                 "StreamEncoder's bytes")
+        if launches["encode_-5"] != {"pack_fields64": quad5,
+                                     "rice_codes": 0, "restore": 0}:
+            raise AssertionError(f"the tool's encode launched "
+                                 f"{launches['encode_-5']}, expected K1 "
+                                 f"{quad5} times")
+        if data[parse_metadata(data, 4)[1]:] != \
+                stream5[parse_metadata(stream5, 4)[1]:]:
+            raise AssertionError("the tool's frames differ from the main "
+                                 "path's")
+
+        # ---- decode, test, verify ----
+        batches = decode_batches(decode_stream_tpu(data,
+                                                   engine="host").frames)
+        run("decode", ["-d", "-s", "-o", path("back.wav"), path("t.flac")])
+        run("test", ["-t", "-s", path("t.flac")])
+        run("verify_encode", ["-5", "-s", "-V", "-o", path("v.flac"),
+                              path("t.wav")])
+        written = len(batch_blocksizes(cfg5, n, 64))
+        emit({"phase": "cli", "case": "decode, test, verify",
+              "decode_mb_per_s": pcm_bytes / 1e6 / walls["decode"],
+              "test_mb_per_s": pcm_bytes / 1e6 / walls["test"],
+              "verify_encode_mb_per_s":
+                  pcm_bytes / 1e6 / walls["verify_encode"],
+              "decode_batches": batches, "written_batches": written,
+              "launches": {k: launches[k] for k in ("decode", "test",
+                                                    "verify_encode")}})
+        if read("back.wav") != read("t.wav"):
+            raise AssertionError("-d did not give the WAV back")
+        for label in ("decode", "test"):
+            if launches[label] != {"pack_fields64": 0, "rice_codes": batches,
+                                   "restore": batches}:
+                raise AssertionError(f"{label} launched {launches[label]}, "
+                                     f"expected K2 and K3 {batches} times")
+        if read("v.flac") != data or launches["verify_encode"] != {
+                "pack_fields64": quad5, "rice_codes": written,
+                "restore": written}:
+            raise AssertionError(f"-V wrote other bytes or launched "
+                                 f"{launches['verify_encode']}")
+
+        # ---- FLAC to FLAC at -8 ----
+        shutil.copy(path("t.flac"), path("tagged.flac"))
+        run("metaflac_set_tags", ["--set-tag=TITLE=chip smoke",
+                                  "--set-tag=ARTIST=flac_tpu_torch",
+                                  path("tagged.flac")], metaflac_cli.main)
+        run("reencode_-8", ["-8", "-s", "-o", path("t8.flac"),
+                            path("tagged.flac")])
+        data8 = read("t8.flac")
+        quad8 = quad_batches(EncoderConfig.from_preset(8).resolve(), n, 64)
+        st8 = decode_stream_tpu(data8)
+        tags8 = md.get_tags(path("t8.flac"))
+        emit({"phase": "cli", "case": "re-encode FLAC -> -8",
+              "mb_per_s": pcm_bytes / 1e6 / walls["reencode_-8"],
+              "wall_s": walls["reencode_-8"], "bytes": len(data8),
+              "bytes_-5": len(data), "ratio": len(data8) / pcm_bytes,
+              "ratio_-5": len(data) / pcm_bytes,
+              "launches": launches["reencode_-8"], "quad_batches": quad8})
+        if not st8.md5_ok or not np.array_equal(st8.samples, pcm) or \
+                tags8.get("TITLE") != ["chip smoke"]:
+            raise AssertionError("the -8 re-encode lost its audio or tags")
+        if launches["reencode_-8"] != {"pack_fields64": quad8,
+                                       "rice_codes": batches,
+                                       "restore": batches}:
+            raise AssertionError(f"the re-encode launched "
+                                 f"{launches['reencode_-8']}")
+
+        # ---- host features on a 30 s clip ----
+        clip = pcm[:, :CLIP_SECONDS * RATE]
+        write("c.wav", container.write_wav(clip, RATE, 16))
+        write("f.wav", _wav_with_chunks(clip))
+        run("foreign_encode", ["-5", "-s", "--keep-foreign-metadata", "-o",
+                               path("f.flac"), path("f.wav")])
+        run("foreign_decode", ["-d", "-s", "--keep-foreign-metadata", "-o",
+                               path("f2.wav"), path("f.flac")])
+        if read("f2.wav") != read("f.wav"):
+            raise AssertionError("--keep-foreign-metadata did not give the "
+                                 "WAV back")
+        run("replay_gain_encode", ["-5", "-s", "--replay-gain", "-o",
+                                   path("rg.flac"), path("c.wav")])
+        an = rg.GainAnalyzer(RATE)
+        an.analyze_pcm(clip, 16)
+        want_rg = [f"{k}={v}" for k, v in rg.format_tags(
+            an.title_gain(), an.track_peak, an.album_gain(), an.album_peak)]
+        got_rg = md.Chain.read(read("rg.flac")).get(
+            md.VorbisCommentBlock.TYPE).comments
+        if got_rg != want_rg:
+            raise AssertionError(f"--replay-gain wrote {got_rg}, "
+                                 f"GainAnalyzer gives {want_rg}")
+        run("ogg_encode", ["-5", "-s", "--ogg", "-o", path("c.oga"),
+                           path("c.wav")])
+        run("ogg_decode", ["-d", "-s", "-o", path("c2.wav"), path("c.oga")])
+        if read("c2.wav") != read("c.wav"):
+            raise AssertionError("--ogg then -d did not give the WAV back")
+        run("skip_until_encode", ["-5", "-s", "--skip", "0:05", "--until",
+                                  f"+{5 * RATE}", "-o", path("cut.flac"),
+                                  path("c.wav")])
+        cut = decode_stream_tpu(read("cut.flac"))
+        run("skip_until_decode", ["-d", "-s", "--skip", f"{11 * RATE + 7}",
+                                  "--until", "+1000", "-o", path("cut.wav"),
+                                  path("rg.flac")])
+        cut_wav = container.read_wav(read("cut.wav")).samples
+        if not cut.md5_ok or not np.array_equal(
+                cut.samples, clip[:, 5 * RATE:10 * RATE]) or \
+                not np.array_equal(cut_wav,
+                                   clip[:, 11 * RATE + 7:11 * RATE + 1007]):
+            raise AssertionError("--skip/--until cut the wrong samples")
+        listing = run("metaflac_list", ["--list", path("rg.flac")],
+                      metaflac_cli.main)
+        if "METADATA block #0" not in listing:
+            raise AssertionError(f"metaflac --list printed {listing!r}")
+        host_cases = ("foreign_encode", "foreign_decode",
+                      "replay_gain_encode", "ogg_encode", "ogg_decode",
+                      "skip_until_encode", "skip_until_decode",
+                      "metaflac_list")
+        emit({"phase": "cli", "case": f"host features, {CLIP_SECONDS} s",
+              "wall_s": {k: walls[k] for k in host_cases},
+              "replay_gain": want_rg,
+              "launches": {k: launches[k] for k in host_cases}})
+
+        # ---- the 33-bit side channel ----
+        hi = signals.make_hires32_signal(HIRES_SECONDS * HIRES_RATE,
+                                         seed=60)
+        left = np.round(1.6e9 * np.sin(np.arange(4 * 4096) * 0.01))
+        hi[0, :4 * 4096], hi[1, :4 * 4096] = left, -left
+        write("hi.wav", container.write_wav(hi, HIRES_RATE, 32))
+        run("encode_33bit", ["-5", "-s", "-o", path("hi.flac"),
+                             path("hi.wav")])
+        hdata = read("hi.flac")
+        host = decode_stream_tpu(hdata, engine="host")
+        assignments = collections.Counter(f["assignment"]
+                                          for f in host.frames)
+        dec = {}
+        for engine in ("device", "fast"):
+            decode_stream_tpu(hdata, engine=engine)         # warm-up
+            _reset_counts()
+            t0 = time.perf_counter()
+            st = decode_stream_tpu(hdata, engine=engine)
+            torch.cuda.synchronize()
+            dec[engine] = time.perf_counter() - t0
+            launches[f"decode_33bit_{engine}"] = _counts()
+            if not st.md5_ok or not np.array_equal(st.samples, hi) or \
+                    not np.array_equal(st.samples, host.samples):
+                raise AssertionError(f"the {engine} engine's decode of the "
+                                     "33-bit clip differs")
+
+        # metaflac --add-replay-gain decodes the 30 s clip in pure Python
+        # (its reference decoder): it runs in its own process, as a user
+        # runs it, once the 33-bit timings are taken, beside the CPU encode
+        # that checks the 33-bit clip's size
+        shutil.copy(path("f.flac"), path("m.flac"))
+        t_rg = time.perf_counter()
+        rg_proc = subprocess.Popen(
+            [sys.executable, "-m", "flac_tpu_torch.metaflac_cli",
+             "--add-replay-gain", path("m.flac")], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t0 = time.perf_counter()
+        cpu = library(hi, HIRES_RATE, 32, "cpu")
+        cpu_s = time.perf_counter() - t0
+        hi_bytes = hi.size * 4
+        emit({"phase": "cli", "case": f"33-bit side, {HIRES_SECONDS} s "
+              f"32-bit stereo at {HIRES_RATE} Hz",
+              "encode_mb_per_s": hi_bytes / 1e6 / walls["encode_33bit"],
+              "encode_wall_s": walls["encode_33bit"],
+              "decode_mb_per_s": {k: hi_bytes / 1e6 / v
+                                  for k, v in dec.items()},
+              "assignments": dict(sorted(assignments.items())),
+              "bytes": len(hdata), "bytes_cpu": len(cpu),
+              "cpu_encode_s_beside_metaflac": cpu_s,
+              "launches": {k: launches[k] for k in (
+                  "encode_33bit", "decode_33bit_device",
+                  "decode_33bit_fast")}})
+        if launches["encode_33bit"]["pack_fields64"] != 0:
+            raise AssertionError("K1 launched for a 32-bit stream")
+        if not set(assignments) - {0}:
+            raise AssertionError("no frame of the 33-bit clip chose a side "
+                                 "channel")
+        if abs(len(hdata) - len(cpu)) > 0.001 * len(cpu):
+            raise AssertionError(f"the 33-bit clip is {len(hdata)} bytes on "
+                                 f"the GPU, {len(cpu)} on the CPU")
+        d, f = launches["decode_33bit_device"], launches["decode_33bit_fast"]
+        if min(d["rice_codes"], d["restore"], f["restore"]) < 1 or \
+                f["rice_codes"]:
+            raise AssertionError(f"the 33-bit decodes launched {d}, {f}")
+
+        _, err = rg_proc.communicate(timeout=900)
+        rg_wall = time.perf_counter() - t_rg
+        if rg_proc.returncode != 0:
+            raise AssertionError(f"metaflac --add-replay-gain exited "
+                                 f"{rg_proc.returncode}: {err[-3000:]}")
+        exported = run("metaflac_export_tags", ["--export-tags-to=-",
+                                                path("m.flac")],
+                       metaflac_cli.main)
+        emit({"phase": "cli", "case": "metaflac --add-replay-gain, "
+              f"{CLIP_SECONDS} s, its own process",
+              "wall_s_beside_the_cpu_encode": rg_wall,
+              "export_tags_wall_s": walls["metaflac_export_tags"],
+              "tags": exported.splitlines()})
+        if exported.splitlines() != want_rg:
+            raise AssertionError(f"metaflac --add-replay-gain wrote "
+                                 f"{exported!r}, --replay-gain {want_rg}")
+    finally:
+        if rg_proc is not None and rg_proc.poll() is None:
+            rg_proc.kill()
+            rg_proc.wait()
+        tmp.cleanup()
     return launches
 
 
@@ -1366,6 +1736,13 @@ def main() -> int:
     for k in (k1, k2, k3):
         k["launches_library_api"] = {path: c[k["name"]]
                                      for path, c in api.items()}
+
+    # ---- 9. the command lines on the card ----
+    t0 = time.perf_counter()
+    clis = command_lines(pcm, stream)
+    emit({"phase": "cli", "seconds": time.perf_counter() - t0})
+    for k in (k1, k2, k3):
+        k["launches_cli"] = {path: c[k["name"]] for path, c in clis.items()}
     emit({"kernels": [k1, k2, k3]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

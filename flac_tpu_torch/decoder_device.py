@@ -27,7 +27,8 @@ import torch
 from torch.profiler import record_function
 
 from . import native
-from .decoder_fast import _PIPELINE_DEPTH, StreamHasher, _group_arrays
+from .decoder_fast import (_PIPELINE_DEPTH, StreamHasher, _group_arrays,
+                          wide_frames)
 from .ops import restore_cuda
 from .ops.bitunpack import rice_decode_restore
 from .ref_decoder import DecodedStream, FlacDecodeError
@@ -54,11 +55,14 @@ def _tile_T(N: int) -> int:
 
 
 def _prep_batch(arr, frames, idxs, blocksize, channels):
-    """The native skip-walk for one batch (runs on the prep pool)."""
+    """The native skip-walk for one batch (runs on the prep pool).  Besides
+    the frames whose residuals overflow int32, `decoder_fast.wide_frames`
+    marks frames wide, as in the fast engine's parse."""
     offsets, start_bits, sizes, asg, ch_bps = _group_arrays(
         frames, idxs, channels)
     tg = native.tile_scan(arr, offsets, start_bits, sizes, ch_bps,
                           blocksize, T=_tile_T(blocksize))
+    tg.wide |= wide_frames(ch_bps).astype(tg.wide.dtype)
     return tg, offsets, sizes, asg
 
 

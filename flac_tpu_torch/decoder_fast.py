@@ -90,11 +90,23 @@ def _group_arrays(frames, idxs, channels):
     return offsets, start_bits, sizes, asg, ch_bps
 
 
+WIDE_BPS = 32
+
+
+def wide_frames(ch_bps: np.ndarray) -> np.ndarray:
+    """[F] bool: the frames of a `_group_arrays` table whose restore and
+    stereo undo run in int64, those with a subframe of WIDE_BPS bits or
+    more, even where every residual fits int32 (a mid of 2^30 doubles past
+    int32 in the undo).  Both device engines mark frames by it, and the
+    native fused decode (flac_native.cpp, FT_WIDE_BPS) by the same bound."""
+    return ch_bps.max(axis=1, initial=0) >= WIDE_BPS
+
+
 def _parse_batch(arr, frames, idxs, blocksize, channels):
     """The native full parse of one batch (runs on the parse pool)."""
     offsets, start_bits, sizes, asg, ch_bps = _group_arrays(
         frames, idxs, channels)
-    wide = int(ch_bps.max()) >= 32 if len(idxs) else False
+    wide = bool(wide_frames(ch_bps).any())
     pg = native.parse_frames(arr, offsets, start_bits, sizes, ch_bps,
                              blocksize, wide=wide)
     return pg, asg

@@ -186,10 +186,6 @@ class StreamEncoder:
                  verify: bool = False, progress_callback=None):
         self.out = out
         self.cfg = cfg.resolve()
-        if self.cfg.max_subframe_bps > 32:
-            raise NotImplementedError(
-                "flac_tpu_torch: the 33-bit side channel (bps 32 with "
-                "mid-side stereo) is not ported yet")
         self.device = resolve_device(device)
         self.packer = packer
         self.batch_frames = batch_frames

@@ -80,7 +80,8 @@ def assemble_frames(choice: SubframeChoice, signal, assignment,
     """Build and pack one batch of frames.
 
     choice:        SubframeChoice gathered to output channels [B, C, ...]
-    signal:        [B, C, N] int32 wasted-shifted signals (verbatim payloads)
+    signal:        [B, C, N] wasted-shifted signals (verbatim payloads):
+                   int32, or int64 in the 33-bit side configuration
     assignment:    [B] int32 channel assignment (0..3), 0 for non-stereo
     frame_numbers: [B] int64
     blocksize:     N for this batch
@@ -96,20 +97,21 @@ def assemble_frames(choice: SubframeChoice, signal, assignment,
     """
     B, C, N = signal.shape
     dev = signal.device
-    if cfg.max_subframe_bps > 32:
-        raise NotImplementedError(
-            "flac_tpu_torch: the 33-bit side channel (bps 32 with mid-side "
-            "stereo) is not ported yet")
     if packer not in ("kernel", "plain"):
         raise ValueError(f"unknown packer {packer!r}")
     P = choice.params.shape[-1]
     max_po = int(P).bit_length() - 1
     m_min = max(N >> max_po, 1)      # partitions start at multiples of this
     if layout == "auto":
-        layout = "quad" if (cfg.bits_per_sample <= 26
+        layout = "quad" if (cfg.max_subframe_bps <= 32
+                            and cfg.bits_per_sample <= 26
                             and N % 4 == 0 and m_min % 4 == 0) \
             else "safe"
     quad = layout == "quad"
+    # the 33-bit side configuration (bps 32 with mid-side): a warm-up or
+    # verbatim sample can need 33 bits, beyond a safe-layout field's 32:
+    # each goes out as a (high, low-16) field pair
+    wide = cfg.max_subframe_bps > 32
 
     nz_list, pay_list, pb_list = [], [], []
     fit_list = []
@@ -192,9 +194,20 @@ def assemble_frames(choice: SubframeChoice, signal, assignment,
         wm64 = warm.to(torch.int64) & wmask[:, None]
         w_active = (has_res[:, None] & (j_idx < order[:, None])) \
             | (is_c[:, None] & (j_idx == 0))
-        wpay = wm64 & U32
-        wpb = torch.where(w_active, bps_eff[:, None], 0)
-        add(torch.zeros_like(wpb), wpay, wpb)
+        if wide:
+            hi_bits = torch.clamp(bps_eff - 16, 0, 17)[:, None]
+            lo_bits = torch.clamp(bps_eff, max=16)[:, None]
+            pair_pay = torch.stack([wm64 >> 16, wm64 & 0xFFFF], dim=-1)
+            pair_pb = torch.stack([torch.where(w_active, hi_bits, 0),
+                                   torch.where(w_active, lo_bits, 0)],
+                                  dim=-1)
+            M2 = 2 * fmt.MAX_LPC_ORDER
+            add(torch.zeros((B, M2), dtype=torch.int32, device=dev),
+                pair_pay.reshape(B, M2), pair_pb.reshape(B, M2))
+        else:
+            wpay = wm64 & U32
+            wpb = torch.where(w_active, bps_eff[:, None], 0)
+            add(torch.zeros_like(wpb), wpay, wpb)
 
         # LPC precision-1 (4 bits) + shift (5 bits)
         add(zeros1,
@@ -238,13 +251,22 @@ def assemble_frames(choice: SubframeChoice, signal, assignment,
         in_res = n_idx[None, :] >= order[:, None]
         active = has_res[:, None] & in_res
         s_nz = torch.where(active & ~esc_n, q, 0)
-        smask = torch.where(bps_eff >= 32, U32,
-                            _low_mask(torch.clamp(bps_eff, 0, 31)))[:, None]
-        verb_pay = (sig.to(torch.int64) & U32) & smask
+        if wide:
+            # verbatim samples as (high, low-16) slot pairs: the high
+            # half goes in the sample's own slot, the low one after it
+            sig64 = sig.to(torch.int64) & wmask[:, None]
+            verb_pay, verb_pb = sig64 >> 16, hi_bits
+            sl_pay = torch.where(is_v[:, None], sig64 & 0xFFFF, 0)
+            sl_pb = torch.where(is_v[:, None], lo_bits, 0).expand(B, N)
+        else:
+            smask = torch.where(bps_eff >= 32, U32, _low_mask(
+                torch.clamp(bps_eff, 0, 31)))[:, None]
+            verb_pay = (sig.to(torch.int64) & U32) & smask
+            verb_pb = bps_eff[:, None]
         s_pay = torch.where(active, torch.where(esc_n, raw_pay, rice_pay),
                             torch.where(is_v[:, None], verb_pay, 0))
         s_pb = torch.where(active, torch.where(esc_n, rawb_n, k_n + 1),
-                           torch.where(is_v[:, None], bps_eff[:, None], 0))
+                           torch.where(is_v[:, None], verb_pb, 0))
         if quad:
             # fused-quad layout: each field carries 4 samples' codes —
             # sample 4g's unary zeros stay free in nzeros, the rest of
@@ -294,7 +316,14 @@ def assemble_frames(choice: SubframeChoice, signal, assignment,
             ((g_idx & (ratio - 1)) == 0)
         b_pay, b_pb_all = prefix_fields(k_n[:, ::m_min])          # [B, G]
         b_pb = torch.where(b_active, b_pb_all, 0)
-        if quad:
+        if wide:
+            per = 2 * m_min
+            s_nz_g = torch.stack([s_nz, torch.zeros_like(s_nz)],
+                                 dim=-1).reshape(B, G, per)
+            s_pay_g = torch.stack([s_pay, sl_pay], dim=-1).reshape(B, G, per)
+            s_pb_g = torch.stack([s_pb, sl_pb.to(s_pb.dtype)],
+                                 dim=-1).reshape(B, G, per)
+        elif quad:
             per = m_min // 4
             s_nz_g = s_nz_q.reshape(B, G, per)
             s_pay_g = pay64.reshape(B, G, per)

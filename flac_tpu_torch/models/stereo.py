@@ -26,7 +26,8 @@ _ASSIGN_CH1 = (R, S, R, S)
 def wasted_bits(x):
     """Common trailing-zero count over each subframe's samples
     (get_wasted_bits_, stream_encoder.c:5077-5100): 0 when the signal is
-    all-zero, else ctz of the OR of all samples.  x: [..., N] int32."""
+    all-zero, else ctz of the OR of all samples.  x: [..., N] holding
+    int32 values."""
     acc = or_reduce(x.to(torch.int64))
     low = (acc & -acc) & 0xFFFFFFFF          # lowest set bit (as uint32)
     ctz = bit_length(low) - 1
@@ -39,13 +40,29 @@ def build_channel_candidates(pcm, cfg: EncoderConfig):
     For stereo with mid-side search: [B, 4, N] (L, R, M, S), bps
     [bps, bps, bps, bps+1]; otherwise the channels pass through.
     mid = (L+R)>>1 (arithmetic), side = L-R (stream_encoder.c:3823-3836).
+
+    At bps=32 the side channel is 33-bit (integer_signal_33bit_side,
+    stream_encoder.c:152,3823-3836): the candidates are int64, which holds
+    it exactly (the reference uses f64 only to keep the TPU off its x64
+    rewrite), and the wasted-bit count comes from the int32 wrap of each
+    candidate, as the reference's does.
     """
     B, C, N = pcm.shape
     bps = cfg.bits_per_sample
-    if cfg.max_subframe_bps > 32:
-        raise NotImplementedError(
-            "flac_tpu_torch: the 33-bit side channel (bps 32 with mid-side "
-            "stereo) is not ported yet")
+    if C == 2 and cfg.do_mid_side and cfg.max_subframe_bps > 32:
+        left = pcm[:, 0].to(torch.int64)
+        right = pcm[:, 1].to(torch.int64)
+        x = torch.stack([left, right, (left + right) >> 1, left - right],
+                        dim=1)
+        # ctz over the int32 wrap; a channel whose low 32 bits OR to zero
+        # but which holds nonzero +-2^32 values gets 32
+        x_lo = ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+        w = wasted_bits(x_lo)
+        lo_zero = or_reduce(x_lo) == 0
+        w = torch.where(lo_zero & (x != 0).any(dim=-1), 32, w)
+        ch_bps = torch.tensor([bps, bps, bps, bps + 1], dtype=torch.int32,
+                              device=pcm.device)
+        return x >> w[..., None], ch_bps[None, :] - w, w
     if C == 2 and cfg.do_mid_side:
         left = pcm[:, 0]
         right = pcm[:, 1]
@@ -109,7 +126,8 @@ def gather_channels(choice, ch_index):
     """Select the winning channel candidates along axis 1.
 
     choice:   a tensor, or a tuple or NamedTuple (SubframeChoice) of
-              tensors, with axis 1 = CH (4 candidates)
+              tensors, with axis 1 = CH (4 candidates); each keeps its
+              dtype (the 33-bit candidates stay int64)
     ch_index: [B, C_out] int32
     Returns the same structure with axis 1 = C_out.
     """

@@ -39,7 +39,7 @@ class SubframeChoice(NamedTuple):
     qcoeffs: torch.Tensor     # [B, CH, 32] int32 (LPC only)
     shift: torch.Tensor       # [B, CH] int32 quantization shift
     precision: torch.Tensor   # [B, CH] int32 qlp precision (LPC only)
-    warmup: torch.Tensor      # [B, CH, 32] int32 post-shift signal head
+    warmup: torch.Tensor      # [B, CH, 32] post-shift signal head (x's dtype)
     residual: torch.Tensor    # [B, CH, N] int32 (zero at n < order)
     po: torch.Tensor          # [B, CH] int32 partition order
     params: torch.Tensor      # [B, CH, P] int32 Rice parameter per partition
@@ -104,6 +104,8 @@ def search_and_realize(x, bps_eff, wasted, cfg: EncoderConfig,
     """Find and realize the cheapest subframe encoding per (frame, channel).
 
     x:       [B, CH, N] int32 — wasted-bits-shifted candidate signals
+             (int64 in the 33-bit side configuration, which takes the
+             exact f64 fixed and LPC residual paths)
     bps_eff: [B, CH] int32 — subframe bps after wasted-bit reduction
     wasted:  [B, CH] int32
     """

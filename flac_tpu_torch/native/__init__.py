@@ -1,11 +1,18 @@
 """The native (C++) host runtime of the decoder, bound with ctypes.
 
-`flac_native.cpp` is the package's own copy of the host runtime: CRC-8/16
+`flac_native.cpp` is the package's own copy of flac_tpu's host runtime,
+changed in one place: the fused decode sends a frame with a 33-bit side
+subframe to its int64 path at once (flac_tpu's restores it in int32 when
+its residuals fit, and clips samples past 2^31).  It holds CRC-8/16
 (crc.c), MD5 with the fused PCM interleave (md5.c:388-520), the frame-sync
 scan (stream_decoder.c:2321, 2624), the full frame parse, the fused
 all-CPU frame decode, and the tile skip-walk that feeds the GPU's Rice
 decoder (`ops/bitunpack.py`, kernel `csrc/rice_codes.cu`).  Its segment
 packing is the one that kernel decodes.
+
+It also holds the host restore of a parsed batch, the encoder's ordered
+frame gather (stream_encoder.c:3614-3626) and the ReplayGain filter's
+direct-form IIR (replaygain_analysis.c:258-297).
 
 The library is built with `g++ -O3 -shared -fPIC -std=c++17` at first use,
 never at import, into `flac_tpu_torch/build/` (listed in .gitignore), named
@@ -34,13 +41,14 @@ _lib = None
 _lock = threading.Lock()
 
 
-def build() -> Path:
-    """Compile the runtime unless this source was built before; returns the
-    library's path.  Raises with g++'s output on failure."""
+def build(force: bool = False) -> Path:
+    """Compile the runtime unless this source was built before (or always,
+    with force=True); returns the library's path.  Raises with g++'s output
+    on failure.  `python -m flac_tpu_torch.native` calls it."""
     digest = hashlib.sha1(SRC.read_bytes()
                           + " ".join(GXX_FLAGS).encode()).hexdigest()
     lib = BUILD_DIR / f"libflac_native-{digest[:12]}.so"
-    if not lib.exists():
+    if force or not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         out = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SRC)],
@@ -98,6 +106,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         i32p, ctypes.c_int32, ctypes.c_int32, i32p, i64p, ctypes.c_int64,
         i64p, i32p]
+    for name, res_p in (("ft_restore", i32p), ("ft_restore_wide", i64p)):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = [res_p, i32p, i32p, i32p, i32p,
+                       ctypes.c_int64, ctypes.c_int64, i64p]
+    lib.ft_gather_frames.restype = ctypes.c_int64
+    lib.ft_gather_frames.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
+                                     i64p, u8p]
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.ft_iir.restype = None
+    lib.ft_iir.argtypes = [f64p, f64p, ctypes.c_int64, f64p, f64p,
+                           ctypes.c_int32]
 
 
 def lib() -> ctypes.CDLL:
@@ -350,3 +370,57 @@ def parse_frames(data, offsets, start_bits, sizes, ch_bps,
                             blocksize, wide=True)
     return ParsedGroup(order, shift, wasted, sftype, qlp, res, end_bits,
                        status, wide)
+
+
+def restore_subframes(pg: ParsedGroup) -> np.ndarray:
+    """Host restore of a ParsedGroup -> [S, N] int64 subframe signals with
+    the wasted bits applied (int64 history: the 33-bit side fits)."""
+    S, N = pg.res.shape
+    out = np.empty((S, N), np.int64)
+    fn = lib().ft_restore_wide if pg.wide else lib().ft_restore
+    res = np.ascontiguousarray(pg.res, np.int64 if pg.wide else np.int32)
+    fn((_p64 if pg.wide else _p32)(res), _p32(pg.order), _p32(pg.shift),
+       _p32(pg.wasted), _p32(pg.qlp), S, N, _p64(out))
+    return out
+
+
+def gather_frames(rows: np.ndarray, lens: np.ndarray) -> bytes:
+    """Concatenate the first lens[i] bytes of each row (the ordered frame
+    gather)."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    lens = np.ascontiguousarray(lens, np.int64)
+    if rows.ndim != 2 or len(lens) != rows.shape[0] or (
+            len(lens) and (lens.min() < 0 or lens.max() > rows.shape[1])):
+        raise ValueError("gather_frames: lens must be one length in "
+                         "[0, row bytes] a row")
+    out = np.empty(int(lens.sum()), np.uint8)
+    lib().ft_gather_frames(_u8(rows), rows.shape[0], rows.shape[1],
+                           _p64(lens), _u8(out))
+    return out.tobytes()
+
+
+def iir_filter(x: np.ndarray, b: np.ndarray, a: np.ndarray,
+               x_hist: np.ndarray, y_hist: np.ndarray):
+    """Direct-form IIR with explicit history (the ReplayGain filter
+    cascade).
+
+    x: [n] float64; b, a: [order+1] coefficients (a[0] ignored, == 1);
+    x_hist, y_hist: [order] trailing history from the previous call
+    (oldest first).  Returns (y [n], new_x_hist, new_y_hist).
+    """
+    order = len(b) - 1
+    n = len(x)
+    xp = np.concatenate([x_hist[-order:] if order else x_hist, x]
+                        ).astype(np.float64)
+    yp = np.empty(order + n, np.float64)
+    yp[:order] = y_hist[-order:]
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib().ft_iir(xp[order:].ctypes.data_as(f64p),
+                 yp[order:].ctypes.data_as(f64p), n,
+                 np.ascontiguousarray(b, np.float64).ctypes.data_as(f64p),
+                 np.ascontiguousarray(a, np.float64).ctypes.data_as(f64p),
+                 order)
+    if n >= order:
+        return yp[order:], xp[-order:].copy(), yp[-order:].copy()
+    return (yp[order:], np.concatenate([x_hist, x])[-order:],
+            yp[-order:].copy())

@@ -1140,7 +1140,15 @@ extern "C" {
 // when a decoded sample falls outside check_bps's range — the
 // stream_decoder.c:2458-2472 lost-sync rejection; check_bps=0 disables).
 // Frames needing >int32 residuals (27-33 bit paths) retry internally via
-// an int64 scratch buffer.  Returns the number of frames with bad status.
+// an int64 scratch buffer; frames with a subframe of FT_WIDE_BPS bits or
+// more take it at once.  Returns the number of frames with bad status.
+//
+// A subframe of 32 bits or more restores and undoes its stereo to values
+// past int32 even where its residuals fit (a 33-bit side; a mid of 2^30
+// doubles in the undo).  The device engines mark the same frames wide
+// (decoder_fast.wide_frames, WIDE_BPS).
+constexpr int FT_WIDE_BPS = 32;
+
 int64_t ft_decode_frames(const uint8_t* data, int64_t len,
                          const int64_t* offsets, const int64_t* start_bits,
                          const int64_t* sizes, const int32_t* ch_bps,
@@ -1164,6 +1172,8 @@ int64_t ft_decode_frames(const uint8_t* data, int64_t len,
     r.err = 0;
     int st = FT_OK;
     int overflow = 0;
+    for (int64_t c = 0; c < C; c++)
+      if (ch_bps[f * C + c] >= FT_WIDE_BPS) overflow = 1;
     int32_t ord, sh, w, sft;
     int32_t qlp[32];
     for (int64_t c = 0; c < C && st == FT_OK && !overflow; c++) {

@@ -4,7 +4,10 @@
 (sum of sines + noise under a slow envelope, the shape FLAC compresses
 well); `make_transient_signal` follows the transient section of bench.py's
 corpus (gated square bursts with sparse full-scale clicks), content that
-makes the quad layout flag frames for the safe re-encode.
+makes the quad layout flag frames for the safe re-encode;
+`make_hires32_signal` follows the 32-bit recipe of tests/test_hires.py
+(24-bit music shifted to 32 bits under low-bit noise), whose side channel
+needs 33 bits.
 """
 
 from __future__ import annotations
@@ -45,3 +48,12 @@ def make_transient_signal(n: int, channels: int = 2, seed: int = 0,
     clicks = rng.integers(0, n, k)
     out[:, clicks] = rng.choice([-30000, 30000], (channels, k))
     return out.astype(np.int32)
+
+
+def make_hires32_signal(n: int, seed: int = 9) -> np.ndarray:
+    """[2, n] int32 32-bit stereo: 24-bit music << 8 plus noise in the low
+    8 bits.  Its side channel L - R spans 33 bits."""
+    rng = np.random.default_rng(seed)
+    base = make_test_signal(n, bps=24).astype(np.int64) << 8
+    return np.clip(base + rng.integers(-128, 128, base.shape),
+                   -(1 << 31), (1 << 31) - 1).astype(np.int32)

@@ -1,12 +1,12 @@
 """The port's device decode engine end to end on the CPU.
 
 The cases of tests/test_device_engine.py, each encoded by the port (the
-32-bit one by flac_tpu, whose 33-bit side channel the port's encoder does
-not have yet), decoded by `flac_tpu_torch.decode_stream_tpu(engine=
-"device", device="cpu")`: the samples must equal the source with a
-matching MD5, and equal flac_tpu's host engine and the port's own.  On the
-CPU the code scan runs its plain version; the kernel is held against it on
-the GPU (test_torch_rice_cuda.py).
+32-bit one by flac_tpu, and checked to hold a 33-bit side subframe),
+decoded by `flac_tpu_torch.decode_stream_tpu(engine="device",
+device="cpu")`: the samples must equal the source with a matching MD5, and
+equal flac_tpu's host engine and the port's own.  On the CPU the code scan
+runs its plain version; the kernel is held against it on the GPU
+(test_torch_rice_cuda.py).
 """
 
 import numpy as np
@@ -126,7 +126,12 @@ def test_device_engine_32bit_wide_side():
     pcm = np.stack([p, np.roll(p, 3)]).astype(np.int32)
     cfg = RefConfig.from_preset(8, bits_per_sample=32, channels=2,
                                 streamable_subset=False).resolve()
-    _check(ref_encode(pcm, cfg), pcm, "32-bit wide")
+    stream = ref_encode(pcm, cfg)
+    st, pos = parse_metadata(stream, 4)
+    frames = scan_frames(stream, st, pos)
+    ch_bps = _group_arrays(frames, range(len(frames)), 2)[4]
+    assert (ch_bps == 33).any(), "no 33-bit side subframe"
+    _check(stream, pcm, "32-bit wide")
 
 
 def test_device_engine_crc_error_detected():

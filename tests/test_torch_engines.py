@@ -5,8 +5,8 @@ The streams of tests/test_decoder_fast.py at blocksize 1152 (the eager
 "scan" engine takes a sample step over every frame at a time): the mixed
 stream (constant, wasted-bit, fixed and LPC subframes), preset -0 (fixed
 predictors), the 32-bit stream with a 33-bit side channel (wide lanes,
-encoded by flac_tpu, as the port's encoder has no 33-bit side channel yet),
-the false-sync repair and a corrupt stream that stays corrupt; then the
+encoded by flac_tpu and checked to hold a 33-bit side subframe), the
+false-sync repair and a corrupt stream that stays corrupt; then the
 "auto" engine's model under a pinned FLAC_TPU_LINK_MBPS.  On the CPU the
 kernels' wrappers run their plain versions.
 """
@@ -23,6 +23,7 @@ from flac_tpu.encoder import encode_file_to_flac as ref_encode
 from flac_tpu_torch import EncoderConfig, decode_stream_tpu, signals
 from flac_tpu_torch import decoder as dec
 from flac_tpu_torch import format as fmt
+from flac_tpu_torch.decoder_fast import _group_arrays
 from flac_tpu_torch.encoder import encode_file_to_flac
 from flac_tpu_torch.ops.crc import crc8, crc16
 from flac_tpu_torch.ref_decoder import FlacDecodeError, parse_metadata
@@ -72,6 +73,11 @@ STREAMS = {"mixed": _mixed, "preset -0": _preset0, "wide 32-bit": _wide32}
 @pytest.mark.parametrize("name", list(STREAMS))
 def test_engines_agree_bitexact(name):
     pcm, data = STREAMS[name]()
+    if name == "wide 32-bit":
+        st, pos = parse_metadata(data, 4)
+        frames = dec.scan_frames(data, st, pos)
+        ch_bps = _group_arrays(frames, range(len(frames)), 2)[4]
+        assert (ch_bps == 33).any(), "no 33-bit side subframe"
     want = ref_decode(data, engine="host").samples
     np.testing.assert_array_equal(want, pcm)
     for engine in ENGINES:

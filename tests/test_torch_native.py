@@ -3,8 +3,9 @@
 The port builds its own copy of flac_native.cpp (g++, at first use) and
 binds it itself.  On streams the port encodes, both bindings must return
 the same frame table, the same tile skip-walk tables (every field), the
-same full parse and fused decode, and the same CRCs and MD5 digests.  These
-are ctypes calls: no JAX compile.
+same full parse, fused decode and host restore, the same ordered frame
+gather, and the same CRCs and MD5 digests.  These are ctypes calls: no JAX
+compile.
 """
 
 import numpy as np
@@ -36,6 +37,8 @@ STREAMS = {
     "partition order 8": (5, lambda: signals.make_test_signal(
         4096 * 2, seed=4), {"min_residual_partition_order": 8,
                             "max_residual_partition_order": 8}),
+    "-5 32-bit stereo, 33-bit side": (5, lambda: signals.make_test_signal(
+        4096 * 2 + 9, bps=32, seed=5), {"bits_per_sample": 32}),
 }
 
 
@@ -120,6 +123,66 @@ def test_parse_and_decode_frames_match(stream):
         np.testing.assert_array_equal(outs[0], outs[1])
 
 
+@pytest.mark.parametrize("wide", [False, True])
+def test_restore_subframes_matches(stream, wide):
+    """The host restore of a parsed group, from int32 residuals and from
+    int64 ones; the restored subframes are the decoded channels, before
+    the stereo undo, with the wasted bits applied."""
+    data, st, pos = stream
+    frames = scan_frames(data, st, pos)
+    arr = np.frombuffer(data, np.uint8)
+    for (N, C), idxs in _groups(frames).items():
+        off, sb, sz, asg, ch_bps = _group_arrays(frames, idxs, C)
+        pg = native.parse_frames(arr, off, sb, sz, ch_bps, N, wide=wide)
+        got = native.restore_subframes(pg)
+        want = jnative.restore_subframes(jnative.parse_frames(
+            arr, off, sb, sz, ch_bps, N, wide=wide))
+        assert got.dtype == want.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+        pcm, _, status = native.decode_frames_full(arr, off, sb, sz, ch_bps,
+                                                   N, asg)
+        if C == 1:
+            np.testing.assert_array_equal(got.reshape(pcm.shape), pcm)
+
+
+def test_fused_decode_takes_a_33bit_side_wide():
+    """Antiphase 32-bit stereo (R = -L): a constant mid and a side past
+    2^31 whose residuals fit int32.  The port's fused decode restores the
+    side in int64; flac_tpu's restores it in int32 and clips, which its
+    MD5 then rejects."""
+    n = 4096
+    left = np.round(1.6e9 * np.sin(np.arange(2 * n) * 0.01)).astype(
+        np.int64)
+    pcm = np.stack([left, -left]).astype(np.int32)
+    data = encode_file_to_flac(pcm, EncoderConfig.from_preset(
+        5, bits_per_sample=32), device="cpu")
+    st, pos = parse_metadata(data, 4)
+    frames = scan_frames(data, st, pos)
+    assert {f["assignment"] for f in frames} == {3}
+    off, sb, sz, asg, ch_bps = _group_arrays(frames, range(len(frames)), 2)
+    arr = np.frombuffer(data, np.uint8)
+    got, _, status = native.decode_frames_full(arr, off, sb, sz, ch_bps, n,
+                                               asg)
+    assert (status == native.FT_OK).all()
+    np.testing.assert_array_equal(
+        got.transpose(1, 0, 2).reshape(2, -1), pcm)
+    want, _, _ = jnative.decode_frames_full(arr, off, sb, sz, ch_bps, n,
+                                            asg)
+    assert not np.array_equal(want, got)
+
+
+def test_gather_frames_matches():
+    rng = np.random.default_rng(6)
+    rows = rng.integers(0, 256, (5, 64), dtype=np.uint8)
+    for lens in ([64, 0, 1, 63, 17], [0] * 5, [64] * 5):
+        assert native.gather_frames(rows, np.array(lens)) == \
+            jnative.gather_frames(rows, np.array(lens))
+    assert native.gather_frames(rows, np.array([3] * 5)) == b"".join(
+        r[:3].tobytes() for r in rows)
+    with pytest.raises(ValueError, match="gather_frames"):
+        native.gather_frames(rows, np.array([65, 0, 0, 0, 0]))
+
+
 @pytest.mark.parametrize("bps", [8, 12, 16, 20, 24, 32])
 def test_md5_and_crcs_match(bps):
     rng = np.random.default_rng(bps)
@@ -138,3 +201,21 @@ def test_md5_and_crcs_match(bps):
         assert native.crc8(blob[:n]) == jnative.crc8(blob[:n])
         assert native.crc16(blob[:n], 0x1234) == jnative.crc16(blob[:n],
                                                                0x1234)
+
+
+def test_build_step(tmp_path, monkeypatch, capsys):
+    """`python -m flac_tpu_torch.native [--force]` builds the runtime and
+    says where it is; a failed build exits 1 with the compiler's
+    message."""
+    from flac_tpu_torch.native import __main__ as build_step
+    assert build_step.main([]) == 0
+    out = capsys.readouterr().out
+    assert str(native.build()) in out and f"ABI v{native.ABI_VERSION}" in out
+    broken = tmp_path / "flac_native.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SRC", broken)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    assert build_step.main(["--force"]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("BUILD FAILED") and "flac_native.cpp" in err
+    assert not list((tmp_path / "build").glob("*.so"))

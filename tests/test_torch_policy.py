@@ -1,12 +1,12 @@
 """Rules of the flac_tpu_torch package: it never imports JAX or flac_tpu,
-its entry points run on the GPU unless asked for the CPU (and raise when
-there is none, whatever the engine), what is not ported raises
-NotImplementedError, and chip_smoke.py fails without a GPU.
+its entry points (the command lines too) run on the GPU unless asked for
+the CPU (and raise when there is none, whatever the engine), nothing is
+built on import, and chip_smoke.py fails without a GPU.
 
 Features that were pinned here as unported while they were (seek tables,
-verify, extra metadata, the Ogg sink, Ogg decoding) are held against
-flac_tpu in test_torch_encoder_api.py, test_torch_seek.py and
-test_torch_ogg.py."""
+verify, extra metadata, the Ogg sink, Ogg decoding, the 33-bit side
+channel) are held against flac_tpu in test_torch_encoder_api.py,
+test_torch_seek.py, test_torch_ogg.py and test_torch_hires.py."""
 
 import ast
 import io
@@ -48,8 +48,28 @@ def test_import_leaves_no_jax_or_flac_tpu():
     walked, bad = out.stdout.splitlines()
     assert {f"flac_tpu_torch.{m}" for m in (
         "encoder", "decoder", "metadata", "seek", "cuesheet", "ogg",
-        "ops.restore_cuda")} <= set(walked.split())
+        "ops.restore_cuda", "container", "foreign", "replaygain", "cli",
+        "metaflac_cli", "native.__main__")} <= set(walked.split())
     assert bad.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", ["flac_tpu_torch.cli",
+                                    "flac_tpu_torch.metaflac_cli",
+                                    "flac_tpu_torch.native.__main__"])
+def test_command_lines_import_no_jax_or_flac_tpu(module):
+    """A fresh process that imports a command line's module (for
+    `python -m flac_tpu_torch.native`, the module that it runs) loads
+    neither JAX nor flac_tpu, and builds nothing."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "from flac_tpu_torch import native\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flac_tpu')), native._lib is None)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[]", "True"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -83,6 +103,25 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         encode_file_to_flac(pcm, cfg, device="cuda")
     assert encode_file_to_flac(pcm, cfg, device="cpu")[:4] == b"fLaC"
+
+
+def test_command_line_defaults_to_the_gpu_and_raises_without_one(
+        no_gpu, tmp_path):
+    """cli.main without a device, as `python -m flac_tpu_torch.cli` runs
+    it, encodes and decodes on the GPU: here it raises and writes no
+    stream; with device="cpu" it runs."""
+    from flac_tpu_torch import cli, container
+    wav = tmp_path / "t.wav"
+    wav.write_bytes(container.write_wav(np.zeros((2, 3000), np.int32),
+                                        44100, 16))
+    out, back = tmp_path / "t.flac", tmp_path / "b.wav"
+    for argv, path in ((["-s", "-o", str(out), str(wav)], out),
+                       (["-s", "-d", "-o", str(back), str(out)], back)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+        assert not path.exists() or path.stat().st_size == 0
+        assert cli.main(argv, device="cpu") == 0
+    assert back.read_bytes() == wav.read_bytes()
 
 
 def test_decode_defaults_to_the_gpu_and_raises_without_one(no_gpu):
@@ -135,13 +174,6 @@ def test_tf32_is_off():
     assert flac_tpu_torch.__name__ == "flac_tpu_torch"
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
-
-
-@pytest.mark.parametrize("what", ["bps32-mid-side"])
-def test_unported_features_raise(what):
-    cfg = EncoderConfig.from_preset(5, blocksize=1024, bits_per_sample=32)
-    with pytest.raises(NotImplementedError):
-        StreamEncoder(io.BytesIO(), cfg, device="cpu")
 
 
 def test_nothing_is_built_on_import():
@@ -209,6 +241,19 @@ def test_host_mirrors_match_the_kernel_sources(source, name, value):
     module = {"rice_codes.cu": rice_cuda, "pack_fields64.cu": pack_cuda,
               "restore.cu": restore_cuda}[source]
     assert eval(expr) == getattr(module, value)
+
+
+def test_wide_frame_rule_matches_the_native_source():
+    """The device engines and the native fused decode send the same frames
+    to their int64 paths: flac_native.cpp's FT_WIDE_BPS is
+    decoder_fast.WIDE_BPS."""
+    import re
+
+    from flac_tpu_torch import decoder_fast
+    text = (REPO / "flac_tpu_torch" / "native" / "flac_native.cpp").read_text()
+    found = re.findall(r"constexpr int FT_WIDE_BPS = (\d+);", text)
+    assert found == [str(decoder_fast.WIDE_BPS)]
+    assert "ch_bps[f * C + c] >= FT_WIDE_BPS" in text
 
 
 def test_chip_smoke_reads_the_ptxas_report():
