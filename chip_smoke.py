@@ -67,12 +67,12 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             `with` form of StreamEncoder, with a seek table every 10 s, a
             VORBIS_COMMENT, a PICTURE, a progress callback and verify=True:
             the bytes must equal the same encode's with verify=False, K2
-            and K3 must launch once for each written batch (the callback
-            must see every batch), each seek point must land on its frame's
-            header; encode MB/s with and without verify, beside the main
-            path's encode run just before and just after them.  A bit flipped in
-            the packed words on the GPU must make verify raise before a
-            frame byte is written.  64 seeded FlacReader reads with the seek
+            and K3 must launch once for each written super-chunk or batch
+            (the callback must see every one), each seek point must land
+            on its frame's header; encode MB/s with and without verify,
+            beside the main path's encode run just before and just after
+            them.  A bit flipped in the packed words on the GPU must make
+            verify raise before a frame byte is written.  64 seeded FlacReader reads with the seek
             table (a fresh reader each, seek_absolute) and 64 without must
             equal the source (ms a read).  A 30 s clip through OggFlacSink
             must decode on the GPU (decode_stream_auto) with the MD5, and a
@@ -92,7 +92,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             beside it), and K1 must launch once a quad-layout batch.
             -d must give the WAV back byte for byte and -t must pass (K2
             and K3 once a decode batch each); -V must write the same
-            bytes.  The
+            bytes (K2 and K3 once a written super-chunk or batch).  The
             file, tagged by metaflac, re-encoded at -8 from FLAC (decoded
             on the GPU): tags kept, round trip, MB/s and size beside -5's.
             On a 30 s clip: --keep-foreign-metadata WAV -> FLAC -> WAV
@@ -109,8 +109,32 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             encode on the CPU.
             Each path's K1, K2 and K3 launches, counted from 0 just before
             it, go into the `kernels` line as `launches_cli`.
+10. parallel: the parallel paths and the encoder's pipeline, on the
+            track's 1937 full blocks.  encode_blocks_dp at -5 in calls of
+            256 blocks (the ragged rest last) over data_mesh() and over
+            four entries of cuda:0 (a mesh entry may repeat a device): K1
+            once an entry a call, the same frames both ways and phase 4's
+            bytes, MB/s and peak device memory of each.  decode_frames_dp
+            of those frames over 1 and 4 entries: the source, with K3 once
+            an entry.  Two processes in a gloo group on cuda:0, each
+            encode_file_ranges on the full blocks: the blobs spliced at
+            their offsets are the sharded encode's bytes (wall time with
+            the process start, each rank's K1 launches).  The corpus
+            runner through `python -m torch.distributed.run
+            --nproc-per-node 2 -m flac_tpu_torch.parallel.multihost -5` on
+            three 30 s WAVs (each rank runs the module's `__main__` from a
+            small script that then writes its counts): the round-robin
+            lines, StreamEncoder's bytes, K1 once a quad batch of the three
+            clips and no K2 or K3.
+            The track through StreamEncoder at (pipeline_depth,
+            super_batches) = (1, 1), (2, 3) and (6, 8), and (6, 8) with
+            verify: phase 4's bytes each, MB/s, remainder fetches, K2 and
+            K3 once a written unit under verify.  Each path's launches go
+            into the `kernels` line as `launches_parallel` (for the two
+            ranks and the corpus runner, the sum of the ranks' own counts,
+            each counted from 0 in its process just before its work).
 
-The `kernels` line comes after phase 9.
+The `kernels` line comes after phase 10.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
 register report, the profile tables) go to OUT_DIR, beside this script.
@@ -470,6 +494,30 @@ def batch_blocksizes(cfg, n_samples: int, batch_frames: int) -> list:
     return sizes
 
 
+def written_units(cfg, n_samples: int, batch_frames: int,
+                  super_batches: int = 8) -> list:
+    """The frames of each unit (super-chunk or batch) that a StreamEncoder
+    run writes, by its buffering rule: super-chunks of up to
+    super_batches full batches, then a batch of the full blocks left, then
+    the final short block."""
+    N, B = cfg.blocksize, batch_frames
+    units = []
+
+    def drain(avail):
+        while avail:
+            take = (min(avail // B, super_batches) * B if avail >= B
+                    else avail)
+            units.append(take)
+            avail -= take
+    full = (n_samples - 1) // N                    # emitted before finish
+    drain(full)
+    rest = n_samples - full * N
+    drain(rest // N)
+    if rest % N:
+        units.append(1)
+    return units
+
+
 def quad_batches(cfg, n_samples: int, batch_frames: int) -> int:
     """Batches of a StreamEncoder run that take the quad layout (and so
     launch K1 once each), from the frame plan alone."""
@@ -622,7 +670,8 @@ def library_api(pcm, plain_stream: bytes, expect_quad: int) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    # verify on the card: K2 and K3 once for each written batch
+    # verify on the card: K2 and K3 once for each written super-chunk or
+    # batch
     c_walls = [control_wall()]
     stream, calls, v_wall, launches["verify_encode"], enc = _api_encode(
         pcm, True)
@@ -640,7 +689,7 @@ def library_api(pcm, plain_stream: bytes, expect_quad: int) -> dict:
                                                    for w in c_walls]},
           "encode_wall_s": {"verify": v_wall, "no_verify": u_wall,
                             "main_path_config": c_walls},
-          "written_batches": len(calls), "launches": v,
+          "written_units": len(calls), "launches": v,
           "launches_without_verify": launches["encode_with_metadata"],
           "bytes": len(stream)})
     if stream != unverified:
@@ -648,15 +697,15 @@ def library_api(pcm, plain_stream: bytes, expect_quad: int) -> dict:
                              "verify=False stream")
     if v["rice_codes"] != len(calls) or v["restore"] != len(calls):
         raise AssertionError(f"verify launched K2/K3 {v} for {len(calls)} "
-                             "written batches: not once a batch")
+                             "written units: not once a unit")
     if v["pack_fields64"] != expect_quad or \
             launches["encode_with_metadata"] != {
                 "pack_fields64": expect_quad, "rice_codes": 0, "restore": 0}:
         raise AssertionError(f"K1 launches {v}, "
                              f"{launches['encode_with_metadata']}, expected "
                              f"{expect_quad} and no decode without verify")
-    if calls[-1][0] != n_frames or steps.min() < 1 or steps.max() > 64:
-        raise AssertionError(f"the progress callback missed batches: {calls}")
+    if calls[-1][0] != n_frames or steps.min() < 1 or steps.max() > 64 * 8:
+        raise AssertionError(f"the progress callback missed units: {calls}")
     st, first = parse_metadata(stream, 4)
     if first != enc._first_frame_offset or \
             stream[first:] != plain_stream[parse_metadata(plain_stream,
@@ -676,13 +725,15 @@ def library_api(pcm, plain_stream: bytes, expect_quad: int) -> dict:
           "on_frame_headers": True,
           "blocks": [t for t, _ in md.parse_metadata_blocks(stream)]})
 
-    # verify must catch a bit flipped in the packed words on the card
+    # verify must catch a bit flipped in the packed words on the card (the
+    # pipeline encodes the later batches, the one-frame tail too, before
+    # it verifies the first)
     real = encoder_mod.encode_batch
 
     def corrupted(*a, **k):
         pf = real(*a, **k)
         words = pf.words.clone()
-        words[3, 40] ^= 1 << 11
+        words[min(3, words.shape[0] - 1), 40] ^= 1 << 11
         return pf._replace(words=words)
     encoder_mod.encode_batch = corrupted
     out = io.BytesIO()
@@ -956,13 +1007,13 @@ def command_lines(pcm, stream5: bytes) -> dict:
         run("test", ["-t", "-s", path("t.flac")])
         run("verify_encode", ["-5", "-s", "-V", "-o", path("v.flac"),
                               path("t.wav")])
-        written = len(batch_blocksizes(cfg5, n, 64))
+        written = len(written_units(cfg5, n, 64))
         emit({"phase": "cli", "case": "decode, test, verify",
               "decode_mb_per_s": pcm_bytes / 1e6 / walls["decode"],
               "test_mb_per_s": pcm_bytes / 1e6 / walls["test"],
               "verify_encode_mb_per_s":
                   pcm_bytes / 1e6 / walls["verify_encode"],
-              "decode_batches": batches, "written_batches": written,
+              "decode_batches": batches, "written_units": written,
               "launches": {k: launches[k] for k in ("decode", "test",
                                                     "verify_encode")}})
         if read("back.wav") != read("t.wav"):
@@ -1142,6 +1193,325 @@ def command_lines(pcm, stream5: bytes) -> dict:
         if rg_proc is not None and rg_proc.poll() is None:
             rg_proc.kill()
             rg_proc.wait()
+        tmp.cleanup()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the parallel paths and the encoder's pipeline on the card
+# ---------------------------------------------------------------------------
+
+SHARD_CALL = 256             # blocks an encode_blocks_dp call
+SHARD_ENTRIES = 4            # mesh entries on the one card
+CORPUS_SECONDS = 30          # each of the corpus runner's three WAVs
+PIPELINES = ((1, 1), (2, 3), (6, 8))     # (pipeline_depth, super_batches)
+
+# each rank's kernel launches, counted from 0 just before its work
+COUNTS = """
+from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda
+def reset_counts():
+    pack_cuda.launches = rice_cuda.launches = restore_cuda.launches = 0
+def counts():
+    return {"pack_fields64": pack_cuda.launches,
+            "rice_codes": rice_cuda.launches,
+            "restore": restore_cuda.launches}
+"""
+
+RANK_SCRIPT = COUNTS + """
+import json, os, sys, time
+import numpy as np
+from flac_tpu_torch import EncoderConfig
+from flac_tpu_torch.parallel import multihost
+port, rank, src, out = sys.argv[1:]
+rank = int(rank)
+os.environ["LOCAL_RANK"] = str(rank)
+multihost.init_distributed(f"localhost:{port}", 2, rank)
+reset_counts()
+t0 = time.perf_counter()
+blob, lens, off = multihost.encode_file_ranges(
+    np.load(src), EncoderConfig.from_preset(5, blocksize=4096).resolve())
+wall = time.perf_counter() - t0
+with open(out + ".bin", "wb") as f:
+    f.write(blob)
+with open(out + ".json", "w") as f:
+    json.dump({"all_lens": lens.tolist(), "offset": off,
+               "counts": counts(), "encode_s": wall}, f)
+multihost.dist.destroy_process_group()
+"""
+
+# a corpus-runner rank: the module's __main__ entry, as `-m` runs it, then
+# this rank's counts into COUNT_DIR/counts<RANK>.json
+CORPUS_SCRIPT = COUNTS + """
+import json, os, runpy, sys
+count_dir = sys.argv[1]
+sys.argv = ["flac_tpu_torch.parallel.multihost", *sys.argv[2:]]
+reset_counts()
+try:
+    runpy.run_module("flac_tpu_torch.parallel.multihost",
+                     run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+with open(os.path.join(count_dir, f"counts{os.environ['RANK']}.json"),
+          "w") as f:
+    json.dump(counts(), f)
+sys.exit(rc)
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(argv, **kw):
+    env = {**os.environ, "PYTHONPATH": HERE}
+    return subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, **kw)
+
+
+def _join(procs, timeout: float) -> list:
+    """Wait for every process, kill any left after `timeout` seconds;
+    raises unless all exited 0.  Returns their outputs."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"a process exited {[p.returncode for p in procs]}"
+                             f": {[o[-3000:] for o in outs]}")
+    return outs
+
+
+def _sum_counts(each) -> dict:
+    total = {"pack_fields64": 0, "rice_codes": 0, "restore": 0}
+    for c in each:
+        for k in total:
+            total[k] += c[k]
+    return total
+
+
+def parallel_paths(pcm, stream: bytes, expect_quad: int) -> dict:
+    """Phase 10.  Raises AssertionError on the first check that fails.
+    Returns each path's kernel launches, as counted from 0 just before it
+    and read just after (for the spawned ranks, their own counts, summed)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from flac_tpu_torch import EncoderConfig, container, native
+    from flac_tpu_torch.decoder import scan_frames
+    from flac_tpu_torch.encoder import encode_file_to_flac
+    from flac_tpu_torch.parallel.shard import (data_mesh, decode_frames_dp,
+                                               encode_blocks_dp)
+    from flac_tpu_torch.ref_decoder import parse_metadata
+    launches = {}
+    cfg5 = EncoderConfig.from_preset(5, blocksize=4096).resolve()
+    st, first = parse_metadata(stream, 4)
+    frames = scan_frames(stream, st, first)
+    full = [f for f in frames if f["blocksize"] == 4096]
+    F = len(full)
+    blocks = np.ascontiguousarray(
+        pcm[:, :F * 4096].reshape(2, F, 4096).transpose(1, 0, 2))
+    full_bytes = pcm.shape[0] * F * 4096 * 2
+    want = stream[first:first + sum(f["size"] for f in full)]
+    tmp = tempfile.TemporaryDirectory()
+
+    try:
+        # ---- sharded encode: one entry, then four on the same card ----
+        runs = {}
+        for label, mesh in (("1_entry", data_mesh()),
+                            (f"{SHARD_ENTRIES}_entries",
+                             data_mesh(["cuda:0"] * SHARD_ENTRIES))):
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            parts = [encode_blocks_dp(blocks[lo:lo + SHARD_CALL], lo, cfg5,
+                                      mesh)
+                     for lo in range(0, F, SHARD_CALL)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[f"sharded_encode_{label}"] = _counts()
+            lens = np.concatenate([ln for _, ln in parts])
+            blob = b"".join(native.gather_frames(
+                w.astype(">u4").view(np.uint8).reshape(w.shape[0], -1),
+                ln.astype(np.int64)) for w, ln in parts)
+            runs[label] = (lens, blob)
+            calls = len(parts)
+            emit({"phase": "parallel", "case": f"sharded encode, {label}",
+                  "frames": F, "calls": calls, "entries": len(mesh),
+                  "wall_s": wall, "mb_per_s": full_bytes / 1e6 / wall,
+                  "launches": launches[f"sharded_encode_{label}"],
+                  "k1_launches_per_call":
+                      launches[f"sharded_encode_{label}"]["pack_fields64"]
+                      / calls,
+                  "max_memory_allocated_mb":
+                      torch.cuda.max_memory_allocated() / 1e6})
+            if launches[f"sharded_encode_{label}"]["pack_fields64"] != \
+                    calls * len(mesh):
+                raise AssertionError(f"sharded encode over {label} launched "
+                                     f"{launches[f'sharded_encode_{label}']}"
+                                     f", expected K1 once an entry a call")
+        (l1, b1), (l4, b4) = runs.values()
+        if not np.array_equal(l1, l4) or b1 != b4:
+            raise AssertionError("the sharded encode's frames depend on the "
+                                 "number of mesh entries")
+        if b1 != want:
+            bad = [i for i, f in enumerate(full)
+                   if int(l1[i]) != f["size"]][:5]
+            raise AssertionError(f"the sharded encode's frames differ from "
+                                 f"the main path's stream (frames {bad} "
+                                 "differ in length)")
+
+        # ---- sharded decode ----
+        for n_entries, label in ((1, "1_entry"),
+                                 (SHARD_ENTRIES, f"{SHARD_ENTRIES}_entries")):
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = decode_frames_dp(stream, st, full,
+                                   data_mesh(["cuda:0"] * n_entries))
+            wall = time.perf_counter() - t0
+            c = launches[f"sharded_decode_{label}"] = _counts()
+            emit({"phase": "parallel", "case": f"sharded decode, "
+                  f"{n_entries} entries", "frames": F, "wall_s": wall,
+                  "mb_per_s": full_bytes / 1e6 / wall, "launches": c})
+            if not np.array_equal(out, pcm[:, :F * 4096]):
+                raise AssertionError(f"the sharded decode over {n_entries} "
+                                     "entries differs from the source")
+            if c != {"pack_fields64": 0, "rice_codes": 0,
+                     "restore": n_entries}:
+                raise AssertionError(f"the sharded decode over {n_entries} "
+                                     f"entries launched {c}")
+
+        # ---- two processes on the card, a gloo group ----
+        src = os.path.join(tmp.name, "blocks.npy")
+        np.save(src, blocks)
+        port = _free_port()
+        t0 = time.perf_counter()
+        _join([_spawn([sys.executable, "-c", RANK_SCRIPT, str(port), str(r),
+                       src, os.path.join(tmp.name, f"rank{r}")])
+               for r in range(2)], timeout=600)
+        ranks_wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp.name, f"rank{r}.json")) as f:
+                info = json.load(f)
+            with open(os.path.join(tmp.name, f"rank{r}.bin"), "rb") as f:
+                info["blob"] = f.read()
+            ranks.append(info)
+        spliced = bytearray(sum(len(r["blob"]) for r in ranks))
+        for r in ranks:
+            spliced[r["offset"]:r["offset"] + len(r["blob"])] = r["blob"]
+        c = launches["two_ranks"] = _sum_counts(r["counts"] for r in ranks)
+        emit({"phase": "parallel", "case": "two ranks, gloo, one card",
+              "wall_s_with_process_start": ranks_wall,
+              "encode_s": [r["encode_s"] for r in ranks],
+              "all_lens": ranks[0]["all_lens"],
+              "offsets": [r["offset"] for r in ranks],
+              "launches_each": [r["counts"] for r in ranks]})
+        if bytes(spliced) != b1 or ranks[0]["all_lens"] != \
+                ranks[1]["all_lens"]:
+            raise AssertionError("the two ranks' splice differs from the "
+                                 "sharded encode's bytes")
+        if min(r["counts"]["pack_fields64"] for r in ranks) < 1 or \
+                c["rice_codes"] or c["restore"]:
+            raise AssertionError(f"the two ranks launched "
+                                 f"{[r['counts'] for r in ranks]}, expected "
+                                 "K1 on each and no K2 or K3")
+
+        # ---- the corpus runner, two ranks through torch.distributed.run --
+        wavs = []
+        for i in range(3):
+            clip = pcm[:, i * CORPUS_SECONDS * RATE:
+                       (i + 1) * CORPUS_SECONDS * RATE]
+            path = os.path.join(tmp.name, f"clip{i}.wav")
+            with open(path, "wb") as f:
+                f.write(container.write_wav(clip, RATE, 16))
+            wavs.append((path, clip))
+        out_dir = os.path.join(tmp.name, "corpus")
+        script = os.path.join(tmp.name, "corpus_rank.py")
+        with open(script, "w") as f:
+            f.write(CORPUS_SCRIPT)
+        t0 = time.perf_counter()
+        text, = _join([_spawn([
+            sys.executable, "-m", "torch.distributed.run",
+            "--nproc-per-node", "2", "--master-port", str(_free_port()),
+            script, tmp.name, "-5", "-o", out_dir,
+            *[p for p, _ in wavs]])], timeout=600)
+        corpus_wall = time.perf_counter() - t0
+        lines = sorted(ln for ln in text.splitlines()
+                       if ln.startswith("[host "))
+        each = []
+        for r in range(2):
+            with open(os.path.join(tmp.name, f"counts{r}.json")) as f:
+                each.append(json.load(f))
+        c = launches["corpus_runner"] = _sum_counts(each)
+        clip_cfg = EncoderConfig.from_preset(
+            5, sample_rate=RATE, channels=2, bits_per_sample=16).resolve()
+        want_k1 = sum(quad_batches(clip_cfg, clip.shape[1], 64)
+                      for _, clip in wavs)
+        expect_lines = sorted(
+            f"[host {i % 2}/2] {os.path.join(out_dir, f'clip{i}.flac')}: "
+            f"{os.path.getsize(os.path.join(out_dir, f'clip{i}.flac'))} "
+            "bytes" for i in range(3))
+        emit({"phase": "parallel", "case": "corpus runner, 2 ranks, "
+              f"3 x {CORPUS_SECONDS} s", "wall_s_with_process_start":
+              corpus_wall, "lines": lines, "launches_each": each})
+        if lines != expect_lines:
+            raise AssertionError(f"the corpus runner printed {lines}, "
+                                 f"expected {expect_lines}")
+        if c != {"pack_fields64": want_k1, "rice_codes": 0, "restore": 0}:
+            raise AssertionError(f"the corpus runner's ranks launched {each}"
+                                 f", expected K1 {want_k1} times in all "
+                                 "(once a quad batch) and no K2 or K3")
+        for i, (path, clip) in enumerate(wavs):
+            with open(os.path.join(out_dir, f"clip{i}.flac"), "rb") as f:
+                got = f.read()
+            if got != encode_file_to_flac(clip, clip_cfg, batch_frames=64,
+                                          device="cuda"):
+                raise AssertionError(f"the corpus runner's clip{i}.flac "
+                                     "differs from StreamEncoder's bytes")
+
+        # ---- the pipeline's options ----
+        n = pcm.shape[1]
+        units = written_units(cfg5, n, 64)
+        for depth, sb in PIPELINES:
+            for verify in (False, True) if (depth, sb) == PIPELINES[-1] \
+                    else (False,):
+                label = f"pipeline_{depth}_{sb}" + ("_verify" if verify
+                                                   else "")
+                _reset_counts()
+                t0 = time.perf_counter()
+                got, enc = encode(pcm, 5, pipeline_depth=depth,
+                                  super_batches=sb, verify=verify)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                c = launches[label] = _counts()
+                emit({"phase": "parallel", "case": f"pipeline_depth={depth},"
+                      f" super_batches={sb}, verify={verify}",
+                      "encode_wall_s": wall,
+                      "encode_mb_per_s": pcm.size * 2 / 1e6 / wall,
+                      "remainder_fetches": enc.remainder_fetches,
+                      "misfit_frames": enc.misfit_frames,
+                      "written_units": len(written_units(cfg5, n, 64, sb)),
+                      "launches": c})
+                if got != stream:
+                    raise AssertionError(f"{label} wrote other bytes than "
+                                         "phase 4")
+                decodes = len(units) if verify else 0
+                if c != {"pack_fields64": expect_quad, "rice_codes": decodes,
+                         "restore": decodes}:
+                    raise AssertionError(f"{label} launched {c}, expected K1 "
+                                         f"{expect_quad} times, K2 and K3 "
+                                         f"{decodes}")
+    finally:
         tmp.cleanup()
     return launches
 
@@ -1743,6 +2113,14 @@ def main() -> int:
     emit({"phase": "cli", "seconds": time.perf_counter() - t0})
     for k in (k1, k2, k3):
         k["launches_cli"] = {path: c[k["name"]] for path, c in clis.items()}
+
+    # ---- 10. the parallel paths and the encoder's pipeline ----
+    t0 = time.perf_counter()
+    par = parallel_paths(pcm, stream, expect)
+    emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
+    for k in (k1, k2, k3):
+        k["launches_parallel"] = {path: c[k["name"]]
+                                  for path, c in par.items()}
     emit({"kernels": [k1, k2, k3]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -9,6 +9,12 @@ the decoder (`decode_stream_tpu`, strict or tolerant) with its engines:
 `csrc/rice_codes.cu` and the restore `csrc/restore.cu` as hand-written CUDA
 kernels), "fast" (the native full parse, then the restore kernel), "host"
 (all-CPU native), "scan" (plain torch ops, the oracle) and "auto".
+StreamEncoder keeps batches in flight while it writes earlier ones in
+order (`pipeline_depth=6`, `super_batches=8`, as flac_tpu's).  `parallel`
+shards frames over devices (`shard`: encode_blocks_dp, decode_frames_dp
+on K3) and over processes in a gloo group (`multihost`: the frame-range
+splice and the corpus runner, `python -m torch.distributed.run
+--nproc-per-node N -m flac_tpu_torch.parallel.multihost`).
 
 Entry points run on the GPU unless the caller passes `device="cpu"`; they
 raise when asked for a GPU that is not there.

@@ -4,10 +4,9 @@ analyze, presets -0..-8, blocksize/apodization/order overrides.
 
 Port of flac_tpu/cli.py.  `python -m flac_tpu_torch.cli` encodes and
 decodes on the GPU and raises without one; `main(argv, device="cpu")`
-runs on the CPU.  -j/--threads is accepted and ignored: the port's
-StreamEncoder has no fetch/dispatch pipeline for it to size, and the
-bytes do not depend on it.  -a (analyze) runs on the host through the
-pure-Python reference decoder.
+runs on the CPU.  -j N sets StreamEncoder's pipeline_depth to max(2, N),
+as flac_tpu's does; the bytes do not depend on it.  -a (analyze) runs on
+the host through the pure-Python reference decoder.
 """
 
 from __future__ import annotations
@@ -93,9 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-frames", type=int, default=64,
                    help="frames per device batch")
     p.add_argument("-j", "--threads", type=int, default=None,
-                   help="worker parallelism hint (reference -j; accepted "
-                   "and ignored: frames are always batch-parallel on the "
-                   "device)")
+                   help="worker parallelism hint (reference -j; here it "
+                   "scales the fetch/dispatch pipeline depth — frames "
+                   "are always batch-parallel on device)")
     p.add_argument("-e", "--exhaustive-model-search", action="store_true",
                    help="evaluate every LPC order instead of the guess")
     p.add_argument("-p", "--qlp-coeff-precision-search", action="store_true",
@@ -414,12 +413,16 @@ def do_encode(args, path: str, device=None) -> int:
             ratio = bytes_written / max(done * cfg.channels * nb, 1)
             print(f"\r{path}: {done * 100 // total}% complete, "
                   f"ratio={ratio:.3f}", end="", file=sys.stderr)
-    enc = StreamEncoder(out, cfg, batch_frames=args.batch_frames,
-                        padding=args.padding, extra_metadata=extra,
-                        seektable=seektable, verify=args.verify,
-                        progress_callback=progress, device=device)
-    enc.process(samples)
-    st = enc.finish()
+    enc_kw = {}
+    if args.threads:
+        enc_kw["pipeline_depth"] = max(2, args.threads)
+    with StreamEncoder(out, cfg, batch_frames=args.batch_frames,
+                       padding=args.padding, extra_metadata=extra,
+                       seektable=seektable, verify=args.verify,
+                       progress_callback=progress, device=device,
+                       **enc_kw) as enc:
+        enc.process(samples)
+        st = enc.finish()
     if progress is not None:
         print(file=sys.stderr)
     if args.ogg:

@@ -9,13 +9,17 @@ Port of flac_tpu/encoder.py.
       -> field assembly, bit-pack, CRCs         (models/frame.py, K1)
       -> [B, W] packed words + lengths
 
-The host loop is plain: each batch is encoded on the device, its words
-come back with `.cpu()`, and its frames are written in order.  MD5 runs on
-the host (hashlib), and the STREAMINFO block is back-patched at finish
-exactly like update_metadata_ (stream_encoder.c:3139-3300), with the seek
-table resolved to real frame positions.  With verify=True each batch is
-decoded back on the device (the "device" engine: K2, then K3) and compared
-with its input before a byte of it is written.
+StreamEncoder keeps batches in flight on the device while it writes
+earlier ones in order (options `pipeline_depth=6`, `super_batches=8`, as
+the reference's): full batches go out in super-chunks whose words stay on
+the device until one copy of their trimmed rows, other batches through
+encode_batch_trimmed; 16-bit sources upload as int16; the copies are
+`non_blocking` into pinned memory behind CUDA events; the MD5 runs on a
+worker thread.  The STREAMINFO block is back-patched at finish exactly
+like update_metadata_ (stream_encoder.c:3139-3300), with the seek table
+resolved to real frame positions.  With verify=True each written
+super-chunk or batch is decoded back on the device (the "device" engine:
+K2, then K3) and compared with its input before a byte of it is written.
 
 encode_batch marks its stages as profiler ranges (flac.search,
 flac.assign, flac.assemble, and flac.pack inside assemble_frames): a few
@@ -26,15 +30,18 @@ from __future__ import annotations
 
 import bisect
 import functools
-import hashlib
 import io
+import queue
 import struct
+import threading
+import weakref
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from . import format as fmt
+from . import native
 from .config import EncoderConfig
 from .decoder import decode_frame_list, parse_frame_header
 from .device import resolve_device
@@ -104,6 +111,43 @@ def encode_batch(pcm, first_frame_number, cfg: EncoderConfig,
                                          layout=layout, packer=packer)
 
 
+def _flag_lens(byte_len, ok):
+    """Mark quad-layout misfit frames with bit 30 of the fetched length."""
+    return torch.where(ok, byte_len, byte_len | (1 << 30))
+
+
+def encode_batch_trimmed(pcm, first_frame_number, cfg: EncoderConfig,
+                         blocksize: int, fetch_words: int,
+                         packer: str = "kernel"):
+    """encode_batch shaped for a small device-to-host copy.
+
+    The padded power-of-two word rows bound ~3x the compressed size, so
+    the rows are split at `fetch_words` (sized to cover typical compressed
+    frames): the host always fetches `main`, each frame's byte length in
+    column 0 (bit 30 flags a quad-layout misfit) and then its first
+    fetch_words words, and touches `rest` only for a frame that compressed
+    past the trim point.
+
+    pcm: [B, C, N] integer blocks (int16 is widened on the device).
+    Returns (main [B, 1 + fetch_words] int32, rest [B, W - fetch_words]
+    int64), both holding uint32 words.
+    """
+    packed = encode_batch(pcm.to(torch.int32), first_frame_number, cfg,
+                          blocksize, packer=packer)
+    fw = min(fetch_words, packed.words.shape[1])
+    main = torch.cat([_flag_lens(packed.byte_len, packed.ok)[:, None],
+                      packed.words[:, :fw].to(torch.int32)], dim=1)
+    return main, packed.words[:, fw:]
+
+
+def default_fetch_words(N: int, C: int, bps: int) -> int:
+    """Trim point for encode_batch_trimmed: generous against typical
+    compression (~0.5-0.8 of raw for real audio) so remainder fetches stay
+    rare, far below the power-of-two padded worst case."""
+    raw_words = (N * C * bps + 31) // 32
+    return (raw_words * 7) // 8 + 64
+
+
 def _md5_bytes_per_sample(bps: int) -> int:
     return (bps + 7) // 8
 
@@ -118,6 +162,29 @@ def interleave_for_md5(pcm: np.ndarray, bps: int) -> bytes:
         return inter.tobytes()
     le = inter.astype("<i4").view(np.uint8).reshape(N, C, 4)
     return np.ascontiguousarray(le[:, :, :nb]).tobytes()
+
+
+def _md5_worker(q: queue.Queue, md5, bps: int, errors: list):
+    """The MD5 fifo (the reference's md5_fifo, stream_encoder.c:
+    3575-3686): hashing never holds up the device work.  The first error
+    goes into `errors`, raised at finish().  It holds no reference to its
+    encoder, so an encoder dropped unfinished is collected and its worker
+    stopped (StreamEncoder._stop_md5)."""
+    while True:
+        pcm = q.get()
+        if pcm is None:
+            return
+        try:
+            md5.update_pcm(pcm, bps)
+        except Exception as e:
+            if not errors:
+                errors.append(e)
+
+
+def _stop_md5_worker(q: queue.Queue, thread: threading.Thread):
+    if thread.is_alive():
+        q.put(None)
+        thread.join()
 
 
 class StreamInfo:
@@ -154,11 +221,103 @@ def metadata_block_header(block_type: int, length: int,
                        | (block_type << 24) | length)
 
 
+def _big_endian_rows(words: np.ndarray) -> np.ndarray:
+    """[B, K] host words (uint32 bits) -> [B, 4*K] big-endian bytes."""
+    return words.view(np.uint32).astype(">u4").view(np.uint8).reshape(
+        words.shape[0], -1)
+
+
 def _words_to_wbytes(words: torch.Tensor, ncols: int) -> np.ndarray:
     """[B, W] int64 device words -> [B, 4*ncols] big-endian host bytes."""
-    w32 = words[:, :ncols].to(torch.int32).cpu().numpy().view(np.uint32)
-    return np.ascontiguousarray(w32.astype(">u4")).view(np.uint8).reshape(
-        w32.shape[0], -1)
+    return _big_endian_rows(words[:, :ncols].to(torch.int32).cpu().numpy())
+
+
+class _HostCopy:
+    """A device-to-host copy in flight: `non_blocking` into pinned host
+    memory, an event recorded after it (the counterpart of the reference's
+    copy_to_host_async and fetch pool).  A CPU tensor needs no copy."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type != "cuda":
+            self.host = t
+            return
+        # a fresh pinned buffer each copy: the caching host allocator hands
+        # its memory out again only after the event of the copy that used
+        # it has passed, so no buffer is reused while a copy is in flight
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.host.copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(t.device))
+
+    def done(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class _BatchJob:
+    """A batch in flight through the trimmed fetch (encode_batch_trimmed):
+    `main` on its way to the host, `rest` kept on the device."""
+
+    __slots__ = ("main", "rest", "blocks", "mb", "N", "base")
+
+    def __init__(self, main, rest, blocks, N, base):
+        self.main = _HostCopy(main)
+        self.rest = rest
+        self.blocks = blocks
+        self.mb = blocks.shape[0]
+        self.N = N
+        self.base = base
+
+    def poll(self):
+        pass
+
+
+class _SuperJob:
+    """A super-chunk in flight: the padded word rows of its batches stay on
+    the device while their flagged byte lengths come back; once those have
+    landed, one copy brings back every batch's rows cut to the 256-word
+    bucket over the longest frame, about the compressed bytes."""
+
+    __slots__ = ("words_list", "lens_copy", "lens", "bad", "slice_copy",
+                 "blocks", "mb", "N", "base")
+
+    def __init__(self, words_list, lens, blocks, N, base):
+        self.words_list = words_list
+        self.lens_copy = _HostCopy(lens)
+        self.lens = self.bad = self.slice_copy = None
+        self.blocks = blocks
+        self.mb = blocks.shape[0]
+        self.N = N
+        self.base = base
+
+    def poll(self):
+        """Start the slice copy as soon as the lengths are on the host."""
+        if self.slice_copy is None and self.lens_copy.done():
+            self._start_slice()
+
+    def _start_slice(self):
+        lens = self.lens_copy.wait().astype(np.int64)
+        self.bad = lens >= (1 << 30)            # quad-layout misfit flags
+        # a misfit frame's length is not its real one: size the copy by
+        # the frames that are kept, and let the safe re-encode set the rest
+        self.lens = np.where(self.bad, 0, lens & ((1 << 30) - 1))
+        kw = (int(self.lens.max()) + 3) // 4
+        kb = min(-(-kw // 256) * 256, self.words_list[0].shape[1])
+        self.slice_copy = _HostCopy(torch.cat(
+            [w[:, :kb] for w in self.words_list]).to(torch.int32))
+        self.words_list = None            # release the padded device rows
+
+    def wait(self):
+        if self.slice_copy is None:
+            self._start_slice()
+        return self.slice_copy.wait(), self.lens
 
 
 class StreamEncoder:
@@ -166,24 +325,48 @@ class StreamEncoder:
     `batch_frames` frames on the device, writes the byte stream in order,
     back-patches STREAMINFO (and the seek table) at finish.
 
+    The emit path is a pipeline (the reference's worker pool, ordered
+    bitbuffer drain and md5_fifo, stream_encoder.c:3490-3686):
+    - full batches go out in super-chunks of up to `super_batches`
+      batches: each batch's words stay on the device, the flagged byte
+      lengths come back first, then one copy of every batch's rows cut to
+      the longest frame (_SuperJob);
+    - other batches (the tail, the final short block) take the trimmed
+      fetch: the lengths and each frame's first default_fetch_words words
+      come back, the rest only for a frame that passed the trim point
+      (`remainder_fetches` counts those);
+    - sources of 16 bits or fewer upload as int16 and widen on the device;
+    - up to `pipeline_depth` batches, and max(2, pipeline_depth)
+      super-chunks, are in flight while earlier ones are written, in
+      order; the copies are `non_blocking` into pinned host memory, each
+      followed by a CUDA event;
+    - the MD5 runs on a worker thread (native.MD5.update_pcm); an error
+      there is raised at finish().  The worker stops at finish(), at
+      close(), on an error raised from process() or finish() (which close
+      the encoder), or when an unfinished encoder is collected.
+    The bytes do not depend on pipeline_depth or super_batches.  verify,
+    the progress callback and the seek-table index run once for each
+    written super-chunk or batch.
+
     device: None means "cuda" (raises if no GPU is present); pass "cpu" to
     run on the CPU.  packer: the quad-layout deposit ("kernel" or
     "plain"), see models/frame.assemble_frames.
     extra_metadata: raw (type, body) blocks written after STREAMINFO and the
     seek table, before the padding.  seektable: a metadata.SeekTableBlock
     template (template_spaced, template_count, placeholders), resolved to
-    real frame positions at finish.  verify: decode every batch on the
-    device (decoder.decode_frame_list, the "device" engine) and compare it
-    sample for sample with the input before a byte of it is written.
+    real frame positions at finish.  verify: decode every written unit on
+    the device (decoder.decode_frame_list, the "device" engine) and compare
+    it sample for sample with the input before a byte of it is written.
     progress_callback(frames_done, blocksize, bytes_written) runs after
-    each written batch.  An `out` with a `write_frames` method (the Ogg
-    sink, ogg.OggFlacSink) takes each batch with its frame lengths.
+    each written unit.  An `out` with a `write_frames` method (the Ogg
+    sink, ogg.OggFlacSink) takes each unit with its frame lengths.
     """
 
     def __init__(self, out, cfg: EncoderConfig, *, batch_frames: int = 64,
                  padding: int = 4096, device=None, packer: str = "kernel",
                  extra_metadata: list | None = None, seektable=None,
-                 verify: bool = False, progress_callback=None):
+                 verify: bool = False, pipeline_depth: int = 6,
+                 super_batches: int = 8, progress_callback=None):
         self.out = out
         self.cfg = cfg.resolve()
         self.device = resolve_device(device)
@@ -193,18 +376,36 @@ class StreamEncoder:
         self.blocksize = self.cfg.blocksize
         self._buf = np.zeros((self.cfg.channels, 0), np.int32)
         self._frame_number = 0
-        self._md5 = hashlib.md5()
         self._info = StreamInfo(self.cfg)
         self._header_pos = None
         self._seektable = seektable       # SeekTableBlock template or None
         self._seektable_pos = None        # file offset of its body
         self._frame_index = []            # (first_sample, offset, blocksize)
         self._first_frame_offset = None
+        self._pipeline_depth = max(1, pipeline_depth)
+        self._super_batches = max(1, super_batches)
+        # super-chunks in flight: each holds super_batches batches' word
+        # rows on the device
+        self._super_depth = max(2, self._pipeline_depth)
+        self._inflight = []               # FIFO of _BatchJob / _SuperJob
         self._progress = progress_callback
         self._bytes_written = 0
         self._closed = False
         self.misfit_frames = 0    # quad-layout misfits re-encoded "safe"
+        self.remainder_fetches = 0   # trimmed fetches past the trim point
         self._write_stream_header(padding, extra_metadata or [])
+        self._md5 = native.MD5()
+        self._md5_errors = []
+        self._md5_queue = queue.Queue(maxsize=8)
+        self._md5_thread = threading.Thread(
+            target=_md5_worker, daemon=True,
+            args=(self._md5_queue, self._md5, self.cfg.bits_per_sample,
+                  self._md5_errors))
+        self._md5_thread.start()
+        # stops the worker once: at finish(), close(), an error in
+        # process() or finish(), or when the encoder is collected
+        self._stop_md5 = weakref.finalize(self, _stop_md5_worker,
+                                          self._md5_queue, self._md5_thread)
 
     def _write_stream_header(self, padding: int, extra: list):
         self.out.write(fmt.STREAM_SYNC_STRING)
@@ -237,14 +438,22 @@ class StreamEncoder:
         """pcm: [C, n] int32 samples, one row per channel."""
         self._check_open()
         assert pcm.shape[0] == self.cfg.channels
-        pcm = np.ascontiguousarray(pcm, np.int32)
-        self._md5.update(interleave_for_md5(pcm, self.cfg.bits_per_sample))
+        # a copy: the MD5 worker reads it after process() has returned,
+        # when the caller may be refilling its own array
+        pcm = np.array(pcm, dtype=np.int32, order="C")
+        self._md5_queue.put(pcm)
         self._info.total_samples += pcm.shape[1]
         self._buf = np.concatenate([self._buf, pcm], axis=1)
-        self._drain(final=False)
+        try:
+            self._drain(final=False)
+        except BaseException:
+            self.close()
+            raise
 
     def _drain(self, final: bool):
         N = self.blocksize
+        B = self.batch_frames
+        C = self.cfg.channels
         while True:
             if final:
                 avail = self._buf.shape[1] // N
@@ -255,15 +464,31 @@ class StreamEncoder:
                 avail = max(0, (self._buf.shape[1] - 1) // N)
             if avail == 0:
                 break
-            nb = min(avail, self.batch_frames)
+            # full batches ride the super-chunk path, the rest the trimmed
+            # fetch
+            nb = (min(avail // B, self._super_batches) * B if avail >= B
+                  else avail)
             chunk = self._buf[:, :nb * N]
             self._buf = self._buf[:, nb * N:]
-            self._emit(chunk.reshape(self.cfg.channels, nb, N)
-                       .transpose(1, 0, 2), N)
+            blocks = chunk.reshape(C, nb, N).transpose(1, 0, 2)
+            if avail >= B:
+                self._emit_super(blocks, N)
+            else:
+                self._emit(blocks, N)
         if final and self._buf.shape[1] > 0:
-            self._emit(self._buf.reshape(self.cfg.channels, 1, -1)
-                       .transpose(1, 0, 2), self._buf.shape[1])
+            self._emit(self._buf.reshape(C, 1, -1).transpose(1, 0, 2),
+                       self._buf.shape[1])
             self._buf = self._buf[:, :0]
+
+    def _upload(self, blocks: np.ndarray) -> torch.Tensor:
+        """[B, C, N] host blocks -> int32 on the device; sources of 16 bits
+        or fewer cross as int16 and widen there."""
+        narrow = self.cfg.bits_per_sample <= 16
+        host = torch.from_numpy(np.ascontiguousarray(
+            blocks, np.int16 if narrow else np.int32))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True).to(torch.int32)
 
     def _encode(self, blocks: np.ndarray, first, N: int, layout: str):
         pcm = torch.from_numpy(np.ascontiguousarray(blocks, np.int32)).to(
@@ -273,19 +498,80 @@ class StreamEncoder:
         return encode_batch(pcm, first, self.cfg, N, layout=layout,
                             packer=self.packer)
 
+    def _emit_super(self, blocks: np.ndarray, N: int):
+        """blocks: [G*B, C, N] int32, G >= 1 full batches: one encode each,
+        whose word rows stay on the device (see _SuperJob)."""
+        B = self.batch_frames
+        words_list, lens_list = [], []
+        for g in range(blocks.shape[0] // B):
+            pf = encode_batch(self._upload(blocks[g * B:(g + 1) * B]),
+                              self._frame_number + g * B, self.cfg, N,
+                              packer=self.packer)
+            words_list.append(pf.words)
+            lens_list.append(_flag_lens(pf.byte_len, pf.ok))
+            self._poll()
+        self._inflight.append(_SuperJob(words_list, torch.cat(lens_list),
+                                        blocks, N, self._frame_number))
+        self._frame_number += blocks.shape[0]
+        self._poll()
+        while len(self._inflight) > self._super_depth:
+            self._drain_one_inflight()
+
     def _emit(self, blocks: np.ndarray, N: int):
-        """blocks: [B, C, N] int32 — encode one batch and write it."""
-        B = blocks.shape[0]
-        base = self._frame_number
-        pf = self._encode(blocks, base, N, "auto")
-        lens = pf.byte_len.cpu().numpy().astype(np.int64)
-        bad = ~pf.ok.cpu().numpy()
-        # a misfit frame's length is not its real one: size the copy by the
-        # frames that are kept, and let the safe re-encode set the rest
-        lens[bad] = 0
-        wbytes = _words_to_wbytes(pf.words, (int(lens.max()) + 3) // 4)
-        self._frame_number += B
-        self._write_frames(wbytes, lens, blocks, B, N, base, bad)
+        """blocks: [B, C, N] int32: one batch through the trimmed fetch,
+        the pipeline kept at most `pipeline_depth` deep."""
+        fw = default_fetch_words(N, blocks.shape[1],
+                                 self.cfg.bits_per_sample)
+        main, rest = encode_batch_trimmed(
+            self._upload(blocks), self._frame_number, self.cfg, N, fw,
+            packer=self.packer)
+        self._inflight.append(_BatchJob(main, rest, blocks, N,
+                                        self._frame_number))
+        self._frame_number += blocks.shape[0]
+        self._poll()
+        while len(self._inflight) > self._pipeline_depth:
+            self._drain_one_inflight()
+
+    def _poll(self):
+        for job in self._inflight:
+            job.poll()
+
+    def _drain_one_inflight(self):
+        self._poll()
+        job = self._inflight.pop(0)
+        if isinstance(job, _SuperJob):
+            buf, lens = job.wait()
+            bad = job.bad
+            wbytes = _big_endian_rows(buf)
+            if int(lens.max()) > wbytes.shape[1]:
+                # a frame longer than the copied rows would be cut short
+                # by _write_frames' row slicing: fail loudly instead
+                raise RuntimeError(
+                    f"frame exceeded super-chunk fetch buffer: "
+                    f"{int(lens.max())} > {wbytes.shape[1]} (encoder bug)")
+            self._poll()
+        else:
+            buf = job.main.wait()
+            lens = buf[:, 0].astype(np.int64)
+            bad = lens >= (1 << 30)
+            lens = np.where(bad, 0, lens & ((1 << 30) - 1))
+            wbytes = _big_endian_rows(buf[:, 1:])
+            if int(lens.max()) > wbytes.shape[1]:
+                # rare: a frame compressed past the trim point; splice the
+                # remainder words in (one more copy, for this batch only)
+                self.remainder_fetches += 1
+                wbytes = np.concatenate(
+                    [wbytes, _words_to_wbytes(job.rest, job.rest.shape[1])],
+                    axis=1)
+                if int(lens.max()) > wbytes.shape[1]:
+                    # the pow2 word rows bound a verbatim frame: fail
+                    # loudly rather than write a truncated stream
+                    raise RuntimeError(
+                        f"frame exceeded worst-case pack buffer: "
+                        f"{int(lens.max())} > {wbytes.shape[1]} "
+                        "(encoder bug)")
+        self._write_frames(wbytes, lens, job.blocks, job.mb, job.N,
+                           job.base, bad)
 
     def _replace_bad_frames(self, wbytes, lens, blocks, bad, N, base_frame):
         """Re-encode quad-layout misfit frames through the exact safe
@@ -336,7 +622,7 @@ class StreamEncoder:
         if bad.any():
             wbytes, lens = self._replace_bad_frames(
                 wbytes, lens, blocks, bad, N, base_frame)
-        blob = b"".join(wbytes[i, :int(lens[i])].tobytes() for i in range(B))
+        blob = native.gather_frames(wbytes, lens)
         if self.verify:
             self._verify_batch(blocks, blob, lens, N, base_frame)
         if self._seektable is not None:
@@ -423,10 +709,12 @@ class StreamEncoder:
             raise RuntimeError("StreamEncoder is closed")
 
     def close(self):
-        """Mark the encoder closed; later process() and finish() calls
-        raise.  Safe to call repeatedly.  The port holds no worker thread
-        or fetch pool, so there is nothing else to release."""
+        """Mark the encoder closed (later process() and finish() calls
+        raise), drop the work in flight and stop the MD5 worker.  Safe to
+        call repeatedly; an error in process() or finish() calls it."""
         self._closed = True
+        self._inflight = []
+        self._stop_md5()
 
     def __enter__(self):
         return self
@@ -437,7 +725,16 @@ class StreamEncoder:
 
     def finish(self):
         self._check_open()
-        self._drain(final=True)
+        try:
+            self._drain(final=True)
+            while self._inflight:
+                self._drain_one_inflight()
+        except BaseException:
+            self.close()
+            raise
+        self._stop_md5()
+        if self._md5_errors:
+            raise self._md5_errors[0]
         self._info.md5 = self._md5.digest()
         if self.out.seekable():
             pos = self.out.tell()
@@ -455,7 +752,8 @@ def encode_file_to_flac(pcm: np.ndarray, cfg: EncoderConfig,
                         out=None, **kw) -> bytes:
     """Convenience one-shot: pcm [C, n] int32 -> FLAC byte stream.
     Keyword arguments go to StreamEncoder (device, packer, batch_frames,
-    padding, extra_metadata, seektable, verify, progress_callback)."""
+    padding, extra_metadata, seektable, verify, pipeline_depth,
+    super_batches, progress_callback)."""
     buf = out or io.BytesIO()
     with StreamEncoder(buf, cfg, **kw) as enc:
         enc.process(pcm)

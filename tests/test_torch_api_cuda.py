@@ -1,5 +1,5 @@
 """The library API's device paths on a CUDA GPU: verify=True decodes every
-written batch through K2 and K3, FlacReader reads through them, and so
+written super-chunk or batch through K2 and K3, FlacReader reads through them, and so
 does the Ogg decode; the kernels' launch counters show it.
 
 Every test here carries the `gpu` marker and skips without a GPU (the
@@ -30,7 +30,7 @@ pytestmark = pytest.mark.gpu
 
 N = 4096
 PCM = signals.make_test_signal(N * 9 + 17, seed=9)
-BATCHES = 4                 # written batches of 4, 4 and 1 frames, the tail
+UNITS = 3     # written: a super-chunk of 8 frames, a batch of 1, the tail
 
 
 @pytest.fixture
@@ -58,15 +58,15 @@ def _counts():
 
 def test_verify_runs_k2_and_k3_once_a_batch(cuda):
     """verify=True leaves the bytes as verify=False writes them, and
-    launches K2 and K3 once for each written batch."""
+    launches K2 and K3 once for each written super-chunk or batch."""
     def table():
         return md.SeekTableBlock.template_spaced(PCM.shape[1], 44100, 0.2)
     plain, _ = _encode(PCM, False, seektable=table())
     k2, k3 = _counts()
     verified, calls = _encode(PCM, True, seektable=table())
     assert (rice_cuda.launches - k2, restore_cuda.launches - k3) == (
-        BATCHES, BATCHES)
-    assert [c[0] for c in calls] == [4, 8, 9, 10]
+        UNITS, UNITS)
+    assert [c[0] for c in calls] == [8, 9, 10]
     assert verified == plain
     st = decode_stream_auto(verified)
     assert st.md5_ok

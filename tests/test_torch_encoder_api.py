@@ -106,15 +106,16 @@ def test_written_seek_table_is_legal_and_on_frames(streams):
 
 
 def test_progress_callback_once_per_written_batch(streams):
-    """The port writes batch by batch: frames done, the blocksize and the
-    frame bytes written so far.  flac_tpu groups full batches into
-    super-chunks, so it reports fewer times; both end on the same
-    totals."""
+    """Once a written super-chunk or batch, as flac_tpu calls it: frames
+    done, the blocksize and the frame bytes written so far.  The two full
+    batches go out as one super-chunk, then the batch of 4 and the
+    300-sample tail."""
     calls = streams["port_calls"]
-    assert [c[0] for c in calls] == [8, 16, 20, 21]
+    assert calls == streams["ref_calls"]
+    assert [c[0] for c in calls] == [16, 20, 21]
     assert all(c[1] == N for c in calls)
     frame_bytes = len(streams["port"]) - streams["port_first_frame"]
-    assert calls[-1] == streams["ref_calls"][-1] == (21, N, frame_bytes)
+    assert calls[-1] == (21, N, frame_bytes)
     assert [c[2] for c in calls] == sorted({c[2] for c in calls})
 
 
@@ -156,12 +157,23 @@ def test_encode_file_to_flac_uses_the_with_form(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", ["pipeline_depth", "super_batches"])
-def test_tunnel_machinery_stays_out(kw):
-    """pipeline_depth and super_batches tune flac_tpu's device-to-host
-    tunnel; the port has no such pipeline and takes neither."""
-    with pytest.raises(TypeError):
-        StreamEncoder(io.BytesIO(), EncoderConfig.from_preset(0),
-                      device="cpu", **{kw: 2})
+def test_pipeline_options_match_flac_tpu(kw):
+    """Both packages take pipeline_depth and super_batches, with the same
+    defaults and the same clamps (batches and super-chunks in flight,
+    batches a super-chunk).  flac_tpu's encoders never encode, so nothing
+    compiles."""
+    for value in (None, -1, 0, 1, 3, 8):
+        seen = []
+        for enc_cls, cfg_cls, extra in (
+                (RefEncoder, flac_tpu.EncoderConfig, {}),
+                (StreamEncoder, EncoderConfig, {"device": "cpu"})):
+            opts = {} if value is None else {kw: value}
+            enc = enc_cls(io.BytesIO(), cfg_cls.from_preset(0), **opts,
+                          **extra)
+            enc.close()
+            seen.append((enc._pipeline_depth, enc._super_batches,
+                         enc._super_depth))
+        assert seen[0] == seen[1]
 
 
 @pytest.mark.parametrize("padding", [0, 512])

@@ -49,13 +49,15 @@ def test_import_leaves_no_jax_or_flac_tpu():
     assert {f"flac_tpu_torch.{m}" for m in (
         "encoder", "decoder", "metadata", "seek", "cuesheet", "ogg",
         "ops.restore_cuda", "container", "foreign", "replaygain", "cli",
-        "metaflac_cli", "native.__main__")} <= set(walked.split())
+        "metaflac_cli", "native.__main__", "parallel.shard",
+        "parallel.multihost")} <= set(walked.split())
     assert bad.strip() == "[]"
 
 
 @pytest.mark.parametrize("module", ["flac_tpu_torch.cli",
                                     "flac_tpu_torch.metaflac_cli",
-                                    "flac_tpu_torch.native.__main__"])
+                                    "flac_tpu_torch.native.__main__",
+                                    "flac_tpu_torch.parallel.multihost"])
 def test_command_lines_import_no_jax_or_flac_tpu(module):
     """A fresh process that imports a command line's module (for
     `python -m flac_tpu_torch.native`, the module that it runs) loads
@@ -122,6 +124,24 @@ def test_command_line_defaults_to_the_gpu_and_raises_without_one(
         assert not path.exists() or path.stat().st_size == 0
         assert cli.main(argv, device="cpu") == 0
     assert back.read_bytes() == wav.read_bytes()
+
+
+def test_corpus_runner_defaults_to_the_gpu_and_raises_without_one(
+        no_gpu, tmp_path):
+    """`python -m flac_tpu_torch.parallel.multihost` encodes on the GPU:
+    without one it exits with the "no CUDA device" error and writes
+    nothing."""
+    from flac_tpu_torch import container
+    wav = tmp_path / "t.wav"
+    wav.write_bytes(container.write_wav(np.zeros((2, 3000), np.int32),
+                                        44100, 16))
+    out = subprocess.run(
+        [sys.executable, "-m", "flac_tpu_torch.parallel.multihost", "-o",
+         str(tmp_path / "out"), str(wav)], cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not (tmp_path / "out").exists()
 
 
 def test_decode_defaults_to_the_gpu_and_raises_without_one(no_gpu):
