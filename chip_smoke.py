@@ -29,9 +29,13 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             native.parse_frames batch of the -5 and -8 clips.
 4. main:    the main path at full size: a 180 s 44.1 kHz 16-bit stereo
             track encoded at -5 (blocksize 4096, 64 frames a batch) on the
-            GPU, then decoded on the GPU 1024 frames a batch by
-            decode_stream_tpu with engine "device" (K2 and K3) and with
-            engine "fast" (the native full parse and K3), each with the
+            GPU through the compiled encode programs (CUDA graphs: two
+            warm-up encodes of the track run each key's ops and capture
+            its programs, whose keys, capture times and pools are
+            printed; the timed encode replays), then decoded on the GPU
+            1024 frames a batch by decode_stream_tpu with engine
+            "device" (K2 and K3) and with engine "fast" (the native full
+            parse and K3), each with the
             kernels' launch counts (and K2's count of CTAs that staged)
             read just after; each decode must give the samples back with a
             matching MD5, equal the port's host engine and launch K3 once a
@@ -59,9 +63,11 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             chain floor (N x the chain probe's cycles a sample / the SM
             clock) beside the bound; the device engine's transpose copy
             of K2's codes is timed on its own line before it.
-7. profile: torch.profiler over a 10 s encode and 10 s decodes with the
-            "device" and "fast" engines: the device's busy share, time by
-            stage (the flac.* ranges) and the top kernels; the tables go to
+7. profile: torch.profiler over a 10 s encode (through the graphs,
+            and op by op, whose flac.* ranges a replay does not record)
+            and 10 s decodes with the "device" and "fast" engines: the
+            device's busy share, kernels, graph replays, time by stage
+            (the flac.* ranges) and the top kernels; the tables go to
             OUT_DIR/profile_*.txt.
 8. api:     the library API on the GPU.  The 180 s track at -5 in the
             `with` form of StreamEncoder, with a seek table every 10 s, a
@@ -133,8 +139,35 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             into the `kernels` line as `launches_parallel` (for the two
             ranks and the corpus runner, the sum of the ranks' own counts,
             each counted from 0 in its process just before its work).
+            Each sharded encode is timed after two warm passes over the
+            same calls (each shape's program is captured on its second
+            call).
+11. compiled: the compiled encode programs (encoder._EncodePrograms),
+            from an empty cache: for each key, three calls on their own
+            inputs (the ops, the capture, a replay) must equal the ops
+            form (encoder._encode_batch_ops) on the same inputs in words,
+            byte lengths, bits and ok flags, and K1's count must move by
+            the launches its graph holds on every call: -0, -5 and -8 at
+            64 frames (int16, StreamEncoder's upload) and 256 (int32, the
+            sharded form) on the track's blocks, the trimmed 17-frame
+            batch, the final short block, a safe re-encode bucket with
+            per-frame numbers, 64 blocks of the 33-bit clip (the safe
+            layout, no K1), and four shard entries of the card (every
+            shard against the ops); each key's capture time, what it
+            added to the graph pool and the peak memory of its calls.  A
+            replay's copied-out outputs must outlive the next replay of
+            the key.  Warm calls and the ops
+            form run under torch.cuda.set_sync_debug_mode("error").  One
+            64- and one 256-frame call, ops against replay (in turns: ops,
+            replay, replay, ops): host ms (the call), wall ms (with a
+            synchronize), event ms (CUDA events around it), kernels and
+            their summed device ms (torch.profiler); the track's keys from
+            phase 4.  Then the card-only tests (marker `gpu`,
+            GPU_TEST_FILES) in a subprocess; their output goes to
+            OUT_DIR/gpu_tests.txt.  Each path's K1 launches go into the
+            `kernels` line as `launches_compiled_encode`.
 
-The `kernels` line comes after phase 10.
+The `kernels` line comes after phase 11.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
 register report, the profile tables) go to OUT_DIR, beside this script.
@@ -143,6 +176,7 @@ register report, the profile tables) go to OUT_DIR, beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -869,6 +903,17 @@ HIRES_SECONDS = 60           # the 33-bit clip: a 32-bit stereo file at
 HIRES_RATE = 96000           # 96 kHz of signals.make_hires32_signal's samples
 
 
+def hires_clip():
+    """The 33-bit clip: HIRES_SECONDS of signals.make_hires32_signal at
+    HIRES_RATE, its first 4 blocks antiphase so the side passes 2^31."""
+    import numpy as np
+    from flac_tpu_torch import signals
+    hi = signals.make_hires32_signal(HIRES_SECONDS * HIRES_RATE, seed=60)
+    left = np.round(1.6e9 * np.sin(np.arange(4 * 4096) * 0.01))
+    hi[0, :4 * 4096], hi[1, :4 * 4096] = left, -left
+    return hi
+
+
 def _cli_process(argv) -> float:
     """`python -m flac_tpu_torch.cli argv` in a fresh process, the way a
     user runs it.  Returns its wall seconds."""
@@ -910,7 +955,7 @@ def command_lines(pcm, stream5: bytes) -> dict:
     import numpy as np
     import torch
     from flac_tpu_torch import (EncoderConfig, cli, container,
-                                decode_stream_tpu, metaflac_cli, signals)
+                                decode_stream_tpu, metaflac_cli)
     from flac_tpu_torch import metadata as md
     from flac_tpu_torch import replaygain as rg
     from flac_tpu_torch.encoder import encode_file_to_flac
@@ -1109,10 +1154,7 @@ def command_lines(pcm, stream5: bytes) -> dict:
               "launches": {k: launches[k] for k in host_cases}})
 
         # ---- the 33-bit side channel ----
-        hi = signals.make_hires32_signal(HIRES_SECONDS * HIRES_RATE,
-                                         seed=60)
-        left = np.round(1.6e9 * np.sin(np.arange(4 * 4096) * 0.01))
-        hi[0, :4 * 4096], hi[1, :4 * 4096] = left, -left
+        hi = hires_clip()
         write("hi.wav", container.write_wav(hi, HIRES_RATE, 32))
         run("encode_33bit", ["-5", "-s", "-o", path("hi.flac"),
                              path("hi.wav")])
@@ -1330,6 +1372,13 @@ def parallel_paths(pcm, stream: bytes, expect_quad: int) -> dict:
         for label, mesh in (("1_entry", data_mesh()),
                             (f"{SHARD_ENTRIES}_entries",
                              data_mesh(["cuda:0"] * SHARD_ENTRIES))):
+            # two warm passes: each shape's program is captured on its
+            # second call (the ragged last call's in the second pass), so
+            # the timed pass replays
+            for _ in range(2):
+                for lo in range(0, F, SHARD_CALL):
+                    encode_blocks_dp(blocks[lo:lo + SHARD_CALL], lo, cfg5,
+                                     mesh)
             _reset_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1516,6 +1565,291 @@ def parallel_paths(pcm, stream: bytes, expect_quad: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the compiled encode programs on the card
+# ---------------------------------------------------------------------------
+
+# the card-only tests (marker `gpu`), run by phase 11 in a subprocess
+GPU_TEST_FILES = ("tests/test_torch_pack_cuda.py",
+                  "tests/test_torch_rice_cuda.py",
+                  "tests/test_torch_restore.py",
+                  "tests/test_torch_api_cuda.py",
+                  "tests/test_torch_cli_cuda.py",
+                  "tests/test_torch_parallel_cuda.py",
+                  "tests/test_torch_compiled_cuda.py")
+
+
+class _OpsOnly:
+    """Stands in for encoder._PROGRAMS: every call op by op, the form the
+    graphs are held against."""
+
+    def run(self, name, fn, *inputs):
+        return fn(*inputs)
+
+
+@contextlib.contextmanager
+def ops_form():
+    """Run every encode op by op inside the block."""
+    from flac_tpu_torch import encoder as encoder_mod
+    real = encoder_mod._PROGRAMS
+    encoder_mod._PROGRAMS = _OpsOnly()
+    try:
+        yield
+    finally:
+        encoder_mod._PROGRAMS = real
+
+
+def program_info(progs) -> list:
+    """Each captured program of an encoder._EncodePrograms: its entry
+    point, input shape and dtype, capture ms, what its capture added to
+    the device's graph pool (MB) and its K1 launches."""
+    out = []
+    for (name, inputs), p in progs.graphs.items():
+        _, shape, dtype = inputs[0]
+        out.append({"program": name[0], "preset_args": str(name[2:]),
+                    "shape": list(shape), "dtype": str(dtype),
+                    "capture_ms": p.capture_ms,
+                    "pool_growth_mb": p.pool_bytes / 1e6,
+                    "k1_launches": p.k1_launches})
+    return out
+
+
+def call_times(fn, runs: int = 5) -> dict:
+    """One call of `fn` on the card, after a warm call: the medians over
+    `runs` calls of its host ms (the call alone: the time to queue its
+    work), its wall ms (the call and a synchronize) and its event ms (CUDA
+    events around it: first to last of its work on the card, gaps
+    included); then, from torch.profiler over one call, the kernels it
+    runs and their device ms summed (the card's busy time).  A call of
+    thousands of kernels fills the launch queue, so they cannot be queued
+    behind a sleep kernel as queued_device_ms does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    host, wall, event = [], [], []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) * 1e3)
+        wall.append((t2 - t0) * 1e3)
+        event.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    return {"host_ms": statistics.median(host),
+            "wall_ms": statistics.median(wall),
+            "event_ms": statistics.median(event),
+            "kernels": sum(e.count for e in device),
+            "device_busy_ms": sum(_device_us(e, True) for e in device)
+            / 1e3}
+
+
+def compiled_encode(pcm, track_keys: dict) -> dict:
+    """Phase 11.  Raises AssertionError on the first check that fails.
+    Returns each path's K1 launches (K2 and K3: none), counted from 0 just
+    before it and read just after."""
+    import numpy as np
+    import torch
+    from flac_tpu_torch import EncoderConfig
+    from flac_tpu_torch import encoder as encoder_mod
+    from flac_tpu_torch.ops import pack_cuda
+    from flac_tpu_torch.parallel.shard import encode_batch_sharded
+    progs = encoder_mod._PROGRAMS
+    progs.clear()                  # every key below: ops, capture, replay
+    dev = torch.device("cuda")
+    N = 4096
+    F = (pcm.shape[1] - 1) // N                    # the track's full blocks
+    launches = {}
+
+    def blocks(src, lo, B, n=N, dtype=np.int16):
+        return torch.from_numpy(np.ascontiguousarray(
+            src[:, lo:lo + B * n].reshape(src.shape[0], B, n).transpose(
+                1, 0, 2), dtype)).to(dev)
+
+    def ops(x, first, cfg, n=N, layout="auto"):
+        return encoder_mod._encode_batch_ops(
+            x, encoder_mod._frame_numbers(first, x.shape[0], dev), cfg, n,
+            layout, "kernel")
+
+    def hold(label, calls, graph_fn, ops_fn):
+        """Three calls of one key, each on its own inputs: the ops, the
+        capture, a replay.  Each output must equal the ops form's on the
+        same inputs, and K1's count must move by the graph's launches on
+        each replay."""
+        before = set(progs.graphs)
+        steps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for args in calls:
+            k1 = pack_cuda.launches
+            got = graph_fn(*args)
+            torch.cuda.synchronize()
+            steps.append(pack_cuda.launches - k1)
+            want = ops_fn(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{label}: the graph's outputs differ "
+                                     f"from the ops' (call {len(steps)})")
+        new = [progs.graphs[k] for k in progs.graphs if k not in before]
+        if len(new) != 1:
+            raise AssertionError(f"{label}: {len(new)} programs captured, "
+                                 "expected one")
+        k1 = new[0].k1_launches
+        if steps != [k1, k1, k1]:
+            raise AssertionError(f"{label}: K1 counted {steps}, expected "
+                                 f"{k1} a call (the graph holds {k1})")
+        launches[label] = {"pack_fields64": sum(steps), "rice_codes": 0,
+                           "restore": 0}
+        emit({"phase": "compiled", "case": label, "identical": True,
+              "k1_per_call": steps, "capture_ms": new[0].capture_ms,
+              "pool_growth_mb": new[0].pool_bytes / 1e6,
+              "peak_mb": (torch.cuda.max_memory_allocated() - base) / 1e6})
+
+    # ---- the graphs against the ops, byte for byte ----
+    cfgs = {lv: EncoderConfig.from_preset(lv, blocksize=N).resolve()
+            for lv in (0, 5, 8)}
+    for lv, cfg in cfgs.items():
+        for B, dtype in ((64, np.int16), (256, np.int32)):
+            hold(f"-{lv}, {B} frames, {np.dtype(dtype).name}",
+                 [(blocks(pcm, lo * N, B, dtype=dtype), lo)
+                  for lo in (0, B, 2 * B)],
+                 lambda x, lo, cfg=cfg: encoder_mod.encode_batch(x, lo, cfg,
+                                                                 N),
+                 lambda x, lo, cfg=cfg: ops(x, lo, cfg))
+    cfg5 = cfgs[5]
+    fw = encoder_mod.default_fetch_words(N, 2, 16)
+    hold("-5, the trimmed 17-frame batch",
+         [(blocks(pcm, lo * N, 17), lo) for lo in (F - 17, F - 34, F - 51)],
+         lambda x, lo: encoder_mod.encode_batch_trimmed(x, lo, cfg5, N, fw),
+         lambda x, lo: encoder_mod._trim(ops(x, lo, cfg5), fw))
+    tail = pcm.shape[1] - F * N
+    fw_tail = encoder_mod.default_fetch_words(tail, 2, 16)
+    hold(f"-5, the final {tail}-sample block",
+         [(blocks(pcm, lo, 1, n=tail), lo // N)
+          for lo in (F * N, 0, 10 * N)],
+         lambda x, i: encoder_mod.encode_batch_trimmed(x, i, cfg5, tail,
+                                                       fw_tail),
+         lambda x, i: encoder_mod._trim(ops(x, i, cfg5, n=tail), fw_tail))
+    hold("-5, safe re-encode bucket of 4, per-frame numbers",
+         [(blocks(pcm, lo * N, 4, dtype=np.int32),
+           torch.tensor([lo, lo + 9, lo + 3, lo + 3], device=dev)
+           - torch.arange(4, device=dev)) for lo in (5, 50, 500)],
+         lambda x, nums: encoder_mod.encode_batch(x, nums, cfg5, N,
+                                                  layout="safe"),
+         lambda x, nums: ops(x, nums, cfg5, layout="safe"))
+    hi = hires_clip()
+    cfg_hi = EncoderConfig.from_preset(
+        5, blocksize=N, sample_rate=HIRES_RATE,
+        bits_per_sample=32).resolve()
+    hold(f"-5, 32-bit stereo at {HIRES_RATE} Hz (the safe layout)",
+         [(blocks(hi, lo * N, 64, dtype=np.int32), lo)
+          for lo in (0, 64, 640)],
+         lambda x, lo: encoder_mod.encode_batch(x, lo, cfg_hi, N),
+         lambda x, lo: ops(x, lo, cfg_hi))
+    if launches[f"-5, 32-bit stereo at {HIRES_RATE} Hz (the safe layout)"][
+            "pack_fields64"]:
+        raise AssertionError("the 33-bit side's program launched K1")
+
+    # four shard entries of the card: one key, every shard against the ops
+    host = np.ascontiguousarray(
+        pcm[:, :F * N].reshape(2, F, N).transpose(1, 0, 2))
+    k1 = 0
+    for lo in (0, 256, 512):
+        before = pack_cuda.launches
+        shards = encode_batch_sharded(host[lo:lo + 256], lo, cfg5, N,
+                                      [dev] * SHARD_ENTRIES)
+        k1 += pack_cuda.launches - before
+        for i, pf in enumerate(shards):
+            x = torch.from_numpy(host[lo + 64 * i:lo + 64 * (i + 1)]).to(dev)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(pf, ops(x, lo + 64 * i, cfg5))):
+                raise AssertionError(f"shard {i} of the batch at {lo} "
+                                     "differs from the ops")
+    launches["four shard entries, 3 calls"] = {
+        "pack_fields64": k1, "rice_codes": 0, "restore": 0}
+    if k1 != 3 * SHARD_ENTRIES:
+        raise AssertionError(f"four shard entries, 3 calls: K1 {k1} times")
+    emit({"phase": "compiled", "case": "four shard entries of one card",
+          "identical": True, "k1": k1})
+
+    # ---- output lifetime: a replay's outputs outlive the next replay ----
+    x, y = blocks(pcm, 0, 64), blocks(pcm, 640 * N, 64)
+    first = encoder_mod.encode_batch(x, 0, cfg5, N)
+    kept = [t.clone() for t in first]
+    second = encoder_mod.encode_batch(y, 640, cfg5, N)
+    torch.cuda.synchronize()
+    want = ops(x, 0, cfg5)
+    if not all(torch.equal(a, b) for a, b in zip(first, kept)) or \
+            not all(torch.equal(a, b) for a, b in zip(first, want)) or \
+            torch.equal(first.words, second.words):
+        raise AssertionError("a replay's outputs changed under the next "
+                             "replay of the key")
+    emit({"phase": "compiled", "case": "output lifetime", "ok": True})
+
+    # ---- no host sync in a warm call ----
+    x17 = blocks(pcm, (F - 17) * N, 17)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        encoder_mod.encode_batch(x, 0, cfg5, N)
+        encoder_mod.encode_batch_trimmed(x17, F - 17, cfg5, N, fw)
+        ops(x, 0, cfg5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit({"phase": "compiled", "case": "set_sync_debug_mode('error') "
+          "around warm calls and the ops form", "raised": False})
+
+    # ---- times: one call of 64 and of 256 frames, ops against replay ----
+    times = {}
+    for B, dtype in ((64, np.int16), (256, np.int32)):
+        xb = blocks(pcm, 0, B, dtype=dtype)
+        nums = encoder_mod._frame_numbers(0, B, dev)
+
+        def replay(xb=xb):
+            encoder_mod.encode_batch(xb, 0, cfg5, N)
+
+        def op_by_op(xb=xb, nums=nums):
+            encoder_mod._encode_batch_ops(xb, nums, cfg5, N, "auto",
+                                          "kernel")
+        row = {label: call_times(fn) for label, fn in (
+            ("ops", op_by_op), ("replay", replay), ("replay_2", replay),
+            ("ops_2", op_by_op))}
+        row["pcm_mb"] = B * N * 2 * 2 / 1e6
+        times[f"{B}_frames"] = row
+    emit({"phase": "compiled", "case": "times, -5", "times": times,
+          "track_keys": track_keys,
+          "phase_11_programs": program_info(progs),
+          "graph_pool_mb": sum(p.pool_bytes for p in progs.graphs.values())
+          / 1e6})
+
+    # ---- the card-only tests ----
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-o", "addopts=",
+         "-p", "no:randomly", "-q", "-m", "gpu", *GPU_TEST_FILES],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    with open(os.path.join(OUT_DIR, "gpu_tests.txt"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    emit({"phase": "compiled", "case": "card-only tests", "rc":
+          proc.returncode, "summary": summary,
+          "seconds": time.perf_counter() - t0})
+    if proc.returncode != 0:
+        raise AssertionError(f"the card-only tests failed: {summary}")
+    return launches
+
+
 def _device_us(event, self_only: bool) -> float:
     """A profiler event's device time in microseconds, across the
     attribute names of torch versions."""
@@ -1527,15 +1861,18 @@ def _device_us(event, self_only: bool) -> float:
     return 0.0
 
 
-def profile_run(run, label: str, ranges: tuple, own: tuple) -> dict:
-    """torch.profiler over one call of `run` (after a warm call): wall
+def profile_run(run, label: str, ranges: tuple, own: tuple,
+                warm: int = 1) -> dict:
+    """torch.profiler over one call of `run` (after `warm` calls): wall
     time, device busy share, host and device time of each flac.* range,
     the device time of the package's own kernels (`own`: launched through
-    ctypes, so the profiler does not attribute them to a range), and the
-    top kernels.  The full table goes to OUT_DIR."""
+    ctypes, so the profiler does not attribute them to a range), the
+    CUDA graph launches (a replay records no range) and the top kernels.
+    The full table goes to OUT_DIR."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    run()
+    for _ in range(warm):
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1568,11 +1905,15 @@ def profile_run(run, label: str, ranges: tuple, own: tuple) -> dict:
         f.write(events.table(sort_by=sort_key, row_limit=40))
     own_ms = {k: sum(_device_us(e, True) for e in kernels_ if k in e.key)
               / 1e3 for k in own}
+    graph_launch = [e for e in events if e.key == "cudaGraphLaunch"]
     return {"phase": "profile", "run": label, "wall_s": wall,
             "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall if busy_us else
             "not measured",
             "device_kernel_launches": sum(e.count for e in kernels_),
+            "graph_replays": sum(e.count for e in graph_launch),
+            "graph_launch_host_ms": sum(e.cpu_time_total
+                                        for e in graph_launch) / 1e3,
             "stages": stages, "own_kernels_device_ms": own_ms,
             "top_kernels_ms": {e.key[:60]: _device_us(e, True) / 1e3
                                for e in top}}
@@ -1594,6 +1935,7 @@ def main() -> int:
                                     kernels, native, signals)
         from flac_tpu_torch.models import frame as frame_mod
         from flac_tpu_torch import decoder as decoder_mod
+        from flac_tpu_torch import encoder as encoder_mod
         from flac_tpu_torch.ops import bitpack, bitunpack, pack_cuda, \
             restore_cuda, rice_cuda
     except ImportError as e:
@@ -1711,10 +2053,28 @@ def main() -> int:
     pcm = signals.make_test_signal(n, seed=180)
     cfg5 = EncoderConfig.from_preset(5, blocksize=4096).resolve()
     expect = quad_batches(cfg5, n, 64)
-    t0 = time.perf_counter()
-    encode(signals.make_test_signal(5 * RATE, seed=5), 5)   # warm-up
-    torch.cuda.synchronize()
-    emit({"phase": "main", "warm_up_s": time.perf_counter() - t0})
+    # warm-up: the track's first encode runs each key's ops and captures
+    # the 64-frame batches' program, its second captures the trimmed batch
+    # and the final block (encoder._EncodePrograms); the timed encode
+    # replays.  The cache starts empty, so its keys are the track's.
+    encoder_mod._PROGRAMS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        encode(pcm, 5)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    track_keys = {"keys": len(encoder_mod._PROGRAMS.seen),
+                  "graphs": program_info(encoder_mod._PROGRAMS),
+                  "warm_up_s": warm,
+                  "max_memory_allocated_mb":
+                      torch.cuda.max_memory_allocated() / 1e6}
+    emit({"phase": "main", "warm_up_s": warm,
+          "compiled_programs": track_keys})
+    if len(track_keys["graphs"]) != track_keys["keys"]:
+        return fail(f"the track's second encode left keys uncaptured: "
+                    f"{track_keys}")
     pack_cuda.launches = 0
     t0 = time.perf_counter()
     stream, enc = encode(pcm, 5)
@@ -1893,10 +2253,12 @@ def main() -> int:
         return real_pack(nz, pay, pb, W)
     frame_mod.pack_cuda.pack_fields64 = capture
     try:
-        from flac_tpu_torch.encoder import encode_batch
+        # the ops form: a graph replay would not call the wrapper
         blocks = torch.from_numpy(np.ascontiguousarray(
             pcm[:, :64 * 4096].reshape(2, 64, 4096).transpose(1, 0, 2))).cuda()
-        encode_batch(blocks, 0, cfg5, 4096)
+        encoder_mod._encode_batch_ops(
+            blocks, encoder_mod._frame_numbers(0, 64, blocks.device), cfg5,
+            4096, "auto", "kernel")
     finally:
         frame_mod.pack_cuda.pack_fields64 = real_pack
     nz, pay, pb, W = captured["args"]
@@ -2086,9 +2448,16 @@ def main() -> int:
 
     # ---- 7. where the time goes in a steady encode and decode ----
     short = signals.make_test_signal(10 * RATE, seed=7)
-    emit(profile_run(lambda: encode(short, 5), "encode_-5",
-                     ("flac.search", "flac.assign", "flac.assemble",
-                      "flac.pack"), ("pack_fields64_kernel",)))
+    encode_ranges = ("flac.search", "flac.assign", "flac.assemble",
+                     "flac.pack")
+    # through the compiled programs (two warm calls: the 43-frame batch
+    # and the final block are captured on their second), then op by op,
+    # whose ranges say where the programs' device time goes
+    emit(profile_run(lambda: encode(short, 5), "encode_-5", encode_ranges,
+                     ("pack_fields64_kernel",), warm=2))
+    with ops_form():
+        emit(profile_run(lambda: encode(short, 5), "encode_-5_ops",
+                         encode_ranges, ("pack_fields64_kernel",)))
     short_stream, _ = encode(short, 5)
     emit(profile_run(lambda: decode_stream_tpu(short_stream), "decode",
                      ("flac.tile_scan", "flac.upload", "flac.codes",
@@ -2121,6 +2490,13 @@ def main() -> int:
     for k in (k1, k2, k3):
         k["launches_parallel"] = {path: c[k["name"]]
                                   for path, c in par.items()}
+    # ---- 11. the compiled encode programs ----
+    t0 = time.perf_counter()
+    comp = compiled_encode(pcm, track_keys)
+    emit({"phase": "compiled", "seconds": time.perf_counter() - t0})
+    for k in (k1, k2, k3):
+        k["launches_compiled_encode"] = {path: c[k["name"]]
+                                         for path, c in comp.items()}
     emit({"kernels": [k1, k2, k3]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-"""Device selection for the entry points: the GPU unless asked otherwise."""
+"""Device selection for the entry points (the GPU unless asked otherwise),
+and the per-device cache of constants built from host data."""
 
 from __future__ import annotations
 
@@ -14,3 +15,24 @@ def resolve_device(device=None) -> torch.device:
             "flac_tpu_torch: no CUDA device is available; pass "
             "device='cpu' to run on the CPU")
     return dev
+
+
+# (key, device) -> tensor
+_CONSTANTS: dict = {}
+
+
+def constant(key, device: torch.device, make) -> torch.Tensor:
+    """The tensor `make(device)` builds from host data (a table, a window
+    bank), built once for each (key, device) and kept for the process.
+
+    The encode path takes its constants from here, so a warm call copies
+    nothing from host memory: a per-call copy of a host list or array is a
+    pageable host-to-device transfer, and one that a CUDA graph capture
+    refuses.  `key` must name the contents (hashable; include every
+    parameter the table depends on).  Callers must not modify the tensor.
+    """
+    dev = torch.device(device)
+    t = _CONSTANTS.get((key, dev))
+    if t is None:
+        t = _CONSTANTS[(key, dev)] = make(dev)
+    return t

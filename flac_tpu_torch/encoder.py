@@ -21,9 +21,17 @@ resolved to real frame positions.  With verify=True each written
 super-chunk or batch is decoded back on the device (the "device" engine:
 K2, then K3) and compared with its input before a byte of it is written.
 
-encode_batch marks its stages as profiler ranges (flac.search,
-flac.assign, flac.assemble, and flac.pack inside assemble_frames): a few
-microseconds of host time each while torch.profiler is not recording.
+On a CUDA device encode_batch and encode_batch_trimmed run as compiled
+programs, the counterpart of the reference's jitted ones: a CUDA graph for
+each static key (configuration, shapes, dtypes, layout, packer), captured
+on the key's second call and replayed after that, with K1 inside
+(_EncodePrograms).  The ops they capture read nothing back from the device
+and copy no constant from host memory on a warm call.
+
+The ops mark their stages as profiler ranges (flac.search, flac.assign,
+flac.assemble, and flac.pack inside assemble_frames): a few microseconds
+of host time each while torch.profiler is not recording.  A graph replay
+records no range: its kernels show up in a trace on their own.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import io
 import queue
 import struct
 import threading
+import time
 import weakref
 
 import numpy as np
@@ -50,6 +59,7 @@ from .models import frame as frame_mod
 from .models import stereo as stereo_mod
 from .models import subframe as subframe_mod
 from .ops import lpc as lpc_ops
+from .ops import pack_cuda
 from .ref_decoder import DecodedStream, FlacDecodeError
 from .utils.bits import BitWriter
 
@@ -59,20 +69,131 @@ def _bank_for(cfg: EncoderConfig, blocksize: int):
     return lpc_ops.build_apodization_bank(blocksize, cfg.apodizations)
 
 
-def encode_batch(pcm, first_frame_number, cfg: EncoderConfig,
-                 blocksize: int, layout: str = "auto",
-                 packer: str = "kernel") -> frame_mod.PackedFrames:
-    """Encode a batch of equal-size blocks into packed FLAC frames.
+class _CapturedProgram:
+    """One compiled encode program: a CUDA graph with static input
+    buffers, its intermediates and outputs in the programs' memory pool
+    (see _EncodePrograms)."""
 
-    pcm: [B, C, N] int32 tensor (N == blocksize) on the encoding device
-    first_frame_number: int, or [B] int64 tensor — frame index of pcm[0]
-        (the frames are numbered first_frame_number + arange(B))
-    cfg: a resolved EncoderConfig
-    layout: frame.assemble_frames pack layout ("auto" = fused-quad when
-        eligible; frames it can't represent come back ok=False and are
-        re-encoded with layout="safe" — see StreamEncoder._write_frames).
-    packer: the quad-layout deposit, see frame.assemble_frames.
+    __slots__ = ("graph", "inputs", "outputs", "k1_launches", "capture_ms",
+                 "pool_bytes")
+
+    def __init__(self, fn, inputs, pool):
+        dev = inputs[0].device
+        # static inputs, allocated outside the pool
+        self.inputs = tuple(t.clone() for t in inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        # torch.cuda.graph synchronizes and empties the cache before it
+        # captures (on a side stream of its own); do it here first so the
+        # reserved bytes before and after count what the capture adds to
+        # the pool
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        k1 = pack_cuda.captured
+        stream = torch.cuda.current_stream(dev)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.outputs = fn(*self.inputs)
+        finally:
+            # a capture that fails on a CUDA error leaves torch.cuda.graph's
+            # side stream current (its __exit__ raises before restoring it)
+            torch.cuda.set_stream(stream)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.k1_launches = pack_cuda.captured - k1
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def replay(self, inputs):
+        for static, t in zip(self.inputs, inputs):
+            static.copy_(t)
+        self.graph.replay()
+        pack_cuda.count_replay(self.k1_launches)
+        # the next replay overwrites the static outputs, while callers keep
+        # several batches' words on the device (_SuperJob, _BatchJob, the
+        # shards): copy them out, on the same stream
+        out = [t.clone() for t in self.outputs]
+        return (self.outputs._make(out) if hasattr(self.outputs, "_make")
+                else tuple(out))
+
+
+class _EncodePrograms:
+    """The compiled encode programs: the counterpart of the reference's
+    jitted encode_batch family (flac_tpu/encoder.py:46-149), which is
+    compiled once per static key and then only replayed.
+
+    On a CUDA tensor, `run(name, fn, *inputs)` keeps one CUDA graph per
+    key (name, with the configuration's static arguments, and each input's
+    device, shape and dtype):
+    - the first call of a key runs `fn` op by op, so a one-off shape (a
+      stream's final block) pays no capture; that call is also the warm-up
+      a capture needs (K1's probe and attribute set, cuBLAS's handle);
+    - the second call captures `fn` into a graph (torch.cuda.graph, on a
+      side stream) and replays it; every later call copies its inputs into
+      the graph's static buffers and replays;
+    - a capture or a replay that fails raises: nothing falls back to the
+      ops;
+    - each replay's outputs are copied out on the stream (see
+      _CapturedProgram.replay).
+    The graphs of a device share one memory pool: a graph's intermediates
+    are dead outside its replay, so the pool holds the largest graph's
+    and every graph's static outputs, not the sum of their
+    intermediates.  That, and each graph's own static buffers, need its
+    replays to run one at a time: on the caller's current stream, from
+    one thread (a capture from another thread would fail anyway).
+    On the CPU `fn` runs op by op, as before.
     """
+
+    def __init__(self):
+        self.seen: set = set()       # keys whose first call ran the ops
+        self.graphs: dict = {}       # key -> _CapturedProgram
+        self.pools: dict = {}        # device -> graph memory pool handle
+
+    def run(self, name, fn, *inputs):
+        dev = inputs[0].device
+        if dev.type != "cuda":
+            return fn(*inputs)
+        key = (name, tuple((t.device, tuple(t.shape), t.dtype)
+                           for t in inputs))
+        with torch.cuda.device(dev):
+            prog = self.graphs.get(key)
+            if prog is None:
+                if key not in self.seen:
+                    self.seen.add(key)
+                    return fn(*inputs)
+                if dev not in self.pools:
+                    self.pools[dev] = torch.cuda.graph_pool_handle()
+                prog = self.graphs[key] = _CapturedProgram(
+                    fn, inputs, self.pools[dev])
+            return prog.replay(inputs)
+
+    def clear(self):
+        """Drop every graph, their pools and every key seen."""
+        self.seen.clear()
+        self.graphs.clear()
+        self.pools.clear()
+
+
+_PROGRAMS = _EncodePrograms()
+
+
+def _frame_numbers(first_frame_number, B: int, device) -> torch.Tensor:
+    """[B] int64 frame numbers first_frame_number + arange(B), built on
+    the device: an int goes in as a kernel argument, a [B] tensor gives
+    each frame its own base."""
+    numbers = torch.arange(B, dtype=torch.int64, device=device)
+    if isinstance(first_frame_number, torch.Tensor):
+        return numbers + first_frame_number.to(device, torch.int64)
+    return numbers + int(first_frame_number)
+
+
+def _encode_batch_ops(pcm, frame_numbers, cfg: EncoderConfig,
+                      blocksize: int, layout: str,
+                      packer: str) -> frame_mod.PackedFrames:
+    """encode_batch op by op: the program that the compiled form captures,
+    and the form that runs on the CPU.  frame_numbers: [B] int64 on pcm's
+    device.  Reads nothing back from the device and copies nothing from
+    host memory once its constants are on the device (device.constant)."""
+    pcm = pcm.to(torch.int32)
     B = pcm.shape[0]
     dev = pcm.device
     bank = _bank_for(cfg, blocksize)
@@ -102,18 +223,48 @@ def encode_batch(pcm, first_frame_number, cfg: EncoderConfig,
             new_type[:, -1] = torch.where(
                 all_const, fmt.SUBFRAME_TYPE_VERBATIM, choice.type_[:, -1])
             choice = choice._replace(type_=new_type)
-    frame_numbers = torch.as_tensor(first_frame_number, dtype=torch.int64,
-                                    device=dev) + torch.arange(
-        B, dtype=torch.int64, device=dev)
     with record_function("flac.assemble"):
         return frame_mod.assemble_frames(choice, signal, assignment,
                                          frame_numbers, cfg, blocksize,
                                          layout=layout, packer=packer)
 
 
+def encode_batch(pcm, first_frame_number, cfg: EncoderConfig,
+                 blocksize: int, layout: str = "auto",
+                 packer: str = "kernel") -> frame_mod.PackedFrames:
+    """Encode a batch of equal-size blocks into packed FLAC frames.
+
+    pcm: [B, C, N] int32 tensor (N == blocksize) on the encoding device;
+        int16 is widened on the device, inside the program
+    first_frame_number: int, or [B] int64 tensor — frame index of pcm[0]
+        (the frames are numbered first_frame_number + arange(B))
+    cfg: a resolved EncoderConfig
+    layout: frame.assemble_frames pack layout ("auto" = fused-quad when
+        eligible; frames it can't represent come back ok=False and are
+        re-encoded with layout="safe" — see StreamEncoder._write_frames).
+    packer: the quad-layout deposit, see frame.assemble_frames.
+
+    On a CUDA tensor it runs as a compiled program (_EncodePrograms: a
+    CUDA graph a static key, captured on the key's second call); on the
+    CPU op by op.
+    """
+    return _PROGRAMS.run(
+        ("encode_batch", cfg, blocksize, layout, packer),
+        functools.partial(_encode_batch_ops, cfg=cfg, blocksize=blocksize,
+                          layout=layout, packer=packer),
+        pcm, _frame_numbers(first_frame_number, pcm.shape[0], pcm.device))
+
+
 def _flag_lens(byte_len, ok):
     """Mark quad-layout misfit frames with bit 30 of the fetched length."""
     return torch.where(ok, byte_len, byte_len | (1 << 30))
+
+
+def _trim(packed: frame_mod.PackedFrames, fetch_words: int):
+    fw = min(fetch_words, packed.words.shape[1])
+    main = torch.cat([_flag_lens(packed.byte_len, packed.ok)[:, None],
+                      packed.words[:, :fw].to(torch.int32)], dim=1)
+    return main, packed.words[:, fw:]
 
 
 def encode_batch_trimmed(pcm, first_frame_number, cfg: EncoderConfig,
@@ -130,14 +281,21 @@ def encode_batch_trimmed(pcm, first_frame_number, cfg: EncoderConfig,
 
     pcm: [B, C, N] integer blocks (int16 is widened on the device).
     Returns (main [B, 1 + fetch_words] int32, rest [B, W - fetch_words]
-    int64), both holding uint32 words.
+    int64), both holding uint32 words.  On a CUDA tensor the encode and
+    the split are one compiled program of their own (see encode_batch);
+    on the CPU it is encode_batch, then the split.
     """
-    packed = encode_batch(pcm.to(torch.int32), first_frame_number, cfg,
-                          blocksize, packer=packer)
-    fw = min(fetch_words, packed.words.shape[1])
-    main = torch.cat([_flag_lens(packed.byte_len, packed.ok)[:, None],
-                      packed.words[:, :fw].to(torch.int32)], dim=1)
-    return main, packed.words[:, fw:]
+    if pcm.device.type != "cuda":
+        return _trim(encode_batch(pcm, first_frame_number, cfg, blocksize,
+                                  packer=packer), fetch_words)
+
+    def program(p, numbers):
+        return _trim(_encode_batch_ops(p, numbers, cfg, blocksize, "auto",
+                                       packer), fetch_words)
+    return _PROGRAMS.run(
+        ("encode_batch_trimmed", cfg, blocksize, fetch_words, packer),
+        program, pcm,
+        _frame_numbers(first_frame_number, pcm.shape[0], pcm.device))
 
 
 def default_fetch_words(N: int, C: int, bps: int) -> int:
@@ -481,14 +639,15 @@ class StreamEncoder:
             self._buf = self._buf[:, :0]
 
     def _upload(self, blocks: np.ndarray) -> torch.Tensor:
-        """[B, C, N] host blocks -> int32 on the device; sources of 16 bits
-        or fewer cross as int16 and widen there."""
+        """[B, C, N] host blocks -> the device; sources of 16 bits or fewer
+        cross as int16, which the encode program widens (the reference's
+        encode_widen)."""
         narrow = self.cfg.bits_per_sample <= 16
         host = torch.from_numpy(np.ascontiguousarray(
             blocks, np.int16 if narrow else np.int32))
         if self.device.type == "cuda":
             host = host.pin_memory()
-        return host.to(self.device, non_blocking=True).to(torch.int32)
+        return host.to(self.device, non_blocking=True)
 
     def _encode(self, blocks: np.ndarray, first, N: int, layout: str):
         pcm = torch.from_numpy(np.ascontiguousarray(blocks, np.int32)).to(

@@ -21,6 +21,7 @@ from torch.profiler import record_function
 
 from .. import format as fmt
 from ..config import EncoderConfig
+from ..device import constant
 from ..ops import bitpack, pack_cuda, rice as rice_ops
 from .subframe import SubframeChoice
 
@@ -44,13 +45,13 @@ def _utf8_fields(n):
     int32, length [B] int64).
     """
     n = n.to(torch.int64)
-    dev = n.device
-    thresholds = torch.tensor([0x80, 0x800, 0x10000, 0x200000, 0x4000000,
-                               0x80000000, 0x1000000000], dtype=torch.int64,
-                              device=dev)
+    thresholds = constant("utf8 thresholds", n.device, lambda d: torch.tensor(
+        [0x80, 0x800, 0x10000, 0x200000, 0x4000000, 0x80000000,
+         0x1000000000], dtype=torch.int64, device=d))
     L = 1 + (n[:, None] >= thresholds[None, :]).sum(dim=1)  # [B] 1..7
-    lead_mask = torch.tensor([0, 0, 0xC0, 0xE0, 0xF0, 0xF8, 0xFC, 0xFE],
-                             dtype=torch.int64, device=dev)
+    lead_mask = constant("utf8 lead masks", n.device, lambda d: torch.tensor(
+        [0, 0, 0xC0, 0xE0, 0xF0, 0xF8, 0xFC, 0xFE], dtype=torch.int64,
+        device=d))
     payloads, pbits = [], []
     for j in range(_UTF8_SLOTS):
         sh = torch.clamp(6 * (L - 1 - j), 0, 63)
@@ -236,7 +237,8 @@ def assemble_frames(choice: SubframeChoice, signal, assignment,
             if N % parts_o:
                 continue
             expand = torch.repeat_interleave(params[:, :parts_o],
-                                             N // parts_o, dim=1)
+                                             N // parts_o, dim=1,
+                                             output_size=N)
             k_n = torch.where(po[:, None] == p_o, expand, k_n)
         # escaped partitions (k sentinel >= ESCAPE_K_BASE): raw n-bit
         # signed residuals instead of rice codes (decoder at

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..config import EncoderConfig
+from ..device import constant
 from ..ops.bitops import bit_length, or_reduce
 
 # channel-candidate indices on the CH axis
@@ -32,6 +33,16 @@ def wasted_bits(x):
     low = (acc & -acc) & 0xFFFFFFFF          # lowest set bit (as uint32)
     ctz = bit_length(low) - 1
     return torch.where(acc != 0, ctz, 0).to(torch.int32)
+
+
+def _channel_bps(bps: int, C: int, mid_side: bool,
+                 device) -> torch.Tensor:
+    """[1, CH] int32 bits per sample of each channel candidate: bps for
+    each of the C channels, or [bps, bps, bps, bps + 1] for L, R, M, S."""
+    row = [bps, bps, bps, bps + 1] if mid_side else [bps] * C
+    return constant(("channel bps", tuple(row)), device,
+                    lambda dev: torch.tensor([row], dtype=torch.int32,
+                                             device=dev))
 
 
 def build_channel_candidates(pcm, cfg: EncoderConfig):
@@ -60,23 +71,20 @@ def build_channel_candidates(pcm, cfg: EncoderConfig):
         w = wasted_bits(x_lo)
         lo_zero = or_reduce(x_lo) == 0
         w = torch.where(lo_zero & (x != 0).any(dim=-1), 32, w)
-        ch_bps = torch.tensor([bps, bps, bps, bps + 1], dtype=torch.int32,
-                              device=pcm.device)
-        return x >> w[..., None], ch_bps[None, :] - w, w
+        bps_eff = _channel_bps(bps, C, True, pcm.device) - w
+        return x >> w[..., None], bps_eff, w
     if C == 2 and cfg.do_mid_side:
         left = pcm[:, 0]
         right = pcm[:, 1]
         mid = (left + right) >> 1
         side = left - right
         x = torch.stack([left, right, mid, side], dim=1)
-        ch_bps = [bps, bps, bps, bps + 1]
     else:
         x = pcm
-        ch_bps = [bps] * C
-    ch_bps = torch.tensor(ch_bps, dtype=torch.int32, device=pcm.device)
     w = wasted_bits(x)                       # [B, CH]
     x_shifted = x >> w[..., None]
-    bps_eff = ch_bps[None, :] - w
+    bps_eff = _channel_bps(bps, C, C == 2 and cfg.do_mid_side,
+                           pcm.device) - w
     return x_shifted, bps_eff, w
 
 
@@ -109,8 +117,10 @@ def select_assignment(bits, cfg: EncoderConfig):
         bits[:, M] + bits[:, S],     # mid-side
     ], dim=1)
     assignment = totals.argmin(dim=1).to(torch.int32)
-    table = torch.tensor([_ASSIGN_CH0, _ASSIGN_CH1], dtype=torch.int32,
-                         device=bits.device).T            # [4, 2]
+    table = constant("assignment channels", bits.device,
+                     lambda dev: torch.tensor([_ASSIGN_CH0, _ASSIGN_CH1],
+                                              dtype=torch.int32,
+                                              device=dev).T)   # [4, 2]
     return assignment, table[assignment.long()]
 
 

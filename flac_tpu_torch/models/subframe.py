@@ -17,11 +17,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .. import format as fmt
 from ..config import EncoderConfig
+from ..device import constant
 from ..ops import fixed as fixed_ops
 from ..ops import lpc as lpc_ops
 from ..ops import rice as rice_ops
@@ -48,8 +48,10 @@ class SubframeChoice(NamedTuple):
 
 def _max_po_limit(order, N: int, max_po: int):
     """Highest partition order with (N>>po) > order (format.c:541-553)."""
-    lens = torch.tensor([N >> po for po in range(max_po + 1)],
-                        dtype=torch.int32, device=order.device)
+    lens = constant(("partition lengths", N, max_po), order.device,
+                    lambda dev: torch.tensor(
+                        [N >> po for po in range(max_po + 1)],
+                        dtype=torch.int32, device=dev))
     ok = lens > order[..., None]
     return ok.to(torch.int32).sum(dim=-1) - 1
 
@@ -145,11 +147,10 @@ def search_and_realize(x, bps_eff, wasted, cfg: EncoderConfig,
     # with -e, mirroring min_lpc_order=1 at stream_encoder.c:4221-4224) ----
     if O > 0:
         A = bank.combine.shape[0]
-        windows = torch.as_tensor(bank.windows, device=dev)        # [W, N]
-        combine = torch.as_tensor(bank.combine, device=dev)        # [A, W]
+        windows, combine = bank.on(dev)            # [W, N], [A, W] f64
         xw = x.to(torch.float32)[..., None, :] * windows           # [B,CH,W,N]
         autoc_w = lpc_ops.autocorrelation(xw, O)     # [B,CH,W,O+1] f64
-        autoc = torch.einsum("aw,...wl->...al", combine.to(torch.float64),
+        autoc = torch.einsum("aw,...wl->...al", combine,
                              autoc_w)                # [B,CH,A,O+1]
         coeffs, errs, order_ok = lpc_ops.levinson_all_orders(autoc, O)
         # coeffs [B,CH,A,O,32] f32, errs [B,CH,A,O] f64
@@ -185,10 +186,11 @@ def search_and_realize(x, bps_eff, wasted, cfg: EncoderConfig,
         if cfg.do_qlp_coeff_prec_search:
             # -p: every legal precision becomes its own candidate
             # (evaluate_lpc over min..max precision, st..c:4231-4245)
-            PR = np.arange(fmt.MIN_QLP_COEFF_PRECISION,
-                           fmt.MAX_QLP_COEFF_PRECISION + 1, dtype=np.int32)
-            nP = int(PR.shape[0])
-            prec_grid = torch.as_tensor(PR, device=dev)
+            nP = (fmt.MAX_QLP_COEFF_PRECISION
+                  - fmt.MIN_QLP_COEFF_PRECISION + 1)
+            prec_grid = torch.arange(fmt.MIN_QLP_COEFF_PRECISION,
+                                     fmt.MAX_QLP_COEFF_PRECISION + 1,
+                                     dtype=torch.int32, device=dev)
             clamp = torch.where(
                 bps32[..., None] <= 17,
                 torch.clamp(32 - bps32[..., None]
@@ -196,8 +198,10 @@ def search_and_realize(x, bps_eff, wasted, cfg: EncoderConfig,
                             min=fmt.MIN_QLP_COEFF_PRECISION),
                 fmt.MAX_QLP_COEFF_PRECISION)                 # [B, CH, AC]
             ok_p = prec_grid <= clamp[..., None]             # [B,CH,AC,nP]
-            cand_coeffs = torch.repeat_interleave(cand_coeffs, nP, dim=2)
-            cand_order = torch.repeat_interleave(cand_order, nP, dim=2)
+            cand_coeffs = torch.repeat_interleave(
+                cand_coeffs, nP, dim=2, output_size=AC * nP)
+            cand_order = torch.repeat_interleave(
+                cand_order, nP, dim=2, output_size=AC * nP)
             cand_ok = (cand_ok[..., None] & ok_p).reshape(B, CH, AC * nP)
             prec = prec_grid.expand(B, CH, AC, nP).reshape(B, CH, AC * nP)
             AC *= nP
@@ -215,7 +219,8 @@ def search_and_realize(x, bps_eff, wasted, cfg: EncoderConfig,
 
         lpc_mode = "i32" if cfg.max_subframe_bps <= 17 else "f64"
         res_lpc, fit_ok = lpc_ops.lpc_residual(
-            x, qc, qshift, cand_order, bps32, lpc_mode)   # [B,CH,AC,N]
+            x, qc, qshift, cand_order, bps32, lpc_mode,
+            max_order=O)                                  # [B,CH,AC,N]
         lpc_ok = cand_ok & q_ok & fit_ok
     else:
         AC = 0

@@ -27,6 +27,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import constant
 from .bitops import srl64, xor_reduce
 from .crc import CRC8_POLY, CRC16_POLY, _xpow_mod_np, xpow_table
 
@@ -240,8 +241,9 @@ def crc16_words(words, byte_lengths):
 
     # strip the zero padding: crc_true = crc_full * x^(-8*pad) mod p
     pad = (4 * W) - byte_lengths.to(torch.int64)
-    inv_tab = torch.as_tensor(_inv_x8_powers(CRC16_POLY, 16, 4 * W),
-                              device=words.device)
+    inv_tab = constant(("crc16 x^-8j", W), words.device,
+                       lambda dev: torch.as_tensor(
+                           _inv_x8_powers(CRC16_POLY, 16, 4 * W), device=dev))
     return _clmul_var_mod(crc_full, inv_tab[pad], poly_full, 16)
 
 

@@ -19,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import constant
 from .bitops import xor_reduce
 
 CRC8_POLY = 0x07
@@ -88,9 +89,12 @@ def _xpow_mod_np(poly: int, width: int, max_exp: int):
 
 def xpow_table(poly: int, width: int, max_exp: int,
                device) -> torch.Tensor:
-    """`_xpow_mod_np` as an int64 tensor on `device`."""
-    return torch.as_tensor(_xpow_mod_np(poly, width, max_exp).astype(np.int64),
-                           device=device)
+    """`_xpow_mod_np` as an int64 tensor on `device`, copied there once
+    (device.constant; callers must not modify it)."""
+    return constant(("crc x^e", poly, width, max_exp), device,
+                    lambda dev: torch.as_tensor(
+                        _xpow_mod_np(poly, width, max_exp).astype(np.int64),
+                        device=dev))
 
 
 def batched_crc_device(byte_buf, lengths, *, width: int, start=None):

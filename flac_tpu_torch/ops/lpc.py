@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import constant
 from ..format import MAX_LPC_ORDER, SUBFRAME_LPC_QLP_SHIFT_LEN
 
 MAX_SHIFT = (1 << (SUBFRAME_LPC_QLP_SHIFT_LEN - 1)) - 1   # 15
@@ -44,6 +45,20 @@ class ApodizationBank:
     windows: np.ndarray
     combine: np.ndarray
     names: tuple
+    # device -> (windows, combine) tensors, see on()
+    _tensors: dict = dataclasses.field(default_factory=dict, compare=False,
+                                       repr=False)
+
+    def on(self, device: torch.device):
+        """(windows [W, N] float32, combine [A, W] float64) as tensors on
+        `device`, copied there once a device and kept with the bank."""
+        dev = torch.device(device)
+        t = self._tensors.get(dev)
+        if t is None:
+            t = self._tensors[dev] = (
+                torch.as_tensor(self.windows, device=dev),
+                torch.as_tensor(self.combine, device=dev).to(torch.float64))
+        return t
 
 
 def build_apodization_bank(blocksize: int, specs: tuple) -> ApodizationBank:
@@ -219,16 +234,13 @@ def estimate_best_order(errs, N: int, overhead_bits_per_order):
 _POW2_MIN, _POW2_MAX = -1075, 1024
 with np.errstate(over="ignore"):   # inf at the top entry is intentional
     _POW2_TABLE = np.ldexp(1.0, np.arange(_POW2_MIN, _POW2_MAX + 1))
-_POW2_CACHE: dict = {}
 
 
 def _pow2(e):
     """Exact 2.0**e (f64) for integer tensors e, saturating at the f64
     range."""
-    dev = e.device
-    table = _POW2_CACHE.get(dev)
-    if table is None:
-        table = _POW2_CACHE[dev] = torch.as_tensor(_POW2_TABLE, device=dev)
+    table = constant("pow2", e.device,
+                     lambda dev: torch.as_tensor(_POW2_TABLE, device=dev))
     idx = torch.clamp(e.to(torch.int64) - _POW2_MIN, 0, table.shape[0] - 1)
     return table[idx]
 
@@ -287,7 +299,8 @@ def quantize_coefficients(coeffs, orders, precision):
 # Residual computation
 # ---------------------------------------------------------------------------
 
-def lpc_residual(x, qcoeffs, shift, orders, bps_eff, mode: str):
+def lpc_residual(x, qcoeffs, shift, orders, bps_eff, mode: str,
+                 max_order: int = MAX_LPC_ORDER):
     """residual[..., a, n] = x[n] - (sum_j q[a,j] * x[n-1-j]) >> shift[a]
     for n >= order[a]; positions n < order are zeroed.
 
@@ -302,9 +315,12 @@ def lpc_residual(x, qcoeffs, shift, orders, bps_eff, mode: str):
               (FLAC__lpc_max_prediction_before_shift_bps /
               max_residual_bps, lpc.c:942-976).  "f64" — exact f64
               accumulation (products <= 2^47, sums <= 2^52), for hi-res.
-    taps:     only the first min(32, N-1) taps can be nonzero; the loop
-              stops after the highest order any candidate has, since the
-              remaining quantized coefficients are zero.
+    max_order: the highest order any candidate can have, a Python int
+              from the caller's configuration (min(32, N-1,
+              cfg.max_lpc_order)): the tap loop stops there, since the
+              quantized coefficients past a candidate's order are zero.
+              A static bound, as the reference's: nothing is read back
+              from the device (the default, 32, is the reference's loop).
 
     Returns (residual [..., A, N] int32, valid [..., A] bool).
     """
@@ -312,9 +328,8 @@ def lpc_residual(x, qcoeffs, shift, orders, bps_eff, mode: str):
     dev = x.device
     n_idx = torch.arange(N, dtype=torch.int32, device=dev)
     mask = n_idx >= orders[..., None]                   # [..., A, N]
-    max_j = min(MAX_LPC_ORDER, max(N - 1, 1), qcoeffs.shape[-1])
-    if orders.numel():
-        max_j = min(max_j, max(int(orders.max()), 1))
+    max_j = min(MAX_LPC_ORDER, max(N - 1, 1), qcoeffs.shape[-1],
+                max(max_order, 1))
 
     # exact candidate range analysis in f64 (all quantities < 2^50)
     sum_abs_q = qcoeffs.abs().to(torch.float64).sum(dim=-1)

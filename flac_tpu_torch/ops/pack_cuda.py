@@ -27,7 +27,13 @@ Unlike the TPU kernel it has no word-capacity cap: it fills all
 
 `pack_fields64` dispatches on the tensors' device: the plain version for
 CPU tensors, the kernel for CUDA tensors (it launches or raises; there is
-no fallback).  `launches` counts kernel launches.
+no fallback).  `launches` counts kernel launches.  The encoder captures
+its compiled encode programs as CUDA graphs (encoder._EncodePrograms): a
+launch recorded while a stream captures runs only when the graph is
+replayed, so it adds to `captured` instead, and each replay adds the
+launches its graph holds to `launches` (`count_replay`).  P1 and the
+kernel's one-time attribute set must run before a capture; the first,
+uncaptured call of every encode program does both.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ _LIB_NAME = "pack_fields64"
 CLUSTER = 2                  # CTAs a frame (CLUSTER in the source)
 TILE_WORDS_MAX = 16384       # words a CTA's tile holds
 
-launches = 0          # kernel launches of pack_fields64_cuda in this process
+launches = 0          # kernel launches of K1 in this process
+captured = 0          # K1 launches recorded into CUDA graphs (not run)
 _lib = None
 _probed: set = set()  # devices on which P1 passed
 
@@ -119,7 +126,7 @@ def pack_fields64_cuda(nzeros, payload64, pbits, max_words: int):
     """Launch K1.  nzeros/pbits [B, S] int32, payload64 [B, S] int64 (uint64
     bit patterns), all on one CUDA device.  Returns (words [B, max_words]
     int64 holding uint32, total_bits [B] int32), as the plain version."""
-    global launches
+    global launches, captured
     for name, t in (("nzeros", nzeros), ("payload64", payload64),
                     ("pbits", pbits)):
         if t.device.type != "cuda":
@@ -144,8 +151,17 @@ def pack_fields64_cuda(nzeros, payload64, pbits, max_words: int):
             total.data_ptr(), B, S, max_words,
             torch.cuda.current_stream().cuda_stream),
             "flac_pack_fields64 launch")
-    launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            captured += 1
+        else:
+            launches += 1
     return words, total
+
+
+def count_replay(n: int) -> None:
+    """A CUDA graph that holds `n` K1 launches was replayed: they ran."""
+    global launches
+    launches += n
 
 
 def pack_fields64(nzeros, payload64, pbits, max_words: int):

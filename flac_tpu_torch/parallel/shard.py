@@ -48,16 +48,23 @@ def encode_batch_sharded(pcm, first_frame_number: int, cfg: EncoderConfig,
     pcm: [B, C, N] integer array or tensor, B divisible by len(mesh).
     Shard i, frames [i*B/len(mesh), (i+1)*B/len(mesh)), is encoded on
     mesh[i] with those frame numbers; every shard is launched before any
-    result is read back.  Returns the shards' PackedFrames in order, each
-    on its device."""
+    result is read back: each shard's encode is its device's compiled
+    program for the shard's shape (encoder.encode_batch), and a host batch
+    is pinned first, so no shard's upload waits for the encodes queued
+    before it.  Returns the shards' PackedFrames in order, each on its
+    device."""
     n = len(mesh)
     B = pcm.shape[0]
     if B % n:
         raise ValueError(f"encode_batch_sharded: {B} frames do not split "
                          f"into {n} equal shards")
-    pcm = torch.as_tensor(pcm)
+    pcm = torch.as_tensor(pcm).to(torch.int32)
+    if pcm.device.type == "cpu" and any(torch.device(d).type == "cuda"
+                                        for d in mesh):
+        pcm = pcm.pin_memory()
     per = B // n
-    return [encode_batch(pcm[i * per:(i + 1) * per].to(dev, torch.int32),
+    return [encode_batch(pcm[i * per:(i + 1) * per].to(dev,
+                                                        non_blocking=True),
                          first_frame_number + i * per, cfg, blocksize)
             for i, dev in enumerate(mesh)]
 
