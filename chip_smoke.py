@@ -7,11 +7,12 @@
 Phases, in order, each printing one JSON line; any failure exits non-zero:
 
 1. device:  the GPU's name, and nvidia-smi's name and power limit line.
-2. build:   nvcc builds the three kernel sources of flac_tpu_torch/csrc/
-            (pack_fields64.cu, rice_codes.cu, restore.cu; one nvcc each,
-            started together) while g++ builds the native host runtime; the
+2. build:   nvcc builds the five kernel sources of flac_tpu_torch/csrc/
+            (pack_fields64.cu, rice_codes.cu, restore.cu,
+            assemble_fields.cu, frame_crc.cu; one nvcc each, started
+            together) while g++ builds the native host runtime; the
             probes P1 and P2 run; each kernel's registers, spills and
-            static shared memory from ptxas (K3 must not spill), and K3's
+            static shared memory from ptxas (no kernel may spill), and K3's
             dynamic shared memory (its rings) for each residual width,
             which must equal the host mirror's; the chain probe of
             kernel_variants.py builds beside them.
@@ -26,7 +27,12 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             6 channels with every stereo assignment, the ring's chunk
             edges, unaligned rows, a 65535-sample frame, a partial CTA,
             taps past 16 bits and out-of-range shifts) and on the first
-            native.parse_frames batch of the -5 and -8 clips.
+            native.parse_frames batch of the -5 and -8 clips; K4 (all six
+            outputs) and K5 (on the plain deposit of the plain fields)
+            bit-identical on the corners of ops/assemble_synth.py and on a
+            64-frame -5 and -8 batch whose subframe choice comes from the
+            ops form, and the chain K4 -> K1 -> K5 byte for byte against
+            plain -> plain -> plain on the -5 batch.
 4. main:    the main path at full size: a 180 s 44.1 kHz 16-bit stereo
             track encoded at -5 (blocksize 4096, 64 frames a batch) on the
             GPU through the compiled encode programs (CUDA graphs: two
@@ -37,7 +43,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             "device" (K2 and K3) and with engine "fast" (the native full
             parse and K3), each with the
             kernels' launch counts (and K2's count of CTAs that staged)
-            read just after; each decode must give the samples back with a
+            read just after (K1 once a quad-layout call, K4 and K5 once
+            an encode program call, the safe tail's too, counted beside
+            them); each decode must give the samples back with a
             matching MD5, equal the port's host engine and launch K3 once a
             decode batch; every CTA of every K2 launch must have staged, as
             the host mirror of the rule predicts.  The MB/s of the three
@@ -58,7 +66,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             kernel's and its plain version's time per call (CUDA events
             around back-to-back calls), and its bound, printed as one
             `kernels` line with each kernel's ptxas usage, K1's cluster
-            size and K2's staged CTAs per main-path launch.  K3 is timed
+            size and K2's staged CTAs per main-path launch.  K4 and K5 are
+            timed on the track's first batch (the ops form's arguments;
+            K5 on a copy of the words it seals in place).  K3 is timed
             on both engines' inputs (int32 and int16 residuals) with its
             chain floor (N x the chain probe's cycles a sample / the SM
             clock) beside the bound; the device engine's transpose copy
@@ -67,7 +77,8 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             and op by op, whose flac.* ranges a replay does not record)
             and 10 s decodes with the "device" and "fast" engines: the
             device's busy share, kernels, graph replays, time by stage
-            (the flac.* ranges) and the top kernels; the tables go to
+            (the flac.* ranges: flac.fields, flac.pack and flac.seal
+            inside flac.assemble) and the top kernels; the tables go to
             OUT_DIR/profile_*.txt.
 8. api:     the library API on the GPU.  The 180 s track at -5 in the
             `with` form of StreamEncoder, with a seek table every 10 s, a
@@ -85,7 +96,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             ranged Ogg decode must equal its slice (MB/s).  In a temp
             directory a Chain edit past the padding and a SimpleIterator
             delete must keep the audio (decoded on the GPU) and the file
-            mode.  Each path's K1, K2 and K3 launches, counted from 0 just
+            mode.  Each path's K1-K5 launches, counted from 0 just
             before it, go into the `kernels` line as
             `launches_library_api`.
 9. cli:     the command lines on the GPU, in a temp directory.  The 180 s
@@ -113,7 +124,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             channel, decoded by the "device" and "fast" engines with the
             MD5 and equal to the host engine, size within 0.1% of the same
             encode on the CPU.
-            Each path's K1, K2 and K3 launches, counted from 0 just before
+            Each path's K1-K5 launches, counted from 0 just before
             it, go into the `kernels` line as `launches_cli`.
 10. parallel: the parallel paths and the encoder's pipeline, on the
             track's 1937 full blocks.  encode_blocks_dp at -5 in calls of
@@ -146,8 +157,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             from an empty cache: for each key, three calls on their own
             inputs (the ops, the capture, a replay) must equal the ops
             form (encoder._encode_batch_ops) on the same inputs in words,
-            byte lengths, bits and ok flags, and K1's count must move by
-            the launches its graph holds on every call: -0, -5 and -8 at
+            byte lengths, bits and ok flags, and the counts of K1, K4 and
+            K5 must move by the launches its graph holds on every call
+            (K4 and K5 one each): -0, -5 and -8 at
             64 frames (int16, StreamEncoder's upload) and 256 (int32, the
             sharded form) on the track's blocks, the trimmed 17-frame
             batch, the final short block, a safe re-encode bucket with
@@ -164,10 +176,11 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             their summed device ms (torch.profiler); the track's keys from
             phase 4.  Then the card-only tests (marker `gpu`,
             GPU_TEST_FILES) in a subprocess; their output goes to
-            OUT_DIR/gpu_tests.txt.  Each path's K1 launches go into the
+            OUT_DIR/gpu_tests.txt.  Each path's launches go into the
             `kernels` line as `launches_compiled_encode`.
 
-The `kernels` line comes after phase 11.
+On every path of phases 8-11, K4 and K5 launch equally often and at
+least as often as K1.  The `kernels` line (K1-K5) comes after phase 11.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
 register report, the profile tables) go to OUT_DIR, beside this script.
@@ -176,6 +189,7 @@ register report, the profile tables) go to OUT_DIR, beside this script.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import io
 import json
@@ -202,6 +216,13 @@ K2_OPS_PER_CODE = 30         # segment pop, 3 window reads, clz, shifts, zigzag
 # the two range compares
 K3_OPS_PER_TAP = 2
 K3_OPS_PER_SAMPLE = 8
+# K4: a field's slot decode, its three stores and the bit-total add; a
+# coded sample's zigzag, parameter lookup, shifts and masks, and the quad
+# fusion's shift and add
+K4_OPS_PER_FIELD = 12
+K4_OPS_PER_SAMPLE = 20
+# K5 a byte: the table index (shift, xor, mask), its load and the update
+K5_OPS_PER_BYTE = 6
 
 
 def ptxas_usage(report: str, kernel: str) -> dict:
@@ -513,6 +534,88 @@ def k3_cases(clips: dict):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 cases: K4 and K5 against their plain versions
+# ---------------------------------------------------------------------------
+
+def capture_assembly(x, cfg) -> dict:
+    """The arguments of assemble_fields (K4, "k4") and of seal_frames (K5,
+    "k5": its words before the seal) in the ops form of one encode batch
+    of blocks `x` [B, C, N] on the card, blocksize N."""
+    from flac_tpu_torch import encoder as encoder_mod
+    from flac_tpu_torch.models import frame as frame_mod
+    seen = {}
+    fields, seal = frame_mod.assemble_fields, frame_mod.seal_frames
+
+    def spy_fields(*a):
+        seen["k4"] = a
+        return fields(*a)
+
+    def spy_seal(words, byte_len, hdr_bytes):
+        seen["k5"] = (words.clone(), byte_len.clone(), hdr_bytes.clone())
+        return seal(words, byte_len, hdr_bytes)
+    frame_mod.assemble_fields, frame_mod.seal_frames = spy_fields, spy_seal
+    try:
+        encoder_mod._encode_batch_ops(
+            x, encoder_mod._frame_numbers(0, x.shape[0], x.device), cfg,
+            x.shape[2], "auto", "kernel")
+    finally:
+        frame_mod.assemble_fields, frame_mod.seal_frames = fields, seal
+    return seen
+
+
+def real_assembly(level: int, seed: int, frames: int = 64) -> dict:
+    """capture_assembly of a `frames`-frame batch of a test signal at
+    -`level`, blocksize 4096."""
+    import numpy as np
+    import torch
+    from flac_tpu_torch import EncoderConfig, signals
+    cfg = EncoderConfig.from_preset(level, blocksize=4096).resolve()
+    pcm = signals.make_test_signal(frames * 4096, seed=seed)
+    return capture_assembly(torch.from_numpy(np.ascontiguousarray(
+        pcm.reshape(2, frames, 4096).transpose(1, 0, 2))).cuda(), cfg)
+
+
+def k4_compare(args) -> tuple[bool, int]:
+    """K4 against its plain version: (all six outputs identical, max abs
+    difference)."""
+    import torch
+    from flac_tpu_torch.models import frame as frame_mod
+    got = frame_mod.assemble_fields(*args)
+    want = frame_mod.assemble_fields_plain(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+              for a, b in zip(got, want))
+    return same, err
+
+
+def k5_compare(words, byte_len, hdr_bytes) -> tuple[bool, int]:
+    """K5 (on a copy of `words`) against its plain version."""
+    import torch
+    from flac_tpu_torch.models import frame as frame_mod
+    got = frame_mod.seal_frames(words.clone(), byte_len, hdr_bytes)
+    want = frame_mod.seal_frames_plain(words, byte_len, hdr_bytes)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max()) if got.numel() else 0
+    return torch.equal(got, want), err
+
+
+def plain_pack(fields, args):
+    """The plain deposit of K4's or its plain version's fields: (words,
+    byte_len)."""
+    from flac_tpu_torch.models import frame as frame_mod
+    from flac_tpu_torch.ops import bitpack
+    choice, signal, _, _, cfg, _, layout = args
+    B, C, N = signal.shape
+    P = choice.params.shape[-1]
+    quad, _ = frame_mod.resolve_layout(cfg, N, P, layout)
+    pack = bitpack.pack_fields64 if quad else bitpack.pack_fields
+    words, total = pack(fields.nzeros, fields.payload, fields.pbits,
+                        frame_mod.max_words(cfg, C, N, P))
+    return words, total // 8
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5 helpers
 # ---------------------------------------------------------------------------
 
@@ -626,16 +729,44 @@ API_READS = 64               # seeded FlacReader reads, with and without a table
 OGG_SECONDS = 30
 
 
+# each kernel's name in the `kernels` line -> its wrapper's module in
+# flac_tpu_torch.ops, which counts its launches
+KERNEL_MODULES = {"pack_fields64": "pack_cuda", "rice_codes": "rice_cuda",
+                  "restore": "restore_cuda",
+                  "assemble_fields": "assemble_cuda",
+                  "frame_crc": "seal_cuda"}
+
+
+def _wrappers() -> dict:
+    import importlib
+    return {name: importlib.import_module(f"flac_tpu_torch.ops.{mod}")
+            for name, mod in KERNEL_MODULES.items()}
+
+
 def _reset_counts():
-    from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda
-    pack_cuda.launches = rice_cuda.launches = restore_cuda.launches = 0
+    for mod in _wrappers().values():
+        mod.launches = 0
 
 
 def _counts() -> dict:
-    from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda
-    return {"pack_fields64": pack_cuda.launches,
-            "rice_codes": rice_cuda.launches,
-            "restore": restore_cuda.launches}
+    return {name: mod.launches for name, mod in _wrappers().items()}
+
+
+def _k123(c: dict) -> dict:
+    """A path's launches of K1, K2 and K3."""
+    return {k: c[k] for k in ("pack_fields64", "rice_codes", "restore")}
+
+
+def check_encode_calls(phase: str, launches: dict) -> None:
+    """Every encode program call launches K4 and K5 once, and K1 once where
+    it takes the quad layout: on each path K4 == K5 >= K1, and a path that
+    launched K1 launched K4."""
+    for path, c in launches.items():
+        k1, k4, k5 = (c["pack_fields64"], c["assemble_fields"],
+                      c["frame_crc"])
+        if k4 != k5 or k4 < k1:
+            raise AssertionError(f"{phase}, {path}: K4 {k4}, K5 {k5}, K1 "
+                                 f"{k1}: not K4 == K5 >= K1")
 
 
 def _api_extra():
@@ -733,7 +864,7 @@ def library_api(pcm, plain_stream: bytes, expect_quad: int) -> dict:
         raise AssertionError(f"verify launched K2/K3 {v} for {len(calls)} "
                              "written units: not once a unit")
     if v["pack_fields64"] != expect_quad or \
-            launches["encode_with_metadata"] != {
+            _k123(launches["encode_with_metadata"]) != {
                 "pack_fields64": expect_quad, "rice_codes": 0, "restore": 0}:
         raise AssertionError(f"K1 launches {v}, "
                              f"{launches['encode_with_metadata']}, expected "
@@ -1035,7 +1166,7 @@ def command_lines(pcm, stream5: bytes) -> dict:
         if data != want or read("shell.flac") != want:
             raise AssertionError("the tool's -5 file differs from "
                                  "StreamEncoder's bytes")
-        if launches["encode_-5"] != {"pack_fields64": quad5,
+        if _k123(launches["encode_-5"]) != {"pack_fields64": quad5,
                                      "rice_codes": 0, "restore": 0}:
             raise AssertionError(f"the tool's encode launched "
                                  f"{launches['encode_-5']}, expected K1 "
@@ -1064,11 +1195,12 @@ def command_lines(pcm, stream5: bytes) -> dict:
         if read("back.wav") != read("t.wav"):
             raise AssertionError("-d did not give the WAV back")
         for label in ("decode", "test"):
-            if launches[label] != {"pack_fields64": 0, "rice_codes": batches,
+            if _k123(launches[label]) != {"pack_fields64": 0,
+                                          "rice_codes": batches,
                                    "restore": batches}:
                 raise AssertionError(f"{label} launched {launches[label]}, "
                                      f"expected K2 and K3 {batches} times")
-        if read("v.flac") != data or launches["verify_encode"] != {
+        if read("v.flac") != data or _k123(launches["verify_encode"]) != {
                 "pack_fields64": quad5, "rice_codes": written,
                 "restore": written}:
             raise AssertionError(f"-V wrote other bytes or launched "
@@ -1094,7 +1226,7 @@ def command_lines(pcm, stream5: bytes) -> dict:
         if not st8.md5_ok or not np.array_equal(st8.samples, pcm) or \
                 tags8.get("TITLE") != ["chip smoke"]:
             raise AssertionError("the -8 re-encode lost its audio or tags")
-        if launches["reencode_-8"] != {"pack_fields64": quad8,
+        if _k123(launches["reencode_-8"]) != {"pack_fields64": quad8,
                                        "rice_codes": batches,
                                        "restore": batches}:
             raise AssertionError(f"the re-encode launched "
@@ -1249,14 +1381,15 @@ CORPUS_SECONDS = 30          # each of the corpus runner's three WAVs
 PIPELINES = ((1, 1), (2, 3), (6, 8))     # (pipeline_depth, super_batches)
 
 # each rank's kernel launches, counted from 0 just before its work
-COUNTS = """
-from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda
+COUNTS = f"""
+import importlib
+MODS = {{name: importlib.import_module("flac_tpu_torch.ops." + mod)
+        for name, mod in {KERNEL_MODULES!r}.items()}}
 def reset_counts():
-    pack_cuda.launches = rice_cuda.launches = restore_cuda.launches = 0
+    for mod in MODS.values():
+        mod.launches = 0
 def counts():
-    return {"pack_fields64": pack_cuda.launches,
-            "rice_codes": rice_cuda.launches,
-            "restore": restore_cuda.launches}
+    return {{name: mod.launches for name, mod in MODS.items()}}
 """
 
 RANK_SCRIPT = COUNTS + """
@@ -1333,7 +1466,7 @@ def _join(procs, timeout: float) -> list:
 
 
 def _sum_counts(each) -> dict:
-    total = {"pack_fields64": 0, "rice_codes": 0, "restore": 0}
+    total = dict.fromkeys(KERNEL_MODULES, 0)
     for c in each:
         for k in total:
             total[k] += c[k]
@@ -1434,8 +1567,8 @@ def parallel_paths(pcm, stream: bytes, expect_quad: int) -> dict:
             if not np.array_equal(out, pcm[:, :F * 4096]):
                 raise AssertionError(f"the sharded decode over {n_entries} "
                                      "entries differs from the source")
-            if c != {"pack_fields64": 0, "rice_codes": 0,
-                     "restore": n_entries}:
+            if _k123(c) != {"pack_fields64": 0, "rice_codes": 0,
+                            "restore": n_entries}:
                 raise AssertionError(f"the sharded decode over {n_entries} "
                                      f"entries launched {c}")
 
@@ -1516,7 +1649,8 @@ def parallel_paths(pcm, stream: bytes, expect_quad: int) -> dict:
         if lines != expect_lines:
             raise AssertionError(f"the corpus runner printed {lines}, "
                                  f"expected {expect_lines}")
-        if c != {"pack_fields64": want_k1, "rice_codes": 0, "restore": 0}:
+        if _k123(c) != {"pack_fields64": want_k1, "rice_codes": 0,
+                        "restore": 0}:
             raise AssertionError(f"the corpus runner's ranks launched {each}"
                                  f", expected K1 {want_k1} times in all "
                                  "(once a quad batch) and no K2 or K3")
@@ -1555,8 +1689,8 @@ def parallel_paths(pcm, stream: bytes, expect_quad: int) -> dict:
                     raise AssertionError(f"{label} wrote other bytes than "
                                          "phase 4")
                 decodes = len(units) if verify else 0
-                if c != {"pack_fields64": expect_quad, "rice_codes": decodes,
-                         "restore": decodes}:
+                if _k123(c) != {"pack_fields64": expect_quad,
+                                "rice_codes": decodes, "restore": decodes}:
                     raise AssertionError(f"{label} launched {c}, expected K1 "
                                          f"{expect_quad} times, K2 and K3 "
                                          f"{decodes}")
@@ -1571,6 +1705,7 @@ def parallel_paths(pcm, stream: bytes, expect_quad: int) -> dict:
 
 # the card-only tests (marker `gpu`), run by phase 11 in a subprocess
 GPU_TEST_FILES = ("tests/test_torch_pack_cuda.py",
+                  "tests/test_torch_assemble_cuda.py",
                   "tests/test_torch_rice_cuda.py",
                   "tests/test_torch_restore.py",
                   "tests/test_torch_api_cuda.py",
@@ -1602,7 +1737,8 @@ def ops_form():
 def program_info(progs) -> list:
     """Each captured program of an encoder._EncodePrograms: its entry
     point, input shape and dtype, capture ms, what its capture added to
-    the device's graph pool (MB) and its K1 launches."""
+    the device's graph pool (MB) and the K1, K4 and K5 launches it
+    holds."""
     out = []
     for (name, inputs), p in progs.graphs.items():
         _, shape, dtype = inputs[0]
@@ -1610,7 +1746,7 @@ def program_info(progs) -> list:
                     "shape": list(shape), "dtype": str(dtype),
                     "capture_ms": p.capture_ms,
                     "pool_growth_mb": p.pool_bytes / 1e6,
-                    "k1_launches": p.k1_launches})
+                    "kernel_launches": p.kernel_launches})
     return out
 
 
@@ -1656,13 +1792,12 @@ def call_times(fn, runs: int = 5) -> dict:
 
 def compiled_encode(pcm, track_keys: dict) -> dict:
     """Phase 11.  Raises AssertionError on the first check that fails.
-    Returns each path's K1 launches (K2 and K3: none), counted from 0 just
-    before it and read just after."""
+    Returns each path's launches of K1, K4 and K5 (K2 and K3: none),
+    counted from 0 just before it and read just after."""
     import numpy as np
     import torch
     from flac_tpu_torch import EncoderConfig
     from flac_tpu_torch import encoder as encoder_mod
-    from flac_tpu_torch.ops import pack_cuda
     from flac_tpu_torch.parallel.shard import encode_batch_sharded
     progs = encoder_mod._PROGRAMS
     progs.clear()                  # every key below: ops, capture, replay
@@ -1684,18 +1819,19 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
     def hold(label, calls, graph_fn, ops_fn):
         """Three calls of one key, each on its own inputs: the ops, the
         capture, a replay.  Each output must equal the ops form's on the
-        same inputs, and K1's count must move by the graph's launches on
-        each replay."""
+        same inputs, and the counts of K1, K4 and K5 must move by the
+        graph's launches on each replay."""
         before = set(progs.graphs)
         steps = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         for args in calls:
-            k1 = pack_cuda.launches
+            k = _counts()
             got = graph_fn(*args)
             torch.cuda.synchronize()
-            steps.append(pack_cuda.launches - k1)
+            steps.append({name: n - k[name]
+                          for name, n in _counts().items()})
             want = ops_fn(*args)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise AssertionError(f"{label}: the graph's outputs differ "
@@ -1704,14 +1840,17 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
         if len(new) != 1:
             raise AssertionError(f"{label}: {len(new)} programs captured, "
                                  "expected one")
-        k1 = new[0].k1_launches
-        if steps != [k1, k1, k1]:
-            raise AssertionError(f"{label}: K1 counted {steps}, expected "
-                                 f"{k1} a call (the graph holds {k1})")
-        launches[label] = {"pack_fields64": sum(steps), "rice_codes": 0,
-                           "restore": 0}
+        held = dict.fromkeys(KERNEL_MODULES, 0)
+        held.update(new[0].kernel_launches)
+        if steps != [held] * 3 or held["assemble_fields"] != 1 \
+                or held["frame_crc"] != 1:
+            raise AssertionError(f"{label}: the kernels counted {steps}, "
+                                 f"expected {held} a call (the graph's; "
+                                 "K4 and K5 once)")
+        launches[label] = {name: sum(st[name] for st in steps)
+                           for name in KERNEL_MODULES}
         emit({"phase": "compiled", "case": label, "identical": True,
-              "k1_per_call": steps, "capture_ms": new[0].capture_ms,
+              "per_call": held, "capture_ms": new[0].capture_ms,
               "pool_growth_mb": new[0].pool_bytes / 1e6,
               "peak_mb": (torch.cuda.max_memory_allocated() - base) / 1e6})
 
@@ -1763,24 +1902,27 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
     # four shard entries of the card: one key, every shard against the ops
     host = np.ascontiguousarray(
         pcm[:, :F * N].reshape(2, F, N).transpose(1, 0, 2))
-    k1 = 0
+    c = dict.fromkeys(KERNEL_MODULES, 0)
     for lo in (0, 256, 512):
-        before = pack_cuda.launches
+        before = _counts()
         shards = encode_batch_sharded(host[lo:lo + 256], lo, cfg5, N,
                                       [dev] * SHARD_ENTRIES)
-        k1 += pack_cuda.launches - before
+        for name, n in _counts().items():     # the shards' own launches
+            c[name] += n - before[name]
         for i, pf in enumerate(shards):
             x = torch.from_numpy(host[lo + 64 * i:lo + 64 * (i + 1)]).to(dev)
             if not all(torch.equal(a, b) for a, b in
                        zip(pf, ops(x, lo + 64 * i, cfg5))):
                 raise AssertionError(f"shard {i} of the batch at {lo} "
                                      "differs from the ops")
-    launches["four shard entries, 3 calls"] = {
-        "pack_fields64": k1, "rice_codes": 0, "restore": 0}
-    if k1 != 3 * SHARD_ENTRIES:
-        raise AssertionError(f"four shard entries, 3 calls: K1 {k1} times")
+    launches["four shard entries, 3 calls"] = c
+    if any(c[k] != 3 * SHARD_ENTRIES for k in ("pack_fields64",
+                                                  "assemble_fields",
+                                                  "frame_crc")):
+        raise AssertionError(f"four shard entries, 3 calls: {c}, expected "
+                             f"K1, K4 and K5 {3 * SHARD_ENTRIES} times")
     emit({"phase": "compiled", "case": "four shard entries of one card",
-          "identical": True, "k1": k1})
+          "identical": True, "launches": c})
 
     # ---- output lifetime: a replay's outputs outlive the next replay ----
     x, y = blocks(pcm, 0, 64), blocks(pcm, 640 * N, 64)
@@ -1936,8 +2078,9 @@ def main() -> int:
         from flac_tpu_torch.models import frame as frame_mod
         from flac_tpu_torch import decoder as decoder_mod
         from flac_tpu_torch import encoder as encoder_mod
-        from flac_tpu_torch.ops import bitpack, bitunpack, pack_cuda, \
-            restore_cuda, rice_cuda
+        from flac_tpu_torch.ops import assemble_cuda, assemble_synth, \
+            bitpack, bitunpack, pack_cuda, restore_cuda, rice_cuda, \
+            seal_cuda
     except ImportError as e:
         return fail(f"the flac_tpu_torch package is not here ({e})")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1963,8 +2106,7 @@ def main() -> int:
     with ThreadPoolExecutor(max_workers=2) as pool:
         host_lib = pool.submit(native.lib)
         probe_lib = pool.submit(kernel_variants.build_chain_probe)
-        reports = kernels.load_all(["pack_fields64", "rice_codes",
-                                    "restore"])
+        reports = kernels.load_all(list(KERNEL_MODULES))
         build_s = time.perf_counter() - t0
         host_lib.result()
         probe_lib = probe_lib.result()
@@ -1979,7 +2121,11 @@ def main() -> int:
                                           "pack_fields64_kernel"),
              "rice_codes": ptxas_usage(reports["rice_codes"],
                                        "rice_codes_kernel"),
-             "restore": ptxas_usage(reports["restore"], "restore_kernel")}
+             "restore": ptxas_usage(reports["restore"], "restore_kernel"),
+             "assemble_fields": ptxas_usage(reports["assemble_fields"],
+                                            "assemble_fields_kernel"),
+             "frame_crc": ptxas_usage(reports["frame_crc"],
+                                      "frame_crc_kernel")}
     # K3's dynamic shared memory (its rings), by the kernel's own count and
     # by the host mirror, for each residual width, narrow and wide
     k3_lib = restore_cuda._library()
@@ -1992,12 +2138,16 @@ def main() -> int:
           "ptxas": usage,
           "restore_smem_dynamic_bytes": {k: v[0] for k, v in
                                          k3_smem.items()}})
-    k3_spills = {fn: u for fn, u in usage["restore"].items()
-                 if u.get("spill_stores") or u.get("spill_loads")}
-    if len(usage["restore"]) != 2 * len(restore_cuda.ORDER_BUCKETS) \
-            or k3_spills:
-        return fail(f"K3's instantiations (narrow and wide a bucket) spill "
-                    f"or are missing: {usage['restore']}")
+    spills = {fn: u for per in usage.values() for fn, u in per.items()
+              if u.get("spill_stores") or u.get("spill_loads")}
+    if spills:
+        return fail(f"kernels spill registers: {spills}")
+    if len(usage["restore"]) != 2 * len(restore_cuda.ORDER_BUCKETS):
+        return fail(f"K3's instantiations (narrow and wide a bucket) are "
+                    f"missing: {usage['restore']}")
+    if len(usage["assemble_fields"]) != 3 or len(usage["frame_crc"]) != 1:
+        return fail(f"K4's three layouts or K5 are missing: "
+                    f"{usage['assemble_fields']} {usage['frame_crc']}")
     if any(a != b or a > 232448 for a, b in k3_smem.values()):
         return fail(f"K3's dynamic shared memory differs from the host "
                     f"mirror or passes 227 KB: {k3_smem}")
@@ -2041,6 +2191,44 @@ def main() -> int:
         if not ok:
             return fail(f"K3 differs from its plain version on '{label}'")
         k3_err = max(k3_err, err)
+    # K4 and K5 on the corners, then on real -5 and -8 batches (the ops
+    # form's choice); K5 on the plain deposit of the plain fields
+    k4_err = k5_err = 0
+    real = {f"-{lv}, 64 frames": real_assembly(lv, seed=70 + lv)
+            for lv in (5, 8)}
+    k45_cases = [(label, assemble_synth.as_inputs(case, "cuda"))
+                 for label, case in assemble_synth.cases()]
+    k45_cases += [(label, r["k4"]) for label, r in real.items()]
+    for label, a4 in k45_cases:
+        ok4, err4 = k4_compare(a4)
+        fields = frame_mod.assemble_fields_plain(*a4)
+        ok5, err5 = k5_compare(*plain_pack(fields, a4), fields.hdr_bytes)
+        emit({"phase": "kernels", "kernel": "assemble_fields, frame_crc",
+              "case": label, "frames": int(a4[1].shape[0]),
+              "fields": int(fields.nzeros.shape[1]),
+              "misfits": int((~fields.ok).sum()), "identical": [ok4, ok5],
+              "max_abs_err": [err4, err5]})
+        if not (ok4 and ok5):
+            return fail(f"K4 or K5 differs from its plain version on "
+                        f"'{label}': {ok4}, {ok5}")
+        k4_err, k5_err = max(k4_err, err4), max(k5_err, err5)
+    # the whole chain, K4 -> K1 -> K5 against plain -> plain -> plain, on
+    # the -5 batch: the frames' bytes
+    a4 = real["-5, 64 frames"]["k4"]
+    fk = frame_mod.assemble_fields(*a4)
+    W = frame_mod.max_words(a4[4], 2, 4096, a4[0].params.shape[-1])
+    wk, tk = pack_cuda.pack_fields64(fk.nzeros, fk.payload, fk.pbits, W)
+    wk = frame_mod.seal_frames(wk, tk // 8, fk.hdr_bytes)
+    fp = frame_mod.assemble_fields_plain(*a4)
+    wp, tp = bitpack.pack_fields64(fp.nzeros, fp.payload, fp.pbits, W)
+    wp = frame_mod.seal_frames_plain(wp, tp // 8, fp.hdr_bytes)
+    torch.cuda.synchronize()
+    chain_ok = torch.equal(wk, wp) and torch.equal(tk, tp)
+    emit({"phase": "kernels", "case": "-5, 64 frames: K4 -> K1 -> K5 "
+          "against plain -> plain -> plain", "identical": chain_ok,
+          "frame_bytes": int((tk // 8).sum())})
+    if not chain_ok:
+        return fail("the chain K4 -> K1 -> K5 differs from the plain chain")
     if args.quick:
         emit({"phase": "done", "quick": True,
               "seconds": time.perf_counter() - t_start})
@@ -2075,23 +2263,48 @@ def main() -> int:
     if len(track_keys["graphs"]) != track_keys["keys"]:
         return fail(f"the track's second encode left keys uncaptured: "
                     f"{track_keys}")
-    pack_cuda.launches = 0
-    t0 = time.perf_counter()
-    stream, enc = encode(pcm, 5)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k1_launches = pack_cuda.launches
+    # every encode program call (a replay here), counted beside the
+    # kernels: K4 and K5 launch once a call, K1 once a quad-layout call
+    program_calls = []
+    real_run = encoder_mod._PROGRAMS.run
+
+    def counting_run(name, fn, *inputs):
+        program_calls.append(name)
+        return real_run(name, fn, *inputs)
+    encoder_mod._PROGRAMS.run = counting_run
+    _reset_counts()
+    try:
+        t0 = time.perf_counter()
+        stream, enc = encode(pcm, 5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del encoder_mod._PROGRAMS.run
+    main_counts = _counts()
+    k1_launches = main_counts["pack_fields64"]
+    k4_launches = main_counts["assemble_fields"]
+    k5_launches = main_counts["frame_crc"]
     pcm_bytes = pcm.size * 2
     enc_mbps = pcm_bytes / 1e6 / wall
     emit({"phase": "main", "preset": -5, "seconds_audio": TRACK_SECONDS,
           "pcm_mb": pcm_bytes / 1e6, "encode_wall_s": wall,
           "encode_mb_per_s": enc_mbps,
           "compression_ratio": len(stream) / pcm_bytes,
-          "launches": {"pack_fields64": k1_launches},
+          "launches": {k: main_counts[k] for k in (
+              "pack_fields64", "assemble_fields", "frame_crc")},
+          "encode_program_calls": len(program_calls),
+          "calls_by_program": dict(collections.Counter(
+              f"{n[0]}, N={n[2]}, {n[3]}" for n in program_calls)),
           "quad_batches": expect, "misfit_frames": enc.misfit_frames})
     if k1_launches <= 0 or k1_launches != expect:
         return fail(f"K1 launched {k1_launches} times on the main path, "
                     f"expected one per quad-layout batch ({expect})")
+    if k4_launches != len(program_calls) or k5_launches != k4_launches \
+            or k4_launches <= k1_launches:
+        return fail(f"K4 and K5 launched {k4_launches} and {k5_launches} "
+                    f"times on the main path, expected once per encode "
+                    f"program call ({len(program_calls)}: K1's {expect} "
+                    "and the safe tail)")
     t0 = time.perf_counter()
     decode_stream_tpu(stream)                                # warm-up
     torch.cuda.synchronize()
@@ -2446,18 +2659,109 @@ def main() -> int:
           "library_note": "no PyTorch call computes an integer IIR restore",
           "ptxas": usage["restore"]}
 
+    # K4 and K5 on the main path's first batch (the ops form), as K1
+    seen = capture_assembly(blocks, cfg5)
+    a4, (w5, bl5, hb5) = seen["k4"], seen["k5"]
+    ok4, err4 = k4_compare(a4)
+    ok5, err5 = k5_compare(w5, bl5, hb5)
+    if not (ok4 and ok5):
+        return fail("K4 or K5 differs from its plain version on the main "
+                    "path's first batch")
+    k4_err, k5_err = max(k4_err, err4), max(k5_err, err5)
+    w5k = w5.clone()                 # K5 seals in place: time on a copy
+
+    def k4_kernel():
+        frame_mod.assemble_fields(*a4)
+
+    def k4_plain():
+        frame_mod.assemble_fields_plain(*a4)
+
+    def k5_kernel():
+        frame_mod.seal_frames(w5k, bl5, hb5)
+
+    def k5_plain():
+        frame_mod.seal_frames_plain(w5, bl5, hb5)
+    k45 = {}
+    for name, kern, plain, dev_name in (
+            ("assemble_fields", k4_kernel, k4_plain,
+             "assemble_fields_kernel"),
+            ("frame_crc", k5_kernel, k5_plain, "frame_crc_kernel")):
+        runs = [cuda_time_ms(f) for f in (plain, kern, kern, plain)]
+        k45[name] = {"dev": kernel_device_ms(kern, dev_name),
+                     "plain_ms_runs": [runs[0], runs[3]],
+                     "kernel_ms_runs": [runs[1], runs[2]]}
+    # K4: each input read once as this batch needs it (the channel
+    # scalars, warm-up and coefficients of every subframe, the partition
+    # parameters of the orders in use, residuals of FIXED and LPC
+    # subframes, signal samples of VERBATIM ones, the assignment and frame
+    # numbers), each output written once (nzeros, payload, pbits and the
+    # three [B] outputs); K4_OPS_PER_FIELD a field, K4_OPS_PER_SAMPLE a
+    # coded sample
+    ch, sig = a4[0], a4[1]
+    B4, C4, N4 = sig.shape
+    F4 = assemble_cuda.field_layout(
+        C4, N4, ch.params.shape[-1], *frame_mod.resolve_layout(
+            cfg5, N4, ch.params.shape[-1], a4[6])).F
+    fmt = frame_mod.fmt
+    has_res = (ch.type_ == fmt.SUBFRAME_TYPE_FIXED) | (
+        ch.type_ == fmt.SUBFRAME_TYPE_LPC)
+    is_v = ch.type_ == fmt.SUBFRAME_TYPE_VERBATIM
+    k4_bytes = int(B4 * C4 * (7 * 4 + 1 + 32 * ch.warmup.element_size()
+                              + 32 * 4)
+                   + ((1 << ch.po.long()) * 4 * has_res).sum()
+                   + has_res.sum() * N4 * 4
+                   + is_v.sum() * N4 * sig.element_size()
+                   + B4 * (4 + 8) + B4 * F4 * 16 + B4 * 9)
+    k4_ops = int(B4 * F4 * K4_OPS_PER_FIELD
+                 + has_res.sum() * N4 * K4_OPS_PER_SAMPLE)
+    # K5: each frame's bytes under the CRCs read once, its length and
+    # header length, the 3 CRC bytes written; K5_OPS_PER_BYTE a byte
+    crc_bytes = int((bl5.long() - 2).clamp(min=0).sum())
+    k5_bytes = crc_bytes + B4 * 8 + B4 * 3
+    k5_ops = crc_bytes * K5_OPS_PER_BYTE
+    kernels45 = []
+    for name, mod, nbytes, nops, err, launches_main in (
+            ("assemble_fields", assemble_cuda, k4_bytes, k4_ops, k4_err,
+             k4_launches),
+            ("frame_crc", seal_cuda, k5_bytes, k5_ops, k5_err,
+             k5_launches)):
+        t = k45[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
+        emit({"phase": "times", "kernel": name, "B": B4, "F": F4,
+              "device_ms": t["dev"]["ms"],
+              "kernel_ms_runs": t["kernel_ms_runs"],
+              "plain_ms_runs": t["plain_ms_runs"], "bytes": nbytes,
+              "operations": nops})
+        kernels45.append({
+            "name": name, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": launches_main,
+            "max_abs_err": err, **t["dev"],
+            "kernel_ms": min(t["kernel_ms_runs"]),
+            "plain_ms": min(t["plain_ms_runs"]),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "library_note": ("no single PyTorch call builds FLAC field "
+                             "lists" if name == "assemble_fields" else
+                             "no PyTorch call computes a CRC"),
+            "ptxas": usage[name]})
+    k4, k5 = kernels45
+
     # ---- 7. where the time goes in a steady encode and decode ----
     short = signals.make_test_signal(10 * RATE, seed=7)
     encode_ranges = ("flac.search", "flac.assign", "flac.assemble",
-                     "flac.pack")
+                     "flac.fields", "flac.pack", "flac.seal")
+    encode_kernels = ("pack_fields64_kernel", "assemble_fields_kernel",
+                      "frame_crc_kernel")
     # through the compiled programs (two warm calls: the 43-frame batch
     # and the final block are captured on their second), then op by op,
     # whose ranges say where the programs' device time goes
     emit(profile_run(lambda: encode(short, 5), "encode_-5", encode_ranges,
-                     ("pack_fields64_kernel",), warm=2))
+                     encode_kernels, warm=2))
     with ops_form():
         emit(profile_run(lambda: encode(short, 5), "encode_-5_ops",
-                         encode_ranges, ("pack_fields64_kernel",)))
+                         encode_ranges, encode_kernels))
     short_stream, _ = encode(short, 5)
     emit(profile_run(lambda: decode_stream_tpu(short_stream), "decode",
                      ("flac.tile_scan", "flac.upload", "flac.codes",
@@ -2471,33 +2775,37 @@ def main() -> int:
     # ---- 8. the library API on the card ----
     t0 = time.perf_counter()
     api = library_api(pcm, stream, expect)
+    check_encode_calls("api", api)
     emit({"phase": "api", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3):
+    for k in (k1, k2, k3, k4, k5):
         k["launches_library_api"] = {path: c[k["name"]]
                                      for path, c in api.items()}
 
     # ---- 9. the command lines on the card ----
     t0 = time.perf_counter()
     clis = command_lines(pcm, stream)
+    check_encode_calls("cli", clis)
     emit({"phase": "cli", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3):
+    for k in (k1, k2, k3, k4, k5):
         k["launches_cli"] = {path: c[k["name"]] for path, c in clis.items()}
 
     # ---- 10. the parallel paths and the encoder's pipeline ----
     t0 = time.perf_counter()
     par = parallel_paths(pcm, stream, expect)
+    check_encode_calls("parallel", par)
     emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3):
+    for k in (k1, k2, k3, k4, k5):
         k["launches_parallel"] = {path: c[k["name"]]
                                   for path, c in par.items()}
     # ---- 11. the compiled encode programs ----
     t0 = time.perf_counter()
     comp = compiled_encode(pcm, track_keys)
+    check_encode_calls("compiled", comp)
     emit({"phase": "compiled", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3):
+    for k in (k1, k2, k3, k4, k5):
         k["launches_compiled_encode"] = {path: c[k["name"]]
                                          for path, c in comp.items()}
-    emit({"kernels": [k1, k2, k3]})
+    emit({"kernels": [k1, k2, k3, k4, k5]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": dev_info})

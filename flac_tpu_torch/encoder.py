@@ -6,7 +6,8 @@ Port of flac_tpu/encoder.py.
       -> stereo candidates + wasted bits        (models/stereo.py)
       -> exact candidate grid search + realize  (models/subframe.py)
       -> channel assignment argmin              (models/stereo.py)
-      -> field assembly, bit-pack, CRCs         (models/frame.py, K1)
+      -> field lists, bit-pack, CRCs            (models/frame.py: K4, K1,
+                                                 K5)
       -> [B, W] packed words + lengths
 
 StreamEncoder keeps batches in flight on the device while it writes
@@ -24,13 +25,14 @@ K2, then K3) and compared with its input before a byte of it is written.
 On a CUDA device encode_batch and encode_batch_trimmed run as compiled
 programs, the counterpart of the reference's jitted ones: a CUDA graph for
 each static key (configuration, shapes, dtypes, layout, packer), captured
-on the key's second call and replayed after that, with K1 inside
-(_EncodePrograms).  The ops they capture read nothing back from the device
-and copy no constant from host memory on a warm call.
+on the key's second call and replayed after that, with K4, K1 and K5
+inside (_EncodePrograms).  The ops they capture read nothing back from
+the device and copy no constant from host memory on a warm call.
 
 The ops mark their stages as profiler ranges (flac.search, flac.assign,
-flac.assemble, and flac.pack inside assemble_frames): a few microseconds
-of host time each while torch.profiler is not recording.  A graph replay
+flac.assemble, and flac.fields, flac.pack and flac.seal inside
+assemble_frames): a few microseconds of host time each while
+torch.profiler is not recording.  A graph replay
 records no range: its kernels show up in a trace on their own.
 """
 
@@ -58,8 +60,8 @@ from .metadata import SeekPoint
 from .models import frame as frame_mod
 from .models import stereo as stereo_mod
 from .models import subframe as subframe_mod
+from .ops import assemble_cuda, pack_cuda, seal_cuda
 from .ops import lpc as lpc_ops
-from .ops import pack_cuda
 from .ref_decoder import DecodedStream, FlacDecodeError
 from .utils.bits import BitWriter
 
@@ -69,13 +71,22 @@ def _bank_for(cfg: EncoderConfig, blocksize: int):
     return lpc_ops.build_apodization_bank(blocksize, cfg.apodizations)
 
 
+# the wrappers of the kernels an encode program launches, by kernel name:
+# each counts a launch recorded during a capture in `captured` and takes a
+# replay's launches through `count_replay`
+COUNTED_KERNELS = {"pack_fields64": pack_cuda,
+                   "assemble_fields": assemble_cuda,
+                   "frame_crc": seal_cuda}
+
+
 class _CapturedProgram:
     """One compiled encode program: a CUDA graph with static input
     buffers, its intermediates and outputs in the programs' memory pool
-    (see _EncodePrograms)."""
+    (see _EncodePrograms).  `kernel_launches`: the launches of each kernel
+    of COUNTED_KERNELS that the graph holds."""
 
-    __slots__ = ("graph", "inputs", "outputs", "k1_launches", "capture_ms",
-                 "pool_bytes")
+    __slots__ = ("graph", "inputs", "outputs", "kernel_launches",
+                 "capture_ms", "pool_bytes")
 
     def __init__(self, fn, inputs, pool):
         dev = inputs[0].device
@@ -89,7 +100,7 @@ class _CapturedProgram:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        k1 = pack_cuda.captured
+        before = {k: m.captured for k, m in COUNTED_KERNELS.items()}
         stream = torch.cuda.current_stream(dev)
         t0 = time.perf_counter()
         try:
@@ -100,14 +111,16 @@ class _CapturedProgram:
             # side stream current (its __exit__ raises before restoring it)
             torch.cuda.set_stream(stream)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.k1_launches = pack_cuda.captured - k1
+        self.kernel_launches = {k: m.captured - before[k]
+                                for k, m in COUNTED_KERNELS.items()}
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
 
     def replay(self, inputs):
         for static, t in zip(self.inputs, inputs):
             static.copy_(t)
         self.graph.replay()
-        pack_cuda.count_replay(self.k1_launches)
+        for k, m in COUNTED_KERNELS.items():
+            m.count_replay(self.kernel_launches[k])
         # the next replay overwrites the static outputs, while callers keep
         # several batches' words on the device (_SuperJob, _BatchJob, the
         # shards): copy them out, on the same stream
@@ -126,7 +139,8 @@ class _EncodePrograms:
     device, shape and dtype):
     - the first call of a key runs `fn` op by op, so a one-off shape (a
       stream's final block) pays no capture; that call is also the warm-up
-      a capture needs (K1's probe and attribute set, cuBLAS's handle);
+      a capture needs (K1's probe and attribute set, the kernels'
+      libraries and K5's tables, cuBLAS's handle);
     - the second call captures `fn` into a graph (torch.cuda.graph, on a
       side stream) and replays it; every later call copies its inputs into
       the graph's static buffers and replays;

@@ -1,11 +1,16 @@
 """Frame assembly: subframe choices -> field lists -> packed FLAC frames.
 
 Port of flac_tpu/models/frame.py (the reference's per-frame sequential
-framing, stream_encoder_framing.c + bitwriter.c, recast): every frame in
-the batch is a fixed-shape list of (nzeros, payload, pbits) fields that
-ops/bitpack.py (safe layout) or kernel K1 (quad layout, ops/pack_cuda.py)
-deposits into word buffers in parallel; CRC-8/16 are then computed on the
-device and OR-deposited into their (zero) slots.
+framing, stream_encoder_framing.c + bitwriter.c, recast) in three steps:
+
+1. fields: every frame in the batch becomes a fixed-shape list of
+   (nzeros, payload, pbits) fields (assemble_fields: kernel K4 on a GPU,
+   ops/assemble_cuda.py; its plain version assemble_fields_plain);
+2. pack: ops/bitpack.py (safe layout) or kernel K1 (quad layout,
+   ops/pack_cuda.py) deposits them into word buffers in parallel;
+3. seal: CRC-8 and CRC-16 are computed on the device and deposited into
+   their (zero) slots (seal_frames: kernel K5 on a GPU, ops/seal_cuda.py;
+   its plain version seal_frames_plain).
 
 Unsigned payloads are carried in int64 (uint32 values, and uint64 bit
 patterns of the quad layout's fused <=63-bit payloads).
@@ -22,7 +27,8 @@ from torch.profiler import record_function
 from .. import format as fmt
 from ..config import EncoderConfig
 from ..device import constant
-from ..ops import bitpack, pack_cuda, rice as rice_ops
+from ..ops import assemble_cuda, bitpack, pack_cuda, seal_cuda
+from ..ops import rice as rice_ops
 from .subframe import SubframeChoice
 
 _UTF8_SLOTS = 7
@@ -36,6 +42,15 @@ class PackedFrames(NamedTuple):
     ok: torch.Tensor         # [B] bool: packed exactly (quad layout fit);
     #                          False -> re-encode the frame via the safe
     #                          layout (rare: pathological k/q)
+
+
+class FrameFields(NamedTuple):
+    nzeros: torch.Tensor     # [B, F] int32 leading zero bits of each field
+    payload: torch.Tensor    # [B, F] int64 payload bits (LSB-aligned)
+    pbits: torch.Tensor      # [B, F] int32 payload bit count
+    bits: torch.Tensor       # [B] int32 frame bits before the padding
+    ok: torch.Tensor         # [B] bool quad layout fit (True otherwise)
+    hdr_bytes: torch.Tensor  # [B] int32 header bytes under the CRC-8
 
 
 def _utf8_fields(n):
@@ -74,45 +89,36 @@ def _low_mask(nbits):
             << nbits.to(torch.int64)) - 1
 
 
-def assemble_frames(choice: SubframeChoice, signal, assignment,
-                    frame_numbers, cfg: EncoderConfig,
-                    blocksize: int, layout: str = "auto",
-                    packer: str = "kernel") -> PackedFrames:
-    """Build and pack one batch of frames.
-
-    choice:        SubframeChoice gathered to output channels [B, C, ...]
-    signal:        [B, C, N] wasted-shifted signals (verbatim payloads):
-                   int32, or int64 in the 33-bit side configuration
-    assignment:    [B] int32 channel assignment (0..3), 0 for non-stereo
-    frame_numbers: [B] int64
-    blocksize:     N for this batch
-    layout:        "safe"  — one field per residual sample (always exact);
-                   "quad"  — four Rice codes fused per 64-bit field; frames
-                             whose codes don't fit 63 payload bits come
-                             back with ok=False and the caller re-encodes
-                             them via "safe";
-                   "auto"  — quad when eligible.
-    packer:        quad-layout deposit: "kernel" — K1's wrapper (the CUDA
-                   kernel on a GPU, its plain version on the CPU); "plain"
-                   — the plain version on any device (for A/B runs).
-    """
-    B, C, N = signal.shape
-    dev = signal.device
-    if packer not in ("kernel", "plain"):
-        raise ValueError(f"unknown packer {packer!r}")
-    P = choice.params.shape[-1]
-    max_po = int(P).bit_length() - 1
-    m_min = max(N >> max_po, 1)      # partitions start at multiples of this
+def resolve_layout(cfg: EncoderConfig, N: int, P: int,
+                   layout: str) -> tuple[bool, bool]:
+    """(quad, wide) of a batch of N-sample frames with P partition
+    parameters: quad for layout "quad", or for "auto" where the fused-quad
+    layout is eligible; wide in the 33-bit side configuration (bps 32 with
+    mid-side), where a warm-up or verbatim sample can need 33 bits, beyond
+    a safe-layout field's 32: each goes out as a (high, low-16) field
+    pair."""
+    if layout not in ("auto", "quad", "safe"):
+        raise ValueError(f"unknown layout {layout!r}")
+    m_min = max(N >> (int(P).bit_length() - 1), 1)
     if layout == "auto":
         layout = "quad" if (cfg.max_subframe_bps <= 32
                             and cfg.bits_per_sample <= 26
                             and N % 4 == 0 and m_min % 4 == 0) \
             else "safe"
-    quad = layout == "quad"
-    # the 33-bit side configuration (bps 32 with mid-side): a warm-up or
-    # verbatim sample can need 33 bits, beyond a safe-layout field's 32:
-    # each goes out as a (high, low-16) field pair
-    wide = cfg.max_subframe_bps > 32
+    return layout == "quad", cfg.max_subframe_bps > 32
+
+
+def assemble_fields_plain(choice: SubframeChoice, signal, assignment,
+                          frame_numbers, cfg: EncoderConfig, blocksize: int,
+                          layout: str = "auto") -> FrameFields:
+    """The field lists of one batch of frames, op by op: the plain version
+    of kernel K4 (ops/assemble_cuda.py).  Arguments as assemble_frames'."""
+    B, C, N = signal.shape
+    dev = signal.device
+    P = choice.params.shape[-1]
+    max_po = int(P).bit_length() - 1
+    m_min = max(N >> max_po, 1)      # partitions start at multiples of this
+    quad, wide = resolve_layout(cfg, N, P, layout)
 
     nz_list, pay_list, pb_list = [], [], []
     fit_list = []
@@ -351,28 +357,38 @@ def assemble_frames(choice: SubframeChoice, signal, assignment,
     add(pad[:, None], full(0, dtype=torch.int64), zeros1)
     add(zeros1, full(0, dtype=torch.int64), full(16))
 
-    nzeros = torch.cat(nz_list, dim=1)
-    payload = torch.cat(pay_list, dim=1)
-    pbits = torch.cat(pb_list, dim=1)
+    ok = torch.ones((B,), dtype=torch.bool, device=dev)
+    for f in fit_list:
+        ok = ok & f
+    return FrameFields(nzeros=torch.cat(nz_list, dim=1),
+                       payload=torch.cat(pay_list, dim=1),
+                       pbits=torch.cat(pb_list, dim=1),
+                       bits=bits_so_far, ok=ok, hdr_bytes=hdr_bytes)
 
-    # worst case: verbatim subframes + full headers, rounded to pow2 words
-    worst_bits = 64 * 8 + C * (N * (cfg.max_subframe_bps) + 16 * 8
-                               + 32 * (fmt.MAX_QLP_COEFF_PRECISION + 33)
-                               + P * 10)
-    max_words = 1 << int(np.ceil(np.log2(worst_bits / 32 + 2)))
 
-    with record_function("flac.pack"):
-        if not quad:
-            words, total_bits = bitpack.pack_fields(nzeros, payload, pbits,
-                                                    max_words)
-        elif packer == "kernel":
-            words, total_bits = pack_cuda.pack_fields64(nzeros, payload,
-                                                        pbits, max_words)
-        else:
-            words, total_bits = bitpack.pack_fields64(nzeros, payload,
-                                                      pbits, max_words)
-    byte_len = total_bits // 8
+def assemble_fields(choice: SubframeChoice, signal, assignment,
+                    frame_numbers, cfg: EncoderConfig, blocksize: int,
+                    layout: str = "auto") -> FrameFields:
+    """K4's wrapper: the plain version for CPU tensors, the kernel for CUDA
+    tensors (it launches or raises)."""
+    if signal.device.type == "cpu":
+        return assemble_fields_plain(choice, signal, assignment,
+                                     frame_numbers, cfg, blocksize, layout)
+    if signal.device.type == "cuda":
+        quad, wide = resolve_layout(cfg, signal.shape[2],
+                                    choice.params.shape[-1], layout)
+        return FrameFields(*assemble_cuda.assemble_fields_cuda(
+            choice, signal, assignment, frame_numbers, cfg, blocksize,
+            quad, wide))
+    raise ValueError(f"assemble_fields: unsupported device {signal.device}")
 
+
+def seal_frames_plain(words, byte_len, hdr_bytes):
+    """CRC-8 over each frame's header and CRC-16 over its first
+    byte_len - 2 bytes, deposited into their zero slots, op by op: the
+    plain version of kernel K5 (ops/seal_cuda.py).  words: [B, W] int64
+    holding uint32 (bytes past byte_len - 2 zero); byte_len, hdr_bytes:
+    [B] int32.  Returns new words."""
     # CRC-8 over the header prefix, deposited as the last header byte
     hdr_bytes_view = bitpack.words_to_bytes(words[:, :4])
     crc8 = bitpack.crc8_prefix(hdr_bytes_view, hdr_bytes, 16)
@@ -381,10 +397,73 @@ def assemble_frames(choice: SubframeChoice, signal, assignment,
     # CRC-16 over everything before the 2-byte CRC field
     crc16 = bitpack.crc16_words(words, byte_len - 2)
     words = bitpack.deposit_byte(words, byte_len - 2, crc16 >> 8)
-    words = bitpack.deposit_byte(words, byte_len - 1, crc16 & 0xFF)
+    return bitpack.deposit_byte(words, byte_len - 1, crc16 & 0xFF)
 
-    ok = torch.ones((B,), dtype=torch.bool, device=dev)
-    for f in fit_list:
-        ok = ok & f
-    return PackedFrames(words=words, byte_len=byte_len,
-                        bits=bits_so_far, ok=ok)
+
+def seal_frames(words, byte_len, hdr_bytes):
+    """K5's wrapper: the plain version for CPU tensors (new words), the
+    kernel for CUDA tensors (it seals `words` in place and returns them)."""
+    if words.device.type == "cpu":
+        return seal_frames_plain(words, byte_len, hdr_bytes)
+    if words.device.type == "cuda":
+        return seal_cuda.seal_frames_cuda(words, byte_len, hdr_bytes)
+    raise ValueError(f"seal_frames: unsupported device {words.device}")
+
+
+def max_words(cfg: EncoderConfig, C: int, N: int, P: int) -> int:
+    """The word rows' width: the worst case (verbatim subframes and full
+    headers), rounded up to a power of two."""
+    worst_bits = 64 * 8 + C * (N * (cfg.max_subframe_bps) + 16 * 8
+                               + 32 * (fmt.MAX_QLP_COEFF_PRECISION + 33)
+                               + P * 10)
+    return 1 << int(np.ceil(np.log2(worst_bits / 32 + 2)))
+
+
+def assemble_frames(choice: SubframeChoice, signal, assignment,
+                    frame_numbers, cfg: EncoderConfig,
+                    blocksize: int, layout: str = "auto",
+                    packer: str = "kernel") -> PackedFrames:
+    """Build and pack one batch of frames: K4 builds the field lists, K1
+    (quad layout) or the safe scatter deposits them, K5 seals the CRCs.
+
+    choice:        SubframeChoice gathered to output channels [B, C, ...]
+    signal:        [B, C, N] wasted-shifted signals (verbatim payloads):
+                   int32, or int64 in the 33-bit side configuration
+    assignment:    [B] int32 channel assignment (0..3), 0 for non-stereo
+    frame_numbers: [B] int64 (< 2^36)
+    blocksize:     N for this batch
+    layout:        "safe"  — one field per residual sample (always exact);
+                   "quad"  — four Rice codes fused per 64-bit field; frames
+                             whose codes don't fit 63 payload bits come
+                             back with ok=False and the caller re-encodes
+                             them via "safe";
+                   "auto"  — quad when eligible.
+    packer:        quad-layout deposit: "kernel" — K1's wrapper (the CUDA
+                   kernel on a GPU, its plain version on the CPU); "plain"
+                   — the plain version on any device (for A/B runs).
+    K4 and K5 go through their wrappers on every device.
+    """
+    if packer not in ("kernel", "plain"):
+        raise ValueError(f"unknown packer {packer!r}")
+    B, C, N = signal.shape
+    P = choice.params.shape[-1]
+    quad, _ = resolve_layout(cfg, N, P, layout)
+    with record_function("flac.fields"):
+        f = assemble_fields(choice, signal, assignment, frame_numbers, cfg,
+                            blocksize, layout)
+    W = max_words(cfg, C, N, P)
+    with record_function("flac.pack"):
+        if not quad:
+            words, total_bits = bitpack.pack_fields(f.nzeros, f.payload,
+                                                    f.pbits, W)
+        elif packer == "kernel":
+            words, total_bits = pack_cuda.pack_fields64(f.nzeros, f.payload,
+                                                        f.pbits, W)
+        else:
+            words, total_bits = bitpack.pack_fields64(f.nzeros, f.payload,
+                                                      f.pbits, W)
+    byte_len = total_bits // 8
+    with record_function("flac.seal"):
+        words = seal_frames(words, byte_len, f.hdr_bytes)
+    return PackedFrames(words=words, byte_len=byte_len, bits=f.bits,
+                        ok=f.ok)

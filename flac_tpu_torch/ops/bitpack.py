@@ -29,7 +29,7 @@ import torch
 
 from ..device import constant
 from .bitops import srl64, xor_reduce
-from .crc import CRC8_POLY, CRC16_POLY, _xpow_mod_np, xpow_table
+from .crc import CRC8_POLY, CRC16_POLY, _xpow_mod_np, mulmod, xpow_table
 
 U32 = 0xFFFFFFFF
 
@@ -188,24 +188,14 @@ def _inv_x8_powers(poly: int, width: int, max_pad: int) -> np.ndarray:
     # x^-1 = (p(x) + 1)/x, because x * ((p+1)/x) = p+1 = 1 mod p
     inv_x = (poly | (1 << width)) ^ 1  # p_full - 1 (clear constant term)
     inv_x >>= 1                        # divide by x (exact)
-
-    def mulmod(a, b):
-        prod = 0
-        for j in range(width):
-            if (b >> j) & 1:
-                prod ^= a << j
-        for bit in range(2 * width - 2, width - 1, -1):
-            if (prod >> bit) & 1:
-                prod ^= (poly | (1 << width)) << (bit - width)
-        return prod
     inv_x8 = 1
     for _ in range(8):
-        inv_x8 = mulmod(inv_x8, inv_x)
+        inv_x8 = mulmod(inv_x8, inv_x, poly, width)
     out = np.zeros(max_pad + 1, dtype=np.int64)
     cur = 1
     for j in range(max_pad + 1):
         out[j] = cur
-        cur = mulmod(cur, inv_x8)
+        cur = mulmod(cur, inv_x8, poly, width)
     return out
 
 

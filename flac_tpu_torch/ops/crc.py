@@ -87,6 +87,31 @@ def _xpow_mod_np(poly: int, width: int, max_exp: int):
     return out
 
 
+def mulmod(a: int, b: int, poly: int, width: int) -> int:
+    """(a * b) mod p(x) over GF(2), a and b below 2^width."""
+    prod = 0
+    for j in range(width):
+        if (b >> j) & 1:
+            prod ^= a << j
+    full = poly | (1 << width)
+    for bit in range(2 * width - 2, width - 1, -1):
+        if (prod >> bit) & 1:
+            prod ^= full << (bit - width)
+    return prod
+
+
+def byte_shift_powers(poly: int, width: int, n: int) -> np.ndarray:
+    """[n] uint32: x^(8 * 2^i) mod p(x) for i in [0, n): multiplying a CRC
+    remainder by the product of the entries of the set bits of m appends
+    m zero bytes to its message."""
+    out = np.zeros(n, dtype=np.uint32)
+    cur = int(_xpow_mod_np(poly, width, 9)[8])
+    for i in range(n):
+        out[i] = cur
+        cur = mulmod(cur, cur, poly, width)
+    return out
+
+
 def xpow_table(poly: int, width: int, max_exp: int,
                device) -> torch.Tensor:
     """`_xpow_mod_np` as an int64 tensor on `device`, copied there once

@@ -161,7 +161,7 @@ def test_k1_counter_moves_on_each_replay(cuda, programs):
     # the ops launch K1; the capture records it and replays; replays
     assert steps == [(1, 0), (1, 1), (1, 0), (1, 0)]
     [prog] = programs.graphs.values()
-    assert prog.k1_launches == 1 and prog.pool_bytes > 0
+    assert prog.kernel_launches["pack_fields64"] == 1 and prog.pool_bytes > 0
     encoder_mod.encode_batch(pcm, 0, cfg, N, layout="safe")
     launches = pack_cuda.launches
     encoder_mod.encode_batch(pcm, 0, cfg, N, layout="safe")

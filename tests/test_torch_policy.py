@@ -180,14 +180,16 @@ def test_import_builds_no_native_library_or_kernel():
         "                               'flac_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from flac_tpu_torch import kernels, native\n"
-        "from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda\n"
+        "from flac_tpu_torch.ops import (assemble_cuda, pack_cuda,\n"
+        "    restore_cuda, rice_cuda, seal_cuda)\n"
         "print(native._lib is None, kernels.LOADED == {},\n"
         "      pack_cuda._lib is None, rice_cuda._lib is None,\n"
-        "      restore_cuda._lib is None)\n")
+        "      restore_cuda._lib is None, assemble_cuda._lib is None,\n"
+        "      seal_cuda._lib is None)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["True"] * 5
+    assert out.stdout.split() == ["True"] * 7
 
 
 def test_tf32_is_off():
@@ -243,15 +245,20 @@ def test_kernel_variants_fails_without_gpu(no_gpu):
     ("restore.cu", "IN_STAGES", "IN_STAGES"),
     ("restore.cu", "OUT_STAGES", "OUT_STAGES"),
     ("restore.cu", "IN_PAD", "IN_PAD"),
-    ("restore.cu", "BARS_BYTES", "BARS_BYTES")])
+    ("restore.cu", "BARS_BYTES", "BARS_BYTES"),
+    ("assemble_fields.cu", "HEAD_FIELDS", "HEAD_FIELDS"),
+    ("assemble_fields.cu", "MAX_CHANNELS", "MAX_CHANNELS"),
+    ("frame_crc.cu", "POW_TERMS", "POW_TERMS")])
 def test_host_mirrors_match_the_kernel_sources(source, name, value):
     """The constants that the host mirrors of the kernels' rules
     (rice_cuda.staged_ctas, pack_cuda.rank_words, the restore's
-    folded_subframes, round_len and smem_bytes) and the restore's wrapper
-    (its alignment rule) copy are the sources'."""
+    folded_subframes, round_len and smem_bytes, the field layout of
+    assemble_cuda.field_layout, the size of seal_cuda.tables) and the
+    restore's wrapper (its alignment rule) copy are the sources'."""
     import re
 
-    from flac_tpu_torch.ops import pack_cuda, restore_cuda, rice_cuda
+    from flac_tpu_torch.ops import (assemble_cuda, pack_cuda, restore_cuda,
+                                    rice_cuda, seal_cuda)
     text = (REPO / "flac_tpu_torch" / "csrc" / source).read_text()
     consts = {m[0]: m[1] for m in re.findall(
         r"constexpr int (\w+) = ([^;]+);", text)}
@@ -259,7 +266,9 @@ def test_host_mirrors_match_the_kernel_sources(source, name, value):
     for _ in range(3):                   # constants defined by constants
         expr = re.sub(r"[A-Z_]{3,}", lambda m: f"({consts[m[0]]})", expr)
     module = {"rice_codes.cu": rice_cuda, "pack_fields64.cu": pack_cuda,
-              "restore.cu": restore_cuda}[source]
+              "restore.cu": restore_cuda,
+              "assemble_fields.cu": assemble_cuda,
+              "frame_crc.cu": seal_cuda}[source]
     assert eval(expr) == getattr(module, value)
 
 
