@@ -7,10 +7,11 @@
 Phases, in order, each printing one JSON line; any failure exits non-zero:
 
 1. device:  the GPU's name, and nvidia-smi's name and power limit line.
-2. build:   nvcc builds the five kernel sources of flac_tpu_torch/csrc/
+2. build:   nvcc builds the seven kernel sources of flac_tpu_torch/csrc/
             (pack_fields64.cu, rice_codes.cu, restore.cu,
-            assemble_fields.cu, frame_crc.cu; one nvcc each, started
-            together) while g++ builds the native host runtime; the
+            assemble_fields.cu, frame_crc.cu, lpc_coeffs.cu,
+            rice_cost.cu; one nvcc each, started together) while g++
+            builds the native host runtime; the
             probes P1 and P2 run; each kernel's registers, spills and
             static shared memory from ptxas (no kernel may spill), and K3's
             dynamic shared memory (its rings) for each residual width,
@@ -32,7 +33,11 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             bit-identical on the corners of ops/assemble_synth.py and on a
             64-frame -5 and -8 batch whose subframe choice comes from the
             ops form, and the chain K4 -> K1 -> K5 byte for byte against
-            plain -> plain -> plain on the -5 batch.
+            plain -> plain -> plain on the -5 batch.  K6 (all five
+            outputs) and K7 (all three) bit-identical on the corners of
+            ops/search_synth.py and on the search inputs of the ops form
+            of 64-frame -5 and -8 batches of the track's recipe, of 64
+            blocks of the 33-bit clip (RICE2) and of 8 frames at -8 -e -p.
 4. main:    the main path at full size: a 180 s 44.1 kHz 16-bit stereo
             track encoded at -5 (blocksize 4096, 64 frames a batch) on the
             GPU through the compiled encode programs (CUDA graphs: two
@@ -41,15 +46,18 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             printed; the timed encode replays), then decoded on the GPU
             1024 frames a batch by decode_stream_tpu with engine
             "device" (K2 and K3) and with engine "fast" (the native full
-            parse and K3), each with the
-            kernels' launch counts (and K2's count of CTAs that staged)
-            read just after (K1 once a quad-layout call, K4 and K5 once
-            an encode program call, the safe tail's too, counted beside
-            them); each decode must give the samples back with a
-            matching MD5, equal the port's host engine and launch K3 once a
-            decode batch; every CTA of every K2 launch must have staged, as
-            the host mirror of the rule predicts.  The MB/s of the three
-            engines, the link probe and the engine "auto" picks.
+            parse and K3), each with the kernels' launch counts (and K2's
+            count of CTAs that staged) read just after (K1 once a
+            quad-layout call, K4-K7 once an encode program call, the
+            safe tail's too, counted beside them); each decode must give
+            the samples back with a matching MD5, equal the port's host
+            engine and launch K3 once a decode batch; every CTA of every
+            K2 launch must have staged, as the host mirror of the rule
+            predicts.  The MB/s of the three engines, the link probe and
+            the engine "auto" picks.  Then the track at -8, decoded back
+            by the host engine; both streams go to OUT_DIR
+            (track_-5.flac, track_-8.flac, ~38 MB) for a check against
+            flac_tpu on a machine with JAX.
 5. ab:      a 20 s clip at -5 through the plain packer must give the same
             bytes as through the kernel; -5, -0 and -8 clips and a transient
             clip (which sends frames through the safe re-encode) must
@@ -72,13 +80,19 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             on both engines' inputs (int32 and int16 residuals) with its
             chain floor (N x the chain probe's cycles a sample / the SM
             clock) beside the bound; the device engine's transpose copy
-            of K2's codes is timed on its own line before it.
+            of K2's codes is timed on its own line before it.  K6 and K7
+            on the search inputs of the -5 and -8 batches of phase 3
+            (`ms` at -5, the -8 times beside it); K6 also beside its
+            chain floor (the float64 operations on one thread's critical
+            path x the dependent add's cycles / the SM clock).
 7. profile: torch.profiler over a 10 s encode (through the graphs,
             and op by op, whose flac.* ranges a replay does not record)
             and 10 s decodes with the "device" and "fast" engines: the
             device's busy share, kernels, graph replays, time by stage
-            (the flac.* ranges: flac.fields, flac.pack and flac.seal
-            inside flac.assemble) and the top kernels; the tables go to
+            (the flac.* ranges: flac.lpc_coeffs, flac.residuals,
+            flac.rice and flac.select inside flac.search; flac.fields,
+            flac.pack and flac.seal inside flac.assemble; the ctypes
+            kernels by name) and the top kernels; the tables go to
             OUT_DIR/profile_*.txt.
 8. api:     the library API on the GPU.  The 180 s track at -5 in the
             `with` form of StreamEncoder, with a seek table every 10 s, a
@@ -96,7 +110,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             ranged Ogg decode must equal its slice (MB/s).  In a temp
             directory a Chain edit past the padding and a SimpleIterator
             delete must keep the audio (decoded on the GPU) and the file
-            mode.  Each path's K1-K5 launches, counted from 0 just
+            mode.  Each path's K1-K7 launches, counted from 0 just
             before it, go into the `kernels` line as
             `launches_library_api`.
 9. cli:     the command lines on the GPU, in a temp directory.  The 180 s
@@ -124,7 +138,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             channel, decoded by the "device" and "fast" engines with the
             MD5 and equal to the host engine, size within 0.1% of the same
             encode on the CPU.
-            Each path's K1-K5 launches, counted from 0 just before
+            Each path's K1-K7 launches, counted from 0 just before
             it, go into the `kernels` line as `launches_cli`.
 10. parallel: the parallel paths and the encoder's pipeline, on the
             track's 1937 full blocks.  encode_blocks_dp at -5 in calls of
@@ -157,9 +171,10 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             from an empty cache: for each key, three calls on their own
             inputs (the ops, the capture, a replay) must equal the ops
             form (encoder._encode_batch_ops) on the same inputs in words,
-            byte lengths, bits and ok flags, and the counts of K1, K4 and
-            K5 must move by the launches its graph holds on every call
-            (K4 and K5 one each): -0, -5 and -8 at
+            byte lengths, bits and ok flags, and the counts of K1, K4,
+            K5, K6 and K7 must move by the launches its graph holds on
+            every call (K4, K5 and K7 one each, K6 one where the preset
+            has LPC): -0, -5 and -8 at
             64 frames (int16, StreamEncoder's upload) and 256 (int32, the
             sharded form) on the track's blocks, the trimmed 17-frame
             batch, the final short block, a safe re-encode bucket with
@@ -179,8 +194,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             OUT_DIR/gpu_tests.txt.  Each path's launches go into the
             `kernels` line as `launches_compiled_encode`.
 
-On every path of phases 8-11, K4 and K5 launch equally often and at
-least as often as K1.  The `kernels` line (K1-K5) comes after phase 11.
+On every path of phases 8-11, K4, K5 and K7 launch equally often, at
+least as often as K1 and K6.  The `kernels` line (K1-K7) comes after
+phase 11.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
 register report, the profile tables) go to OUT_DIR, beside this script.
@@ -223,6 +239,18 @@ K4_OPS_PER_FIELD = 12
 K4_OPS_PER_SAMPLE = 20
 # K5 a byte: the table index (shift, xor, mask), its load and the update
 K5_OPS_PER_BYTE = 6
+# K6 a problem: each Levinson step i's i products and adds, the reflection
+# and error update (~8), twice without -e; a candidate's 32 quantizer
+# steps (~10 each) and its precision, estimate and stores (~40)
+K6_OPS_PER_STEP = 8
+K6_OPS_PER_QUANT_STEP = 10
+K6_OPS_PER_CANDIDATE = 40
+# K7 a residual: the zigzag and the OR (~4), then a shift and a 64-bit add
+# for each Rice parameter k; a node of the partition tree: a cost and a
+# compare for each k
+K7_OPS_PER_SAMPLE = 4
+K7_OPS_PER_SAMPLE_K = 3
+K7_OPS_PER_NODE_K = 6
 
 
 def ptxas_usage(report: str, kernel: str) -> dict:
@@ -616,6 +644,61 @@ def plain_pack(fields, args):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 cases: K6 and K7 against their plain versions
+# ---------------------------------------------------------------------------
+
+def capture_search(x, cfg) -> dict:
+    """The arguments of subframe.lpc_candidates (K6, "k6") and of
+    subframe._rice_cost (K7, "k7") in the ops form of one encode batch of
+    blocks `x` [B, C, N] on the card, blocksize N."""
+    from flac_tpu_torch import encoder as encoder_mod
+    from flac_tpu_torch.models import subframe
+    seen = {}
+    lpc, rice = subframe.lpc_candidates, subframe._rice_cost
+
+    def spy_lpc(*a):
+        seen["k6"] = a
+        return lpc(*a)
+
+    def spy_rice(*a):
+        seen["k7"] = a
+        return rice(*a)
+    subframe.lpc_candidates, subframe._rice_cost = spy_lpc, spy_rice
+    try:
+        encoder_mod._encode_batch_ops(
+            x, encoder_mod._frame_numbers(0, x.shape[0], x.device), cfg,
+            x.shape[2], "auto", "kernel")
+    finally:
+        subframe.lpc_candidates, subframe._rice_cost = lpc, rice
+    return seen
+
+
+def real_search(cfg, pcm, frames: int = 64) -> dict:
+    """capture_search of the first `frames` blocks of pcm [C, n] on the
+    card at blocksize cfg.blocksize."""
+    import numpy as np
+    import torch
+    N, C = cfg.blocksize, pcm.shape[0]
+    return capture_search(torch.from_numpy(np.ascontiguousarray(
+        pcm[:, :frames * N].reshape(C, frames, N).transpose(1, 0, 2)))
+        .cuda(), cfg)
+
+
+def search_compare(kernel_fn, plain_fn, args) -> tuple[bool, int]:
+    """A search kernel's dispatch (K6: lpc_candidates, K7: _rice_cost)
+    against its plain version on CUDA tensors: (every output identical,
+    max abs difference)."""
+    import torch
+    got = kernel_fn(*args)
+    want = plain_fn(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+              for a, b in zip(got, want))
+    return same, err
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5 helpers
 # ---------------------------------------------------------------------------
 
@@ -734,7 +817,9 @@ OGG_SECONDS = 30
 KERNEL_MODULES = {"pack_fields64": "pack_cuda", "rice_codes": "rice_cuda",
                   "restore": "restore_cuda",
                   "assemble_fields": "assemble_cuda",
-                  "frame_crc": "seal_cuda"}
+                  "frame_crc": "seal_cuda",
+                  "lpc_coeffs": "lpc_cuda",
+                  "rice_cost": "rice_cost_cuda"}
 
 
 def _wrappers() -> dict:
@@ -758,15 +843,18 @@ def _k123(c: dict) -> dict:
 
 
 def check_encode_calls(phase: str, launches: dict) -> None:
-    """Every encode program call launches K4 and K5 once, and K1 once where
-    it takes the quad layout: on each path K4 == K5 >= K1, and a path that
-    launched K1 launched K4."""
+    """Every encode program call launches K4, K5 and K7 once, K6 once where
+    its preset has LPC, and K1 once where it takes the quad layout: on each
+    path K4 == K5 == K7 >= K1, K6, and a path that launched K1 launched
+    K4."""
     for path, c in launches.items():
-        k1, k4, k5 = (c["pack_fields64"], c["assemble_fields"],
-                      c["frame_crc"])
-        if k4 != k5 or k4 < k1:
-            raise AssertionError(f"{phase}, {path}: K4 {k4}, K5 {k5}, K1 "
-                                 f"{k1}: not K4 == K5 >= K1")
+        k1, k4, k5, k6, k7 = (c["pack_fields64"], c["assemble_fields"],
+                              c["frame_crc"], c["lpc_coeffs"],
+                              c["rice_cost"])
+        if not k4 == k5 == k7 or k4 < max(k1, k6):
+            raise AssertionError(f"{phase}, {path}: K4 {k4}, K5 {k5}, K7 "
+                                 f"{k7}, K1 {k1}, K6 {k6}: not K4 == K5 == "
+                                 "K7 >= K1, K6")
 
 
 def _api_extra():
@@ -1706,6 +1794,7 @@ def parallel_paths(pcm, stream: bytes, expect_quad: int) -> dict:
 # the card-only tests (marker `gpu`), run by phase 11 in a subprocess
 GPU_TEST_FILES = ("tests/test_torch_pack_cuda.py",
                   "tests/test_torch_assemble_cuda.py",
+                  "tests/test_torch_search_cuda.py",
                   "tests/test_torch_rice_cuda.py",
                   "tests/test_torch_restore.py",
                   "tests/test_torch_api_cuda.py",
@@ -1737,7 +1826,7 @@ def ops_form():
 def program_info(progs) -> list:
     """Each captured program of an encoder._EncodePrograms: its entry
     point, input shape and dtype, capture ms, what its capture added to
-    the device's graph pool (MB) and the K1, K4 and K5 launches it
+    the device's graph pool (MB) and the launches of K1 and K4-K7 it
     holds."""
     out = []
     for (name, inputs), p in progs.graphs.items():
@@ -1792,7 +1881,7 @@ def call_times(fn, runs: int = 5) -> dict:
 
 def compiled_encode(pcm, track_keys: dict) -> dict:
     """Phase 11.  Raises AssertionError on the first check that fails.
-    Returns each path's launches of K1, K4 and K5 (K2 and K3: none),
+    Returns each path's launches of K1 and K4-K7 (K2 and K3: none),
     counted from 0 just before it and read just after."""
     import numpy as np
     import torch
@@ -1816,11 +1905,12 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
             x, encoder_mod._frame_numbers(first, x.shape[0], dev), cfg, n,
             layout, "kernel")
 
-    def hold(label, calls, graph_fn, ops_fn):
+    def hold(label, calls, graph_fn, ops_fn, lpc=True):
         """Three calls of one key, each on its own inputs: the ops, the
         capture, a replay.  Each output must equal the ops form's on the
-        same inputs, and the counts of K1, K4 and K5 must move by the
-        graph's launches on each replay."""
+        same inputs, and the counts of K1, K4-K7 must move by the graph's
+        launches on each replay (K4, K5 and K7 once, K6 once where the
+        preset has LPC)."""
         before = set(progs.graphs)
         steps = []
         torch.cuda.synchronize()
@@ -1843,10 +1933,11 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
         held = dict.fromkeys(KERNEL_MODULES, 0)
         held.update(new[0].kernel_launches)
         if steps != [held] * 3 or held["assemble_fields"] != 1 \
-                or held["frame_crc"] != 1:
+                or held["frame_crc"] != 1 or held["rice_cost"] != 1 \
+                or held["lpc_coeffs"] != int(lpc):
             raise AssertionError(f"{label}: the kernels counted {steps}, "
                                  f"expected {held} a call (the graph's; "
-                                 "K4 and K5 once)")
+                                 "K4, K5 and K7 once, K6 once with LPC)")
         launches[label] = {name: sum(st[name] for st in steps)
                            for name in KERNEL_MODULES}
         emit({"phase": "compiled", "case": label, "identical": True,
@@ -1864,7 +1955,8 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
                   for lo in (0, B, 2 * B)],
                  lambda x, lo, cfg=cfg: encoder_mod.encode_batch(x, lo, cfg,
                                                                  N),
-                 lambda x, lo, cfg=cfg: ops(x, lo, cfg))
+                 lambda x, lo, cfg=cfg: ops(x, lo, cfg),
+                 lpc=cfg.max_lpc_order > 0)
     cfg5 = cfgs[5]
     fw = encoder_mod.default_fetch_words(N, 2, 16)
     hold("-5, the trimmed 17-frame batch",
@@ -1918,9 +2010,10 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
     launches["four shard entries, 3 calls"] = c
     if any(c[k] != 3 * SHARD_ENTRIES for k in ("pack_fields64",
                                                   "assemble_fields",
-                                                  "frame_crc")):
+                                                  "frame_crc", "lpc_coeffs",
+                                                  "rice_cost")):
         raise AssertionError(f"four shard entries, 3 calls: {c}, expected "
-                             f"K1, K4 and K5 {3 * SHARD_ENTRIES} times")
+                             f"K1, K4-K7 {3 * SHARD_ENTRIES} times")
     emit({"phase": "compiled", "case": "four shard entries of one card",
           "identical": True, "launches": c})
 
@@ -2078,9 +2171,10 @@ def main() -> int:
         from flac_tpu_torch.models import frame as frame_mod
         from flac_tpu_torch import decoder as decoder_mod
         from flac_tpu_torch import encoder as encoder_mod
+        from flac_tpu_torch.models import subframe
         from flac_tpu_torch.ops import assemble_cuda, assemble_synth, \
-            bitpack, bitunpack, pack_cuda, restore_cuda, rice_cuda, \
-            seal_cuda
+            bitpack, bitunpack, lpc_cuda, pack_cuda, restore_cuda, \
+            rice_cost_cuda, rice_cuda, seal_cuda, search_synth
     except ImportError as e:
         return fail(f"the flac_tpu_torch package is not here ({e})")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2125,7 +2219,11 @@ def main() -> int:
              "assemble_fields": ptxas_usage(reports["assemble_fields"],
                                             "assemble_fields_kernel"),
              "frame_crc": ptxas_usage(reports["frame_crc"],
-                                      "frame_crc_kernel")}
+                                      "frame_crc_kernel"),
+             "lpc_coeffs": ptxas_usage(reports["lpc_coeffs"],
+                                       "lpc_coeffs_kernel"),
+             "rice_cost": ptxas_usage(reports["rice_cost"],
+                                      "rice_cost_kernel")}
     # K3's dynamic shared memory (its rings), by the kernel's own count and
     # by the host mirror, for each residual width, narrow and wide
     k3_lib = restore_cuda._library()
@@ -2148,6 +2246,9 @@ def main() -> int:
     if len(usage["assemble_fields"]) != 3 or len(usage["frame_crc"]) != 1:
         return fail(f"K4's three layouts or K5 are missing: "
                     f"{usage['assemble_fields']} {usage['frame_crc']}")
+    if len(usage["lpc_coeffs"]) != 1 or len(usage["rice_cost"]) != 2:
+        return fail(f"K6 or K7's two tables (RICE, RICE2) are missing: "
+                    f"{usage['lpc_coeffs']} {usage['rice_cost']}")
     if any(a != b or a > 232448 for a, b in k3_smem.values()):
         return fail(f"K3's dynamic shared memory differs from the host "
                     f"mirror or passes 227 KB: {k3_smem}")
@@ -2229,6 +2330,61 @@ def main() -> int:
           "frame_bytes": int((tk // 8).sum())})
     if not chain_ok:
         return fail("the chain K4 -> K1 -> K5 differs from the plain chain")
+    # K6 and K7 on the corners, then on the search inputs of real batches:
+    # -5 and -8 (64 frames of the track's recipe), the 33-bit clip (64
+    # blocks: int64 signals, RICE2) and -8 with -e -p (8 frames)
+    k6_err = k7_err = 0
+    track = signals.make_test_signal(64 * 4096, seed=180)
+    hi = hires_clip()
+    real_cfgs = {
+        "-5, 64 frames": (EncoderConfig.from_preset(
+            5, blocksize=4096).resolve(), track, 64),
+        "-8, 64 frames": (EncoderConfig.from_preset(
+            8, blocksize=4096).resolve(), track, 64),
+        "33-bit side, 64 blocks": (EncoderConfig.from_preset(
+            5, blocksize=4096, sample_rate=HIRES_RATE,
+            bits_per_sample=32).resolve(), hi, 64),
+        "-8 -e -p, 8 frames": (EncoderConfig.from_preset(
+            8, blocksize=4096, do_exhaustive_model_search=True,
+            do_qlp_coeff_prec_search=True).resolve(), track, 8)}
+
+    def search_cases():
+        """(label, "k6" or "k7", the arguments on the card), made one at a
+        time, so that no case's tensors outlive its comparison (they
+        would count in the later phases' peak memory)"""
+        for label, case in search_synth.lpc_cases():
+            yield (f"corner: {label}", "k6",
+                   search_synth.as_lpc_inputs(case, "cuda"))
+        for label, case in search_synth.rice_cases():
+            yield (f"corner: {label}", "k7",
+                   search_synth.as_rice_inputs(case, "cuda"))
+        for label, (cfg_r, src, frames) in real_cfgs.items():
+            seen = real_search(cfg_r, src, frames)
+            yield label, "k6", seen.pop("k6")
+            yield label, "k7", seen.pop("k7")
+    for label, which, a67 in search_cases():
+        if which == "k6":
+            ok, err = search_compare(subframe.lpc_candidates,
+                                     subframe.lpc_candidates_plain, a67)
+            shape = list(a67[0].shape)
+            k6_err = max(k6_err, err)
+        else:
+            ok, err = search_compare(subframe._rice_cost,
+                                     subframe._rice_cost_plain, a67)
+            shape = list(a67[0].shape)
+            k7_err = max(k7_err, err)
+        emit({"phase": "kernels", "kernel": ("lpc_coeffs" if which == "k6"
+                                             else "rice_cost"),
+              "case": label, "input_shape": shape,
+              "config": {k: getattr(a67[-1], k) for k in (
+                  "bits_per_sample", "max_lpc_order",
+                  "do_exhaustive_model_search", "do_qlp_coeff_prec_search",
+                  "do_escape_coding", "max_residual_partition_order")},
+              "identical": ok, "max_abs_err": err})
+        if not ok:
+            return fail(f"{'K6' if which == 'k6' else 'K7'} differs from "
+                        f"its plain version on '{label}'")
+    del a67
     if args.quick:
         emit({"phase": "done", "quick": True,
               "seconds": time.perf_counter() - t_start})
@@ -2284,6 +2440,8 @@ def main() -> int:
     k1_launches = main_counts["pack_fields64"]
     k4_launches = main_counts["assemble_fields"]
     k5_launches = main_counts["frame_crc"]
+    k6_launches = main_counts["lpc_coeffs"]
+    k7_launches = main_counts["rice_cost"]
     pcm_bytes = pcm.size * 2
     enc_mbps = pcm_bytes / 1e6 / wall
     emit({"phase": "main", "preset": -5, "seconds_audio": TRACK_SECONDS,
@@ -2291,7 +2449,8 @@ def main() -> int:
           "encode_mb_per_s": enc_mbps,
           "compression_ratio": len(stream) / pcm_bytes,
           "launches": {k: main_counts[k] for k in (
-              "pack_fields64", "assemble_fields", "frame_crc")},
+              "pack_fields64", "assemble_fields", "frame_crc", "lpc_coeffs",
+              "rice_cost")},
           "encode_program_calls": len(program_calls),
           "calls_by_program": dict(collections.Counter(
               f"{n[0]}, N={n[2]}, {n[3]}" for n in program_calls)),
@@ -2305,6 +2464,10 @@ def main() -> int:
                     f"times on the main path, expected once per encode "
                     f"program call ({len(program_calls)}: K1's {expect} "
                     "and the safe tail)")
+    if k6_launches != len(program_calls) or k7_launches != k6_launches:
+        return fail(f"K6 and K7 launched {k6_launches} and {k7_launches} "
+                    f"times on the main path, expected once per encode "
+                    f"program call ({len(program_calls)})")
     t0 = time.perf_counter()
     decode_stream_tpu(stream)                                # warm-up
     torch.cuda.synchronize()
@@ -2378,6 +2541,20 @@ def main() -> int:
     host_s = time.perf_counter() - t0
     if not np.array_equal(host.samples, st.samples):
         return fail("the host engine's decode differs from the device's")
+    # the track at -8 too (BASELINE.json config 2); both streams go to
+    # OUT_DIR, where flac_tpu's decoders and encoder can be held against
+    # them on a machine that has JAX
+    stream8, _ = encode(pcm, 8)
+    st8 = decode_stream_tpu(stream8, engine="host")
+    if not st8.md5_ok or not np.array_equal(st8.samples, pcm):
+        return fail("the -8 encode of the track does not decode back")
+    for level, data in ((5, stream), (8, stream8)):
+        with open(os.path.join(OUT_DIR, f"track_-{level}.flac"), "wb") as f:
+            f.write(data)
+    emit({"phase": "main", "preset": -8, "stream_bytes": len(stream8),
+          "stream_bytes_-5": len(stream),
+          "compression_ratio": len(stream8) / pcm_bytes,
+          "saved": ["track_-5.flac", "track_-8.flac"]})
     cores = os.cpu_count() or 1
     link = decoder_mod.probe_link_bandwidth("cuda")
     emit({"phase": "main", "round_trip": "ok", "md5": "match",
@@ -2748,11 +2925,106 @@ def main() -> int:
             "ptxas": usage[name]})
     k4, k5 = kernels45
 
+    # K6 and K7 on the search inputs of phase 3's -5 and -8 batches (the
+    # ops form's arguments): the kernel's device time (torch.profiler), the
+    # kernel and the plain version through their dispatch (CUDA events,
+    # plain, kernel, kernel, plain), the bound; K6 beside its chain floor
+    dadd_cycles = lpc_cuda.chain_probe()
+    timed_inputs = {lv: real_search(*real_cfgs[f"{lv}, 64 frames"])
+                    for lv in ("-5", "-8")}
+    kernels67 = []
+    for name, mod, key, kern_fn, plain_fn, launches_main, err in (
+            ("lpc_coeffs", lpc_cuda, "k6", subframe.lpc_candidates,
+             subframe.lpc_candidates_plain, k6_launches, k6_err),
+            ("rice_cost", rice_cost_cuda, "k7", subframe._rice_cost,
+             subframe._rice_cost_plain, k7_launches, k7_err)):
+        shapes = {}
+        for lv in ("-5", "-8"):
+            a67 = timed_inputs[lv][key]
+            ok, e67 = search_compare(kern_fn, plain_fn, a67)
+            if not ok:
+                return fail(f"{name} differs from its plain version on the "
+                            f"{lv} batch")
+            runs = [cuda_time_ms(lambda f=f, a67=a67: f(*a67))
+                    for f in (plain_fn, kern_fn, kern_fn, plain_fn)]
+            dev = kernel_device_ms(lambda a67=a67: kern_fn(*a67),
+                                   f"{name}_kernel")
+            cfg_k = a67[-1]
+            if key == "k6":
+                autoc, bps_k, N_k = a67[0], a67[1], a67[2]
+                B6, CH6, A6, O6 = (*autoc.shape[:3], autoc.shape[3] - 1)
+                AC6 = lpc_cuda.candidates(A6, O6, cfg_k)
+                problems = B6 * CH6 * A6
+                passes = 1 if cfg_k.do_exhaustive_model_search else 2
+                # each input read once (autoc, bps), each output written
+                # once (qc, shift, order, precision, ok)
+                nbytes = (autoc.numel() * 8 + bps_k.numel() * 4
+                          + B6 * CH6 * AC6 * (32 * 4 + 3 * 4 + 1))
+                nops = (problems * passes * sum(
+                    2 * i + K6_OPS_PER_STEP for i in range(O6))
+                    + B6 * CH6 * AC6 * (32 * K6_OPS_PER_QUANT_STEP
+                                        + K6_OPS_PER_CANDIDATE))
+                chain = lpc_cuda.chain_ops(O6, cfg_k)
+                extra = {"problems": problems, "candidates": B6 * CH6 * AC6,
+                         "order": O6, "chain_ops": chain,
+                         "dadd_cycles": dadd_cycles,
+                         "chain_floor_ms": chain * dadd_cycles
+                         / probe["cycles_per_ns"] / 1e6}
+            else:
+                res_k, order_k, N_k, max_po_k = a67[:4]
+                rows = res_k.numel() // N_k
+                L7, P7 = max_po_k + 1, 1 << max_po_k
+                K7 = 31 if cfg_k.rice_param_limit > 15 else 15
+                # each input read once (the int32 residuals, the orders),
+                # each output written once (bits, parameters, RICE2 flags)
+                nbytes = (res_k.numel() * 4 + rows * 4
+                          + rows * L7 * (4 + 1) + rows * L7 * P7 * 4)
+                nops = rows * (N_k * (K7_OPS_PER_SAMPLE
+                                      + K7 * K7_OPS_PER_SAMPLE_K)
+                               + (2 * P7 - 1) * K7 * K7_OPS_PER_NODE_K)
+                extra = {"rows": rows, "N": N_k, "partitions": P7,
+                         "parameters": K7}
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
+            shapes[lv] = {"dev": dev, "kernel_ms": min(runs[1:3]),
+                          "plain_ms": min(runs[0], runs[3]),
+                          "bytes": nbytes, "operations": nops,
+                          "bound_ms": max(bytes_ms, ops_ms),
+                          "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                       else "operations"), **extra}
+            emit({"phase": "times", "kernel": name, "batch": lv,
+                  "input_shape": list(a67[0].shape),
+                  "device_ms": dev["ms"], "kernel_ms_runs": runs[1:3],
+                  "plain_ms_runs": [runs[0], runs[3]], "bytes": nbytes,
+                  "operations": nops, **extra})
+        main = shapes["-5"]
+        kernels67.append({
+            "name": name, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": launches_main,
+            "max_abs_err": err, **main["dev"],
+            "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            **({"chain_floor_ms": main["chain_floor_ms"]}
+               if key == "k6" else {}),
+            "at_-8": {k: (v["ms"] if k == "dev" else v)
+                      for k, v in shapes["-8"].items()},
+            "library_ms": None,
+            "library_note": ("no PyTorch call runs Levinson-Durbin and the "
+                             "quantizer" if key == "k6" else
+                             "no PyTorch call computes partitioned Rice "
+                             "costs"),
+            "ptxas": usage[name]})
+    k6, k7 = kernels67
+    del timed_inputs, a67
+
     # ---- 7. where the time goes in a steady encode and decode ----
     short = signals.make_test_signal(10 * RATE, seed=7)
-    encode_ranges = ("flac.search", "flac.assign", "flac.assemble",
-                     "flac.fields", "flac.pack", "flac.seal")
-    encode_kernels = ("pack_fields64_kernel", "assemble_fields_kernel",
+    encode_ranges = ("flac.search", "flac.lpc_coeffs", "flac.residuals",
+                     "flac.rice", "flac.select", "flac.assign",
+                     "flac.assemble", "flac.fields", "flac.pack",
+                     "flac.seal")
+    encode_kernels = ("lpc_coeffs_kernel", "rice_cost_kernel",
+                      "pack_fields64_kernel", "assemble_fields_kernel",
                       "frame_crc_kernel")
     # through the compiled programs (two warm calls: the 43-frame batch
     # and the final block are captured on their second), then op by op,
@@ -2777,7 +3049,7 @@ def main() -> int:
     api = library_api(pcm, stream, expect)
     check_encode_calls("api", api)
     emit({"phase": "api", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5):
+    for k in (k1, k2, k3, k4, k5, k6, k7):
         k["launches_library_api"] = {path: c[k["name"]]
                                      for path, c in api.items()}
 
@@ -2786,7 +3058,7 @@ def main() -> int:
     clis = command_lines(pcm, stream)
     check_encode_calls("cli", clis)
     emit({"phase": "cli", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5):
+    for k in (k1, k2, k3, k4, k5, k6, k7):
         k["launches_cli"] = {path: c[k["name"]] for path, c in clis.items()}
 
     # ---- 10. the parallel paths and the encoder's pipeline ----
@@ -2794,7 +3066,7 @@ def main() -> int:
     par = parallel_paths(pcm, stream, expect)
     check_encode_calls("parallel", par)
     emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5):
+    for k in (k1, k2, k3, k4, k5, k6, k7):
         k["launches_parallel"] = {path: c[k["name"]]
                                   for path, c in par.items()}
     # ---- 11. the compiled encode programs ----
@@ -2802,10 +3074,10 @@ def main() -> int:
     comp = compiled_encode(pcm, track_keys)
     check_encode_calls("compiled", comp)
     emit({"phase": "compiled", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5):
+    for k in (k1, k2, k3, k4, k5, k6, k7):
         k["launches_compiled_encode"] = {path: c[k["name"]]
                                          for path, c in comp.items()}
-    emit({"kernels": [k1, k2, k3, k4, k5]})
+    emit({"kernels": [k1, k2, k3, k4, k5, k6, k7]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": dev_info})

@@ -298,10 +298,15 @@ def write_aiff(pcm: np.ndarray, sample_rate: int, bits_per_sample: int,
 # Wave64
 # ---------------------------------------------------------------------------
 
+# the Wave64 format's GUIDs (riff 66666972-912E-11CF-A5D6-28DB04C10000;
+# wave, fmt and data xxxxxxxx-ACF3-11D3-8CD1-00C04F8EDB8A), as foreign.py
+# has them.  flac_tpu/container.py ends the last three in 8CD10080
+# 5F9CF04F, so it neither reads another tool's Wave64 nor writes one that
+# --keep-foreign-metadata can restore; the port keeps the format's bytes.
 _W64_RIFF = bytes.fromhex("72696666 2E91CF11 A5D628DB 04C10000".replace(" ", ""))
-_W64_WAVE = bytes.fromhex("77617665 F3ACD311 8CD10080 5F9CF04F".replace(" ", ""))
-_W64_FMT = bytes.fromhex("666D7420 F3ACD311 8CD10080 5F9CF04F".replace(" ", ""))
-_W64_DATA = bytes.fromhex("64617461 F3ACD311 8CD10080 5F9CF04F".replace(" ", ""))
+_W64_WAVE = bytes.fromhex("77617665 F3ACD311 8CD100C0 4F8EDB8A".replace(" ", ""))
+_W64_FMT = bytes.fromhex("666D7420 F3ACD311 8CD100C0 4F8EDB8A".replace(" ", ""))
+_W64_DATA = bytes.fromhex("64617461 F3ACD311 8CD100C0 4F8EDB8A".replace(" ", ""))
 
 
 def read_w64(data: bytes) -> AudioInfo:

@@ -4,7 +4,9 @@ Port of flac_tpu/encoder.py.
 
   [B, C, N] int32 PCM blocks on the device
       -> stereo candidates + wasted bits        (models/stereo.py)
-      -> exact candidate grid search + realize  (models/subframe.py)
+      -> exact candidate grid search + realize  (models/subframe.py: K6
+                                                 the LPC coefficients,
+                                                 K7 the Rice costs)
       -> channel assignment argmin              (models/stereo.py)
       -> field lists, bit-pack, CRCs            (models/frame.py: K4, K1,
                                                  K5)
@@ -25,13 +27,14 @@ K2, then K3) and compared with its input before a byte of it is written.
 On a CUDA device encode_batch and encode_batch_trimmed run as compiled
 programs, the counterpart of the reference's jitted ones: a CUDA graph for
 each static key (configuration, shapes, dtypes, layout, packer), captured
-on the key's second call and replayed after that, with K4, K1 and K5
-inside (_EncodePrograms).  The ops they capture read nothing back from
+on the key's second call and replayed after that, with K6, K7, K4, K1 and
+K5 inside (_EncodePrograms).  The ops they capture read nothing back from
 the device and copy no constant from host memory on a warm call.
 
-The ops mark their stages as profiler ranges (flac.search, flac.assign,
-flac.assemble, and flac.fields, flac.pack and flac.seal inside
-assemble_frames): a few microseconds of host time each while
+The ops mark their stages as profiler ranges (flac.search, with
+flac.lpc_coeffs, flac.residuals, flac.rice and flac.select inside
+search_and_realize; flac.assign; flac.assemble, with flac.fields,
+flac.pack and flac.seal inside assemble_frames): a few microseconds of host time each while
 torch.profiler is not recording.  A graph replay
 records no range: its kernels show up in a trace on their own.
 """
@@ -60,7 +63,8 @@ from .metadata import SeekPoint
 from .models import frame as frame_mod
 from .models import stereo as stereo_mod
 from .models import subframe as subframe_mod
-from .ops import assemble_cuda, pack_cuda, seal_cuda
+from .ops import assemble_cuda, lpc_cuda, pack_cuda, rice_cost_cuda, \
+    seal_cuda
 from .ops import lpc as lpc_ops
 from .ref_decoder import DecodedStream, FlacDecodeError
 from .utils.bits import BitWriter
@@ -74,7 +78,9 @@ def _bank_for(cfg: EncoderConfig, blocksize: int):
 # the wrappers of the kernels an encode program launches, by kernel name:
 # each counts a launch recorded during a capture in `captured` and takes a
 # replay's launches through `count_replay`
-COUNTED_KERNELS = {"pack_fields64": pack_cuda,
+COUNTED_KERNELS = {"lpc_coeffs": lpc_cuda,
+                   "rice_cost": rice_cost_cuda,
+                   "pack_fields64": pack_cuda,
                    "assemble_fields": assemble_cuda,
                    "frame_crc": seal_cuda}
 

@@ -5,7 +5,8 @@ src/libFLAC/lpc.c and window.c): the window bank is a precomputed host
 tensor; autocorrelation is a blocked Gram product; Levinson-Durbin runs all
 orders as a Python loop over the order, vectorized over every subframe;
 quantization mirrors the reference's error-feedback rounding
-(lpc.c:220-314) as a 32-step loop.
+(lpc.c:220-314) as a 32-step loop.  Levinson's inner sum runs in the
+reference's order, one product at a time (see levinson_all_orders).
 
 The apodization search follows the reference's subdivide_tukey scheme
 (stream_encoder.c:4293-4393): autocorrelations are computed per *window*
@@ -166,10 +167,16 @@ def levinson_all_orders(autoc, max_order: int):
     dead = err == 0
     lpcs, errs, was_dead = [], [], []
     for i in range(O):
-        # r = -(autoc[i+1] + sum_{j<i} lpc[j] * autoc[i-j]) / err
-        a_rev = autoc[..., torch.clamp(i - jidx, 0, O)]  # autoc[i-j]
+        # r = -(autoc[i+1] + sum_{j<i} lpc[j] * autoc[i-j]) / err, the sum
+        # taken one product at a time from j = 0 up, the order of the
+        # reference's loop (lpc.c:176-218): a reduction tree on the card
+        # would round in an order that kernel K6 (csrc/lpc_coeffs.cu)
+        # cannot follow, and K6 must equal this bit for bit
         mask = jidx < i
-        s = torch.where(mask, lpc * a_rev, 0).sum(dim=-1)
+        prod = lpc[..., :i] * autoc[..., i - jidx[:i]]   # lpc[j]*autoc[i-j]
+        s = torch.zeros(batch, dtype=autoc.dtype, device=dev)
+        for j in range(i):
+            s = s + prod[..., j]
         safe_err = torch.where(err == 0, 1, err)
         r = -(autoc[..., i + 1] + s) / safe_err
         # lpc'[j] = lpc[j] + r * lpc[i-1-j] for j < i; lpc'[i] = r

@@ -8,8 +8,8 @@ GPU:
 - real -5 and -8 batches of 64 frames whose subframe choice comes from
   the ops form: K4 -> K1 -> K5 against plain -> plain -> plain, word for
   word;
-- a graph replay adds the launches of K4, K1 and K5 its graph holds, and
-  still equals the ops form, in the quad and the safe layout.
+- a graph replay adds the launches of K6, K7, K4, K1 and K5 its graph
+  holds, and still equals the ops form, in the quad and the safe layout.
 
 Every test here carries the `gpu` marker and skips without a GPU (the
 plain versions are held against flac_tpu in test_torch_assemble.py).  The
@@ -143,7 +143,8 @@ def test_a_replay_adds_the_kernels_launches(cuda, monkeypatch, layout):
             layout, "kernel")
         assert _same(got, want), f"call {call}"
     k1 = 1 if layout == "auto" else 0
-    expect = {"pack_fields64": k1, "assemble_fields": 1, "frame_crc": 1}
+    expect = {"lpc_coeffs": 1, "rice_cost": 1, "pack_fields64": k1,
+              "assemble_fields": 1, "frame_crc": 1}
     # the ops launch; the capture records and replays; replays
     for k, n in expect.items():
         assert [s[k] for s in steps] == [(n, 0), (n, n), (n, 0), (n, 0)], k

@@ -56,9 +56,40 @@ def _outcome(fn, *args, **kw):
         return None, (type(e).__name__, str(e))
 
 
-def _both_read(name, blob, **kw):
+# the port writes and reads the Wave64 format's WAVE, fmt and data GUIDs,
+# flac_tpu GUIDs that end 8CD10080 5F9CF04F (a difference kept on
+# purpose): the port's Wave64 file with flac_tpu's GUIDs in their places
+# is flac_tpu's file
+_W64_GUIDS = {container._W64_WAVE: jc._W64_WAVE,
+              container._W64_FMT: jc._W64_FMT,
+              container._W64_DATA: jc._W64_DATA}
+
+
+def as_reference_w64(blob: bytes) -> bytes:
+    """`blob` with each of the port's Wave64 GUIDs (the WAVE GUID and every
+    chunk's) replaced by flac_tpu's; other bytes unchanged."""
+    out = bytearray(blob)
+    wave = bytes(out[24:40])
+    if wave in _W64_GUIDS:
+        out[24:40] = _W64_GUIDS[wave]
+    pos = 40
+    while pos + 24 <= len(out):
+        guid = bytes(out[pos:pos + 16])
+        if guid in _W64_GUIDS:
+            out[pos:pos + 16] = _W64_GUIDS[guid]
+        size = struct.unpack("<Q", out[pos + 16:pos + 24])[0]
+        if size < 24:
+            break
+        pos += (size + 7) & ~7
+    return bytes(out)
+
+
+def _both_read(name, blob, ref_blob=None, **kw):
+    """The port reads `blob`, flac_tpu `ref_blob` (default: the same
+    bytes); both must give the same result or the same error."""
     got, err = _outcome(getattr(container, name), blob, **kw)
-    want, want_err = _outcome(getattr(jc, name), blob, **kw)
+    want, want_err = _outcome(getattr(jc, name),
+                              blob if ref_blob is None else ref_blob, **kw)
     assert err == want_err
     if err is None:
         _same_info(got, want)
@@ -83,13 +114,14 @@ def test_writers_and_readers_match(kind, write, read):
     for channels, bps in SHAPES:
         pcm = _pcm(channels, bps)
         blob = write(container, pcm, bps)
-        assert blob == write(jc, pcm, bps), (kind, channels, bps)
-        info, err = _both_read(read, blob)
+        ref = as_reference_w64(blob) if kind == "w64" else blob
+        assert ref == write(jc, pcm, bps), (kind, channels, bps)
+        info, err = _both_read(read, blob, ref)
         assert err is None
         if info.bits_per_sample == bps:  # read_w64 takes no EXTENSIBLE bps
             np.testing.assert_array_equal(info.samples, pcm)
         _same_info(container.sniff_and_read(blob, device="cpu"),
-                   jc.sniff_and_read(blob))
+                   jc.sniff_and_read(ref))
         if kind == "wav":
             info = container.write_wav(container.AudioInfo(
                 48000, channels, bps, pcm))
@@ -164,7 +196,9 @@ def _hostile_blobs():
 @pytest.mark.parametrize("case", sorted(_hostile_blobs()))
 def test_hostile_inputs_match(case):
     reader, blob, kw = _hostile_blobs()[case]
-    _both_read(reader, blob, **kw)
+    _both_read(reader, blob,
+               as_reference_w64(blob) if reader == "read_w64" else blob,
+               **kw)
 
 
 def _flac_input():

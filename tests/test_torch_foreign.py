@@ -3,8 +3,8 @@
 The round trips of tests/test_foreign.py through the port's `flac` tool
 (cli.main with device="cpu"): WAV with LIST and odd-sized chunks, RF64
 and AIFF with an ANNO chunk go to FLAC with their chunks in
-APPLICATION blocks and come back byte-identical (Wave64: see
-test_container_wave64_is_not_foreign_wave64).  Both packages' foreign
+APPLICATION blocks and come back byte-identical (Wave64, whose GUIDs the
+port's container fixes: test_container_wave64_is_the_format_wave64).  Both packages' foreign
 scanners must give the same blocks, and flac_tpu's tool must restore the
 same bytes from the port's FLAC file, so the port's files interoperate
 with the reference's.  The port encodes; flac_tpu only decodes (its
@@ -13,6 +13,7 @@ with the reference's.  The port encodes; flac_tpu only decodes (its
 
 import struct
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,22 +59,49 @@ INPUTS = {
 }
 
 
-def test_container_wave64_is_not_foreign_wave64():
-    """container's Wave64 WAVE, fmt and data GUIDs end 8CD10080 5F9CF04F
-    where foreign's (and the Wave64 format's) end 8CD100C0 4F8EDB8A, in
-    both packages: the scanner takes the writer's file but cannot find its
-    audio chunk on restore.  The port keeps flac_tpu's bytes; both fail
-    alike."""
-    blob = container.write_w64(PCM, 44100, 16)
-    assert blob == jcontainer.write_w64(PCM, 44100, 16)
-    errors = []
-    for mod in (foreign, jforeign):
-        appid, blocks = mod.scan_foreign(blob)
-        with pytest.raises(mod.ForeignError) as e:
-            mod.restore_foreign(appid, blocks, b"")
-        errors.append(str(e.value))
-    assert errors[0] == errors[1] == \
-        "foreign metadata has no audio chunk header"
+def _format_wave64(pcm) -> bytes:
+    """A Wave64 file built here from the format's GUIDs (not by
+    container.write_w64): riff, wave, a fmt chunk, a "levl" chunk of the
+    GUID form that the format leaves to other tools, then the data chunk;
+    each chunk's size counts its 24-byte header, its body pads to 8."""
+    guid = "F3ACD3118CD100C04F8EDB8A"
+    payload = container._pcm_to_bytes(pcm, 16)
+    ba = pcm.shape[0] * 2
+    fmtc = struct.pack("<HHIIHH", 1, pcm.shape[0], 44100, 44100 * ba, ba,
+                       16)
+
+    def chunk(name: bytes, body: bytes) -> bytes:
+        return (name + bytes.fromhex(guid) + struct.pack("<Q", 24 + len(body))
+                + body + b"\x00" * ((-len(body)) % 8))
+    inner = (b"wave" + bytes.fromhex(guid) + chunk(b"fmt ", fmtc)
+             + chunk(b"levl", bytes(range(7))) + chunk(b"data", payload))
+    return (bytes.fromhex("726966662E91CF11A5D628DB04C10000")
+            + struct.pack("<Q", 24 + len(inner)) + inner)
+
+
+def test_container_wave64_is_the_format_wave64(tmp_path):
+    """The port's container writes and reads the Wave64 format's GUIDs
+    (WAVE, fmt and data end 8CD100C0 4F8EDB8A, as foreign's do), so it
+    reads a format-correct Wave64 that flac_tpu's read_w64 rejects, and
+    --keep-foreign-metadata restores it byte for byte."""
+    ours = container.write_w64(PCM, 44100, 16)
+    for at in (24, 40):                  # the WAVE GUID, the fmt chunk's
+        assert ours[at + 8:at + 16] == bytes.fromhex("8CD100C04F8EDB8A")
+    blob = _format_wave64(PCM)
+    info = container.read_w64(blob)
+    assert (info.sample_rate, info.channels, info.bits_per_sample) == \
+        (44100, 2, 16)
+    np.testing.assert_array_equal(info.samples, PCM)
+    with pytest.raises(jcontainer.ContainerError, match="not a Wave64"):
+        jcontainer.read_w64(blob)
+    src = tmp_path / "in.w64"
+    src.write_bytes(blob)
+    f = tmp_path / "a.flac"
+    assert cli.main(ENC + ["-o", str(f), str(src)], device="cpu") == 0
+    out = tmp_path / "out.w64"
+    assert cli.main(["-d", "-s", "--keep-foreign-metadata", "-o", str(out),
+                     str(f)], device="cpu") == 0
+    assert out.read_bytes() == blob
 
 
 @pytest.mark.parametrize("kind", sorted(INPUTS))
