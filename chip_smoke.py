@@ -56,8 +56,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             predicts.  The MB/s of the three engines, the link probe and
             the engine "auto" picks.  Then the track at -8, decoded back
             by the host engine; both streams go to OUT_DIR
-            (track_-5.flac, track_-8.flac, ~38 MB) for a check against
-            flac_tpu on a machine with JAX.
+            (track_-5.flac, track_-8.flac, ~38 MB; their SHA-256 printed,
+            so that two trees' streams can be held equal) for a check
+            against flac_tpu on a machine with JAX.
 5. ab:      a 20 s clip at -5 through the plain packer must give the same
             bytes as through the kernel; -5, -0 and -8 clips and a transient
             clip (which sends frames through the safe re-encode) must
@@ -76,7 +77,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             `kernels` line with each kernel's ptxas usage, K1's cluster
             size and K2's staged CTAs per main-path launch.  K4 and K5 are
             timed on the track's first batch (the ops form's arguments;
-            K5 on a copy of the words it seals in place).  K3 is timed
+            K5 on a copy of the words it seals in place), K4 also on the
+            track's first 256 frames (`at_B256`); K4 and K7 carry a
+            one-line `design`.  K3 is timed
             on both engines' inputs (int32 and int16 residuals) with its
             chain floor (N x the chain probe's cycles a sample / the SM
             clock) beside the bound; the device engine's transpose copy
@@ -251,6 +254,13 @@ K6_OPS_PER_CANDIDATE = 40
 K7_OPS_PER_SAMPLE = 4
 K7_OPS_PER_SAMPLE_K = 3
 K7_OPS_PER_NODE_K = 6
+# what phase 6 prints as each redesigned kernel's `design`
+K4_DESIGN = ("a cluster of up to 8 CTAs a frame (at most 512 CTAs a "
+             "launch), slots shared out by rank, the bit total pushed to "
+             "rank 0 through distributed shared memory")
+K7_DESIGN = ("bit counts: a warp transpose and __popc a 32 samples; a tree "
+             "of up to 127 nodes costed a thread a node from its 32 counts, "
+             "a larger one a warp a node (the cost is convex in k)")
 
 
 def ptxas_usage(report: str, kernel: str) -> dict:
@@ -2246,8 +2256,9 @@ def main() -> int:
     if len(usage["assemble_fields"]) != 3 or len(usage["frame_crc"]) != 1:
         return fail(f"K4's three layouts or K5 are missing: "
                     f"{usage['assemble_fields']} {usage['frame_crc']}")
-    if len(usage["lpc_coeffs"]) != 1 or len(usage["rice_cost"]) != 2:
-        return fail(f"K6 or K7's two tables (RICE, RICE2) are missing: "
+    if len(usage["lpc_coeffs"]) != 1 or len(usage["rice_cost"]) != 4:
+        return fail(f"K6, or one of K7's four forms (RICE or RICE2, the "
+                    f"costs batched or a warp a node), is missing: "
                     f"{usage['lpc_coeffs']} {usage['rice_cost']}")
     if any(a != b or a > 232448 for a, b in k3_smem.values()):
         return fail(f"K3's dynamic shared memory differs from the host "
@@ -2551,10 +2562,13 @@ def main() -> int:
     for level, data in ((5, stream), (8, stream8)):
         with open(os.path.join(OUT_DIR, f"track_-{level}.flac"), "wb") as f:
             f.write(data)
+    import hashlib
     emit({"phase": "main", "preset": -8, "stream_bytes": len(stream8),
           "stream_bytes_-5": len(stream),
           "compression_ratio": len(stream8) / pcm_bytes,
-          "saved": ["track_-5.flac", "track_-8.flac"]})
+          "saved": ["track_-5.flac", "track_-8.flac"],
+          "sha256": {f"track_-{level}.flac": hashlib.sha256(data).hexdigest()
+                     for level, data in ((5, stream), (8, stream8))}})
     cores = os.cpu_count() or 1
     link = decoder_mod.probe_link_bandwidth("cuda")
     emit({"phase": "main", "round_trip": "ok", "md5": "match",
@@ -2836,7 +2850,8 @@ def main() -> int:
           "library_note": "no PyTorch call computes an integer IIR restore",
           "ptxas": usage["restore"]}
 
-    # K4 and K5 on the main path's first batch (the ops form), as K1
+    # K4 and K5 on the main path's first batch (the ops form), as K1; K4
+    # also on the track's first 256 frames (the sharded form's batch)
     seen = capture_assembly(blocks, cfg5)
     a4, (w5, bl5, hb5) = seen["k4"], seen["k5"]
     ok4, err4 = k4_compare(a4)
@@ -2845,6 +2860,14 @@ def main() -> int:
         return fail("K4 or K5 differs from its plain version on the main "
                     "path's first batch")
     k4_err, k5_err = max(k4_err, err4), max(k5_err, err5)
+    a4_256 = capture_assembly(torch.from_numpy(np.ascontiguousarray(
+        pcm[:, :256 * 4096].reshape(2, 256, 4096).transpose(1, 0, 2)))
+        .cuda(), cfg5)["k4"]
+    ok4, err4 = k4_compare(a4_256)
+    if not ok4:
+        return fail("K4 differs from its plain version on the track's first "
+                    "256 frames")
+    k4_err = max(k4_err, err4)
     w5k = w5.clone()                 # K5 seals in place: time on a copy
 
     def k4_kernel():
@@ -2858,39 +2881,64 @@ def main() -> int:
 
     def k5_plain():
         frame_mod.seal_frames_plain(w5, bl5, hb5)
+    def k4_kernel_256():
+        frame_mod.assemble_fields(*a4_256)
+
+    def k4_plain_256():
+        frame_mod.assemble_fields_plain(*a4_256)
     k45 = {}
     for name, kern, plain, dev_name in (
             ("assemble_fields", k4_kernel, k4_plain,
+             "assemble_fields_kernel"),
+            ("assemble_fields B=256", k4_kernel_256, k4_plain_256,
              "assemble_fields_kernel"),
             ("frame_crc", k5_kernel, k5_plain, "frame_crc_kernel")):
         runs = [cuda_time_ms(f) for f in (plain, kern, kern, plain)]
         k45[name] = {"dev": kernel_device_ms(kern, dev_name),
                      "plain_ms_runs": [runs[0], runs[3]],
                      "kernel_ms_runs": [runs[1], runs[2]]}
-    # K4: each input read once as this batch needs it (the channel
-    # scalars, warm-up and coefficients of every subframe, the partition
-    # parameters of the orders in use, residuals of FIXED and LPC
-    # subframes, signal samples of VERBATIM ones, the assignment and frame
-    # numbers), each output written once (nzeros, payload, pbits and the
-    # three [B] outputs); K4_OPS_PER_FIELD a field, K4_OPS_PER_SAMPLE a
-    # coded sample
-    ch, sig = a4[0], a4[1]
-    B4, C4, N4 = sig.shape
-    F4 = assemble_cuda.field_layout(
-        C4, N4, ch.params.shape[-1], *frame_mod.resolve_layout(
-            cfg5, N4, ch.params.shape[-1], a4[6])).F
-    fmt = frame_mod.fmt
-    has_res = (ch.type_ == fmt.SUBFRAME_TYPE_FIXED) | (
-        ch.type_ == fmt.SUBFRAME_TYPE_LPC)
-    is_v = ch.type_ == fmt.SUBFRAME_TYPE_VERBATIM
-    k4_bytes = int(B4 * C4 * (7 * 4 + 1 + 32 * ch.warmup.element_size()
-                              + 32 * 4)
-                   + ((1 << ch.po.long()) * 4 * has_res).sum()
-                   + has_res.sum() * N4 * 4
-                   + is_v.sum() * N4 * sig.element_size()
-                   + B4 * (4 + 8) + B4 * F4 * 16 + B4 * 9)
-    k4_ops = int(B4 * F4 * K4_OPS_PER_FIELD
-                 + has_res.sum() * N4 * K4_OPS_PER_SAMPLE)
+
+    def k4_work(args):
+        """K4's bytes and operations on a batch: each input read once as
+        the batch needs it (the channel scalars, warm-up and coefficients
+        of every subframe, the partition parameters of the orders in use,
+        residuals of FIXED and LPC subframes, signal samples of VERBATIM
+        ones, the assignment and frame numbers), each output written once
+        (nzeros, payload, pbits and the three [B] outputs);
+        K4_OPS_PER_FIELD a field, K4_OPS_PER_SAMPLE a coded sample.
+        Returns (B, F, bytes, operations)."""
+        ch, sig = args[0], args[1]
+        B_, C_, N_ = sig.shape
+        F_ = assemble_cuda.field_layout(
+            C_, N_, ch.params.shape[-1], *frame_mod.resolve_layout(
+                cfg5, N_, ch.params.shape[-1], args[6])).F
+        fmt = frame_mod.fmt
+        has_res = (ch.type_ == fmt.SUBFRAME_TYPE_FIXED) | (
+            ch.type_ == fmt.SUBFRAME_TYPE_LPC)
+        is_v = ch.type_ == fmt.SUBFRAME_TYPE_VERBATIM
+        nbytes = int(B_ * C_ * (7 * 4 + 1 + 32 * ch.warmup.element_size()
+                                + 32 * 4)
+                     + ((1 << ch.po.long()) * 4 * has_res).sum()
+                     + has_res.sum() * N_ * 4
+                     + is_v.sum() * N_ * sig.element_size()
+                     + B_ * (4 + 8) + B_ * F_ * 16 + B_ * 9)
+        nops = int(B_ * F_ * K4_OPS_PER_FIELD
+                   + has_res.sum() * N_ * K4_OPS_PER_SAMPLE)
+        return B_, F_, nbytes, nops
+    B4, F4, k4_bytes, k4_ops = k4_work(a4)
+    _, _, k4_bytes_256, k4_ops_256 = k4_work(a4_256)
+    t = k45["assemble_fields B=256"]
+    bytes_ms = k4_bytes_256 / HBM_BYTES_PER_S * 1e3
+    ops_ms = k4_ops_256 / NON_TENSOR_OPS_PER_S * 1e3
+    k4_at_256 = {"B": 256, "ms": t["dev"]["ms"], "ms_by": t["dev"]["ms_by"],
+                 "ms_queued_events": t["dev"]["ms_queued_events"],
+                 "kernel_ms": min(t["kernel_ms_runs"]),
+                 "plain_ms": min(t["plain_ms_runs"]), "bytes": k4_bytes_256,
+                 "operations": k4_ops_256, "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit({"phase": "times", "kernel": "assemble_fields", **k4_at_256,
+          "device_ms": t["dev"]["ms"], "kernel_ms_runs": t["kernel_ms_runs"],
+          "plain_ms_runs": t["plain_ms_runs"]})
     # K5: each frame's bytes under the CRCs read once, its length and
     # header length, the 3 CRC bytes written; K5_OPS_PER_BYTE a byte
     crc_bytes = int((bl5.long() - 2).clamp(min=0).sum())
@@ -2922,6 +2970,8 @@ def main() -> int:
             "library_note": ("no single PyTorch call builds FLAC field "
                              "lists" if name == "assemble_fields" else
                              "no PyTorch call computes a CRC"),
+            **({"design": K4_DESIGN, "at_B256": k4_at_256}
+               if name == "assemble_fields" else {}),
             "ptxas": usage[name]})
     k4, k5 = kernels45
 
@@ -3013,6 +3063,7 @@ def main() -> int:
                              "quantizer" if key == "k6" else
                              "no PyTorch call computes partitioned Rice "
                              "costs"),
+            **({"design": K7_DESIGN} if key == "k7" else {}),
             "ptxas": usage[name]})
     k6, k7 = kernels67
     del timed_inputs, a67

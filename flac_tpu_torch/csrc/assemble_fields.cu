@@ -21,30 +21,47 @@
 //   Rice codes fused into one payload (QUAD), or a (high, low-16) pair a
 //   sample (WIDE)); then the padding and the CRC-16 slot.
 //
-// Design: one CTA of THREADS threads a frame.  The frame's channel scalars
-// go to shared memory; the threads stride over the frame's field slots,
-// each slot computed on its own from the subframe choice (a sample slot
-// reads its 1 or 4 residuals and its partition's parameter) and stored at
-// once, neighbouring threads on neighbouring slots.  The bit total and
-// the fit flag are block reductions (shared-memory atomics); thread 0 then
-// writes the padding and CRC-16 slots.  Every variable shift mirrors the
-// plain version's torch semantics (a shift by a negative amount or by the
-// type's width or more gives 0, or the sign for a right shift), and every
-// clamp the plain version applies (CUDA leaves such shifts undefined).
+// Design: a thread block cluster of up to 8 CTAs a frame (fewer where the
+// batch would launch more than CTA_TARGET = 512 CTAs: 2 a frame at B=256;
+// the cluster size is the launch's, read back as %cluster_nctarank).  Rank
+// r takes the r-th share of the frame's F - 2 body slots (a whole number
+// of warps' worth, so at -5 about one slot a thread; a small frame leaves
+// the last ranks none), and the r-th share of the wide layout's quad fit
+// work.  Each CTA loads the frame's channel scalars, and each channel's
+// partition length, into its own shared memory; its threads take
+// neighbouring slots, each slot computed on its own from the subframe
+// choice (a sample slot reads its 1 or 4 residuals, the quad's 4 as one
+// 16-byte load where the row is 16-byte aligned, and its partition's
+// parameter: one division a quad) and stored at once.  The bit total and
+// the fit flag are warp reductions (__reduce_add_sync, __all_sync), then
+// a sum over the CTA's warps by thread 0, which stores the share's into
+// rank 0's shared memory (mapa / st.shared::cluster); after one cluster
+// barrier rank 0 writes the padding and CRC-16 slots, the bits, the fit
+// flag and the header bytes.  No global atomic, no memset.  Every
+// variable shift mirrors the plain version's torch semantics (a shift by
+// a negative amount or by the type's width or more gives 0, or the sign
+// for a right shift), and every clamp the plain version applies (CUDA
+// leaves such shifts undefined).
 //
 // Bound on an H100: per -5 batch (B=64, C=2, N=4096, F=2263) the kernel
 // reads the residuals (2.1 MB of int32) and writes 64*2263*16 B ~ 2.3 MB of
 // fields: ~1.3 us of HBM time at 3.35 TB/s, and about 30 integer operations
-// a sample.  64 CTAs on 132 SMs: a launch is a few dependent memory
-// latencies, not bytes; spreading a frame over several CTAs is a later
-// design's work.
+// a sample.  A launch is bound by the instructions of its slots (a quad
+// slot is a few hundred: the slot's decode, four samples' shifts and
+// masks, the fusion's 64-bit shifts) and their dependent loads, spread
+// over 512 CTAs, about 4 an SM, rather than by bytes.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int CLUSTER = 8;          // CTAs a frame, at most
+constexpr int CTA_TARGET = 512;     // CTAs a launch: ~4 an H100 SM
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int MAX_CHANNELS = 8;
 constexpr int MAX_LPC_ORDER = 32;
 constexpr int ESCAPE_K_BASE = 64;
@@ -54,8 +71,10 @@ constexpr int TYPE_CONSTANT = 0, TYPE_VERBATIM = 1, TYPE_FIXED = 2,
 constexpr long long U32 = 0xFFFFFFFFLL;
 enum { SAFE = 0, QUAD = 1, WIDE = 2 };
 // channel scalars held in shared memory
+// (CH_PLEN: the partition length of an order whose partitions divide N,
+// else 0, where every sample takes partition 0's parameter)
 enum { CH_TYPE, CH_ORDER, CH_WASTED, CH_BPS, CH_PREC, CH_SHIFT, CH_PO,
-       CH_RICE2, CH_N };
+       CH_RICE2, CH_PLEN, CH_N };
 constexpr int N_PTRS = 21;
 constexpr int N_INTS = 19;
 
@@ -118,13 +137,10 @@ __device__ __forceinline__ int add32(int a, int b) {      // int32 wrap
 }
 
 // The Rice parameter of sample n: the partition's for an order whose
-// partitions divide N, else partition 0's (the plain version's first-match
-// expansion).
-__device__ __forceinline__ int rice_k(const int* params, int N, int po,
-                                      int max_po, int n) {
-    if (po >= 0 && po <= max_po && N % (1 << po) == 0)
-        return params[n / (N >> po)];
-    return params[0];
+// partitions divide N (of plen samples), else partition 0's (plen 0: the
+// plain version's first-match expansion).
+__device__ __forceinline__ int rice_k(const int* params, int plen, int n) {
+    return params[plen ? n / plen : 0];
 }
 
 // A parameter prefix: k in plen bits, or an escape marker and a 5-bit raw
@@ -145,20 +161,24 @@ __device__ __forceinline__ Field prefix(int kv, int rice2, bool active) {
     return f;
 }
 
-// One sample's field (in the WIDE layout the high half's).
+// One sample's field (in the WIDE layout the high half's); r and k are its
+// residual and Rice parameter where the subframe has residuals.
 template <bool WIDE_SAMPLES>
-__device__ __forceinline__ Field sample(const Args& a, const int* ch,
-                                       const int* res, const void* sig,
-                                       const int* params, int n) {
+__device__ __forceinline__ Field sample(const Args& a, const int* ch, int r,
+                                       int k, const void* sig, int n) {
     const int type = ch[CH_TYPE], bps = ch[CH_BPS];
     const bool has_res = type == TYPE_FIXED || type == TYPE_LPC;
     Field f{0, 0, 0};
     if (has_res && n >= ch[CH_ORDER]) {
-        const int r = res[n];
-        const long long u =
-            (long long)(((unsigned int)r << 1) ^ (unsigned int)(r >> 31));
-        const int k = rice_k(params, a.N, ch[CH_PO], a.max_po, n);
-        if (k >= ESCAPE_K_BASE) {
+        const unsigned int u32 =
+            ((unsigned int)r << 1) ^ (unsigned int)(r >> 31);
+        const long long u = (long long)u32;
+        if ((unsigned int)k < 32u) {                 // the common case
+            const unsigned int bit = 1u << k;
+            f.nz = (int)(u32 >> k);
+            f.pay = (long long)(bit | (u32 & (bit - 1u)));
+            f.pb = k + 1;
+        } else if (k >= ESCAPE_K_BASE) {
             const int rawb = k - ESCAPE_K_BASE;
             f.pay = ((long long)r & U32) & low_mask(clampi(rawb, 0, 31));
             f.pb = rawb;
@@ -183,19 +203,48 @@ __device__ __forceinline__ Field sample(const Args& a, const int* ch,
     return f;
 }
 
+// The residuals of quad qi: one 16-byte load where the row allows it;
+// none where the subframe has no residuals.
+__device__ __forceinline__ int4 quad_residuals(const int* ch,
+                                               const int* res, int qi) {
+    const int type = ch[CH_TYPE];
+    if (type != TYPE_FIXED && type != TYPE_LPC) return make_int4(0, 0, 0, 0);
+    const int* p = res + 4 * qi;
+    if (((uintptr_t)p & 15) == 0)
+        return __ldg(reinterpret_cast<const int4*>(p));
+    return make_int4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
 // Quad qi's fused field: sample 4qi's unary zeros stay in nz, the rest of
-// the run concatenates into one payload.
+// the run concatenates into one payload.  In the quad layout a partition
+// has at least 4 samples (the layout's m_min), so a quad's samples span at
+// most two partitions: one division finds both parameters.
 template <bool WIDE_SAMPLES>
 __device__ __forceinline__ Field fuse(const Args& a, const int* ch,
                                       const int* res, const void* sig,
                                       const int* params, int qi) {
-    Field f = sample<WIDE_SAMPLES>(a, ch, res, sig, params, 4 * qi);
+    const int4 r4 = quad_residuals(ch, res, qi);
+    const int r[4] = {r4.x, r4.y, r4.z, r4.w};
+    const int n0 = 4 * qi, plen = ch[CH_PLEN];
+    int k[4];
+    if (WIDE_SAMPLES) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) k[i] = rice_k(params, plen, n0 + i);
+    } else {
+        const int p0 = plen ? n0 / plen : 0;
+        const int next = plen ? (p0 + 1) * plen : INT_MAX;
+        const int k0 = params[p0];
+        const int k1 = n0 + 3 >= next ? params[p0 + 1] : k0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) k[i] = n0 + i >= next ? k1 : k0;
+    }
+    Field f = sample<WIDE_SAMPLES>(a, ch, r[0], k[0], sig, n0);
 #pragma unroll
     for (int i = 1; i < 4; ++i) {
-        const Field s = sample<WIDE_SAMPLES>(a, ch, res, sig, params,
-                                             4 * qi + i);
+        const Field s = sample<WIDE_SAMPLES>(a, ch, r[i], k[i], sig, n0 + i);
         const int step = add32(s.nz, s.pb);
-        f.pay = shl(f.pay, clampi(step, 0, 63)) | s.pay;
+        f.pay = (long long)((unsigned long long)f.pay << clampi(step, 0, 63))
+                | s.pay;
         f.pb = add32(f.pb, step);
     }
     return f;
@@ -308,15 +357,15 @@ __device__ __forceinline__ Field channel_field(const Args& a, int b, int c,
             // 2^(max_po - po)
             const int ratio = shr32(1 << a.max_po, po);
             const bool act = has_res && g > 0 && (g & (ratio - 1)) == 0;
-            f = prefix(rice_k(params, a.N, po, a.max_po, g * a.m_min),
-                       rice2, act);
+            f = prefix(rice_k(params, ch[CH_PLEN], g * a.m_min), rice2, act);
         } else if (LAYOUT == QUAD) {
             f = fuse<false>(a, ch, res, sig, params, g * a.per + i - 1);
             fit = fit && f.pb <= 63;
         } else if (LAYOUT == WIDE) {
             const int n = g * a.m_min + ((i - 1) >> 1);
             if (((i - 1) & 1) == 0) {
-                f = sample<true>(a, ch, res, sig, params, n);
+                f = sample<true>(a, ch, has_res ? __ldg(res + n) : 0,
+                                 rice_k(params, ch[CH_PLEN], n), sig, n);
             } else if (is_v) {                           // the low half
                 const long long x =
                     a.sig64 ? ((const long long*)sig)[n]
@@ -325,36 +374,88 @@ __device__ __forceinline__ Field channel_field(const Args& a, int b, int c,
                 f.pb = bps < 16 ? bps : 16;
             }
         } else {
-            f = sample<false>(a, ch, res, sig, params,
-                              g * a.m_min + i - 1);
+            const int n = g * a.m_min + i - 1;
+            f = sample<false>(a, ch, has_res ? __ldg(res + n) : 0,
+                              rice_k(params, ch[CH_PLEN], n), sig, n);
         }
     }
     return f;
 }
 
+// ---- cluster helpers ----
+__device__ __forceinline__ int cluster_rank() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+    return (int)r;
+}
+__device__ __forceinline__ int cluster_size() {
+    unsigned n;
+    asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+    return (int)n;
+}
+// arrive early (relaxed), wait before the first store into another CTA's
+// shared memory: every CTA of the cluster is running by then
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// every thread of the cluster arrives; shared-memory stores before it,
+// local or remote, are seen by every thread of the cluster after it
+__device__ __forceinline__ void cluster_barrier() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                 "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// store v at p's place in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ void store_remote(unsigned* p, int rank,
+                                             unsigned v) {
+    const unsigned local = (unsigned)__cvta_generic_to_shared(p);
+    unsigned remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(remote) : "r"(local), "r"(rank));
+    asm volatile("st.shared::cluster.u32 [%0], %1;"
+                 :: "r"(remote), "r"(v) : "memory");
+}
+// ---- end of cluster helpers ----
+
+// The first of rank r's items when n are shared out among nc ranks in
+// whole warps' worth.
+__device__ __forceinline__ int share_begin(int n, int r, int nc) {
+    const int share = ((n + nc - 1) / nc + 31) & ~31;
+    return min(n, r * share);
+}
+
+struct Smem {
+    int ch[MAX_CHANNELS][CH_N];          // the frame's channel scalars
+    unsigned warp_bits[WARPS];
+    unsigned warp_misfit[WARPS];
+    unsigned rank_bits[CLUSTER];         // in rank 0: every rank's share
+    unsigned rank_misfit[CLUSTER];
+};
+
 template <int LAYOUT>
-__global__ void __launch_bounds__(THREADS) assemble_fields_kernel(
-        const Args a) {
-    __shared__ int ch[MAX_CHANNELS][CH_N];
-    __shared__ unsigned int s_bits;
-    __shared__ int s_misfit;
-    const int b = blockIdx.x;
+__global__ void __launch_bounds__(THREADS)
+assemble_fields_kernel(const Args a) {
+    __shared__ Smem sh;
+    cluster_arrive_relaxed();
+    const int rank = cluster_rank(), nc = cluster_size();
+    const int b = blockIdx.x / nc;
     const size_t bc0 = (size_t)b * a.C;
     if (threadIdx.x < a.C) {
         const size_t bc = bc0 + threadIdx.x;
-        int* row = ch[threadIdx.x];
+        int* row = sh.ch[threadIdx.x];
         row[CH_TYPE] = a.type_[bc];
         row[CH_ORDER] = a.order[bc];
         row[CH_WASTED] = a.wasted[bc];
         row[CH_BPS] = a.bps_eff[bc];
         row[CH_PREC] = a.precision[bc];
         row[CH_SHIFT] = a.shift[bc];
-        row[CH_PO] = a.po[bc];
+        const int po = a.po[bc];
+        row[CH_PO] = po;
         row[CH_RICE2] = a.rice2[bc] != 0;
-    }
-    if (threadIdx.x == 0) {
-        s_bits = 0;
-        s_misfit = 0;
+        row[CH_PLEN] = po >= 0 && po <= a.max_po && a.N % (1 << po) == 0
+                       ? a.N >> po : 0;
     }
     __syncthreads();
 
@@ -364,14 +465,16 @@ __global__ void __launch_bounds__(THREADS) assemble_fields_kernel(
     const int body = a.F - 2;               // every field but the last two
     unsigned int bits = 0;
     bool fit = true;
-    for (int s = threadIdx.x; s < body; s += THREADS) {
+    const int s1 = share_begin(body, rank + 1, nc);
+    for (int s = share_begin(body, rank, nc) + threadIdx.x; s < s1;
+         s += THREADS) {
         Field f;
         if (s < HEAD_FIELDS) {
             f = head_field(a, b, s);
         } else {
             const int c = (s - HEAD_FIELDS) / a.CH;
             f = channel_field<LAYOUT>(a, b, c, s - HEAD_FIELDS - c * a.CH,
-                                      ch[c], fit);
+                                      sh.ch[c], fit);
         }
         nz_row[s] = f.nz;
         pay_row[s] = f.pay;
@@ -380,22 +483,47 @@ __global__ void __launch_bounds__(THREADS) assemble_fields_kernel(
     }
     if (LAYOUT == WIDE && a.fit_quads) {
         // the quad layout's fit flag over the wide samples' fields
-        const int quads = a.N >> 2;
-        for (int t = threadIdx.x; t < a.C * quads; t += THREADS) {
+        const int quads = a.N >> 2, work = a.C * quads;
+        const int t1 = share_begin(work, rank + 1, nc);
+        for (int t = share_begin(work, rank, nc) + threadIdx.x; t < t1;
+             t += THREADS) {
             const int c = t / quads;
             const size_t bc = bc0 + c;
             const Field f = fuse<true>(
-                a, ch[c], a.residual + bc * a.N,
+                a, sh.ch[c], a.residual + bc * a.N,
                 (const char*)a.signal + bc * a.N * (a.sig64 ? 8 : 4),
                 a.params + bc * a.P, t - c * quads);
             fit = fit && f.pb <= 63;
         }
     }
-    if (bits) atomicAdd(&s_bits, bits);
-    if (!fit) s_misfit = 1;
+    // the share's bit total and fit flag: warps, then the CTA, then rank 0
+    bits = __reduce_add_sync(FULL, bits);
+    const bool warp_fit = __all_sync(FULL, fit);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) {
+        sh.warp_bits[warp] = bits;
+        sh.warp_misfit[warp] = warp_fit ? 0u : 1u;
+    }
     __syncthreads();
+    cluster_wait();
     if (threadIdx.x == 0) {
-        const unsigned int total = s_bits;
+        unsigned total = 0, misfit = 0;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+            total += sh.warp_bits[w];
+            misfit |= sh.warp_misfit[w];
+        }
+        store_remote(&sh.rank_bits[rank], 0, total);
+        store_remote(&sh.rank_misfit[rank], 0, misfit);
+    }
+    cluster_barrier();
+    if (rank == 0 && threadIdx.x == 0) {
+        unsigned total = 0, misfit = 0;
+#pragma unroll
+        for (int r = 0; r < nc; ++r) {
+            total += sh.rank_bits[r];
+            misfit |= sh.rank_misfit[r];
+        }
         nz_row[body] = (int)((0u - total) & 7u);          // the padding
         pay_row[body] = 0;
         pb_row[body] = 0;
@@ -403,7 +531,7 @@ __global__ void __launch_bounds__(THREADS) assemble_fields_kernel(
         pay_row[body + 1] = 0;
         pb_row[body + 1] = 16;
         a.bits[b] = (int)total;
-        a.ok[b] = s_misfit ? 0 : 1;
+        a.ok[b] = misfit ? 0 : 1;
         a.hdr_bytes[b] = 4 + utf8_len(a.frame_numbers[b])
                          + a.bs_tail_bits / 8 + a.sr_tail_bits / 8;
     }
@@ -469,16 +597,36 @@ int flac_assemble_fields(const void* const* ptrs, int n_ptrs,
         || a.F != HEAD_FIELDS + a.C * a.CH + 2
         || a.CH != 5 + a.WS + MAX_LPC_ORDER + a.G * (1 + a.per))
         return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
+    // a cluster of up to CLUSTER CTAs a frame, fewer where the batch
+    // would launch more than CTA_TARGET CTAs
+    int nc = CLUSTER;
+    while (nc > 1 && (long long)a.B * nc > CTA_TARGET) nc >>= 1;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nc;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.B * nc, 1, 1);
+    cfg.blockDim = dim3(THREADS, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t e;
     switch (layout) {
-        case SAFE: assemble_fields_kernel<SAFE><<<a.B, THREADS, 0, s>>>(a);
+        case SAFE: e = cudaLaunchKernelEx(&cfg, assemble_fields_kernel<SAFE>,
+                                          a);
                    break;
-        case QUAD: assemble_fields_kernel<QUAD><<<a.B, THREADS, 0, s>>>(a);
+        case QUAD: e = cudaLaunchKernelEx(&cfg, assemble_fields_kernel<QUAD>,
+                                          a);
                    break;
-        case WIDE: assemble_fields_kernel<WIDE><<<a.B, THREADS, 0, s>>>(a);
+        case WIDE: e = cudaLaunchKernelEx(&cfg, assemble_fields_kernel<WIDE>,
+                                          a);
                    break;
         default: return (int)cudaErrorInvalidValue;
     }
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 

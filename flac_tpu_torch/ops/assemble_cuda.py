@@ -3,11 +3,12 @@
 Replaces the field-list build of flac_tpu/models/frame.py:assemble_frames
 (:70-377, with `_utf8_fields` and the padding), which XLA fuses into a few
 programs on the TPU and the port ran op by op: about 2300 small kernels a
--5 batch of 64 frames.  The source is csrc/assemble_fields.cu: one CTA a
-frame, whose threads stride over the frame's field slots, each slot
-computed from the frame's subframe choice on its own; the frame's bit
-total and the quad layout's fit flag are block reductions (see the source
-for the design).
+-5 batch of 64 frames.  The source is csrc/assemble_fields.cu: a thread
+block cluster of up to 8 CTAs a frame (`cluster_size(B)`: 8 at B=64, 2 at
+B=256), each rank a share of the frame's field slots, each slot computed
+from the frame's subframe choice on its own; the frame's bit total and
+the quad layout's fit flag are warp and CTA reductions whose shares meet
+in rank 0's shared memory (see the source for the design).
 
 A frame's fields follow one static layout, `field_layout(C, N, P, quad,
 wide)`: the frame header, 7 UTF-8 slots, the blocksize and rate tails and
@@ -23,9 +24,8 @@ and segment offsets equal for every layout.
 Bound: per -5 batch (B=64, C=2, N=4096, F=2263 fields) the kernel must
 read the residuals (2.1 MB as int32) and write 64*2263*16 B ~ 2.3 MB of
 fields: ~1.3 us of HBM time at 3.35 TB/s (the NVIDIA H100 SXM data sheet's
-rate).  With a CTA a frame, 64 CTAs leave most of the card's 132 SMs idle:
-a launch is a few dependent memory latencies, not bytes.  chip_smoke.py
-measures it.
+rate).  A launch is bound by its slots' instructions and dependent loads,
+not bytes; chip_smoke.py measures it.
 
 `frame.assemble_fields` dispatches on the tensors' device: the plain
 version for CPU tensors, `assemble_fields_cuda` here for CUDA tensors (it
@@ -50,6 +50,8 @@ REPLACES = "flac_tpu/models/frame.py:63"        # assemble_frames
 _LIB_NAME = "assemble_fields"
 HEAD_FIELDS = 11          # header, 7 UTF-8 slots, two tails, CRC-8 slot
 MAX_CHANNELS = 8
+CLUSTER = 8               # CTAs a frame, at most (CLUSTER in the source)
+CTA_TARGET = 512          # CTAs a launch, at most where a frame has > 1
 # the kernel's group layouts (LAYOUT in the source)
 SAFE, QUAD, WIDE = 0, 1, 2
 
@@ -113,6 +115,15 @@ def field_layout(C: int, N: int, P: int, quad: bool,
     return FieldLayout(F=at + 2, CH=CH, WS=WS, G=G, per=per, m_min=m_min,
                        max_po=max_po, group_layout=group_layout,
                        segments=tuple(segments))
+
+
+def cluster_size(B: int) -> int:
+    """CTAs a frame in a launch of B frames, as the source chooses them:
+    CLUSTER, halved while B times it passes CTA_TARGET (at least 1)."""
+    nc = CLUSTER
+    while nc > 1 and B * nc > CTA_TARGET:
+        nc //= 2
+    return nc
 
 
 def _library() -> ctypes.CDLL:

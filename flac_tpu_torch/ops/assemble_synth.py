@@ -8,9 +8,13 @@ subframes side by side, wasted bits, escaped partitions (raw widths 0 and
 that skips the orders whose partitions do not divide it, so the plain
 version's first match keeps partition 0's parameter), quad misfits, a
 blocksize and a rate with 16-bit header tails, 8-bit ones, 7-byte UTF-8
-frame numbers, mono and 8 channels, and the 33-bit side's (high, low-16)
+frame numbers, mono and 8 channels, the 33-bit side's (high, low-16)
 pairs, with int64 signals, in the wide layout and under an explicit quad
-layout.  A case's subframe choice is random but keeps each frame within
+layout, and the edges of K4's cluster of CTAs a frame: a batch of one
+frame, 133 frames (more clusters than the H100's 132 SMs), 16-sample
+frames, whose few field slots leave the last ranks of a cluster none, and
+36-sample frames whose partitions of 9 and 18 samples put a quad's four
+samples in two partitions.  A case's subframe choice is random but keeps each frame within
 the word rows (residuals near their partition's Rice parameter), so the
 whole chain fields -> pack -> seal runs on it too.
 
@@ -160,6 +164,14 @@ def cases():
         ("wide pairs under an explicit quad layout",
          batch(11, B=3, C=2, N=1024, P=8, bps=32, wide=True,
                layout="quad")),
+        ("quad, a batch of one frame", batch(12, B=1, C=2, N=4096, P=32,
+                                             bps=16)),
+        ("quad, 133 frames of 1152: more clusters than SMs",
+         batch(13, B=133, C=2, N=1152, P=8, bps=16)),
+        ("safe, N=16: cluster ranks with no body slot",
+         batch(14, B=3, C=1, N=16, P=16, bps=16)),
+        ("quad, N=36 with P=8: partitions of 9 and 18, quads across them",
+         batch(15, B=3, C=2, N=36, P=8, bps=16)),
     ]
 
 

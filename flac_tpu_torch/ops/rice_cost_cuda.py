@@ -6,11 +6,15 @@ which XLA fuses into the jitted encode_batch and the port ran op by op:
 the int32 residuals zigzagged into an int64 tensor (50 MB at -5), then
 kmax + 1 shift-and-sum passes over it, the pair-merges, argmins and
 escapes of every partition order.  The source is csrc/rice_cost.cu: a CTA
-a (frame, channel candidate, candidate) row that reads its residuals once,
-zigzags them in registers and builds the partition tree of shifted sums
-in one pass, with every partition order the configuration allows (see the
-source for the design).  Every cost is an integer, so it equals the plain
-version (models/subframe.py _rice_cost_plain) bit for bit.
+a (frame, channel candidate, candidate) row that reads its residuals once
+and counts, for each partition, how many zigzagged residuals have each
+bit set (a warp's 32 x 32 bit transpose and __popc); every shifted sum
+S_k follows from the 32 counts, and as the cost is convex in k the first
+argmin is the first k where it stops falling, so each node of the
+partition tree (every partition order the configuration allows) is
+costed without a search over k (see the source for the design).  Every
+cost is an integer, so it equals the plain version (models/subframe.py
+_rice_cost_plain) bit for bit.
 
 Bound: at -5 a batch is 1536 rows of 4096 int32 residuals: 25.2 MB read
 once (and ~1.2 MB of parameters written), ~7.9 us of HBM time at 3.35 TB/s

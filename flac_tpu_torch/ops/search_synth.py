@@ -16,10 +16,12 @@ and N of 16, 1152, 4096 and 4608.
 
 K7 (`rice_cases`): residual rows of Laplacian-like partitions of
 scattered sizes, with every partition order up to the largest each
-blocksize allows (16, 1152, 4096, 4608 and 4096 at -r 15: 4096
-partitions of one sample), escape coding with raw widths 0 (silent
-partitions) and 31 and 32, RICE2 parameters past 14 (24-bit and 32-bit
-configurations), residuals of +-(2^31 - 1) and -2^31, predictor orders
+blocksize allows (16, 1152, 4096, 4608, and 4096 and 32768 at -r 15:
+4096 and 32768 partitions of one sample), escape coding with raw widths 0
+(silent partitions) and 31 and 32, RICE2 parameters past 14 (24-bit and
+32-bit configurations), residuals of +-(2^31 - 1) and -2^31 (a RICE2 row
+of -2^31 only at N=32768: every bit count at its largest, S_0 near
+2^47), predictor orders
 up to 32 (partition 0 past its samples: invalid levels), and a minimum
 partition order above 0.
 
@@ -131,12 +133,13 @@ def lpc_cases() -> list:
 
 def rice_batch(seed: int, *, B: int, CH: int, C: int, N: int,
                max_po: int, bits: int = 14, edges: bool = False,
-               max_order: int = 12) -> dict:
+               max_order: int = 12, lowest: bool = False) -> dict:
     """Residual rows [B, CH, C, N] int32, zero below each row's order
     [B, CH, C] (0..max_order, row 0 of each frame order 0): partitions of
     2^max_po with magnitudes of 0..`bits` bits each (some silent); with
     `edges`, some rows full-scale (+-(2^31 - 1), -2^31) and some
-    partitions near 2^30."""
+    partitions near 2^30; with `lowest`, the order-0 rows all -2^31 (every
+    zigzagged bit set)."""
     rng = np.random.default_rng(seed)
     P = 1 << max_po
     m = N // P
@@ -155,6 +158,8 @@ def rice_batch(seed: int, *, B: int, CH: int, C: int, N: int,
                      rng.integers(-(2 ** 30), 2 ** 30, (rows, N)), r)
     order = rng.integers(0, max_order + 1, rows).astype(np.int32)
     order[::C] = 0
+    if lowest:
+        r[::C] = -(2 ** 31)
     r[np.arange(N)[None, :] < order[:, None]] = 0
     return {"res": r.astype(np.int32).reshape(B, CH, C, N),
             "order": order.reshape(B, CH, C)}
@@ -201,6 +206,10 @@ def rice_cases() -> list:
         _config(256, max_residual_partition_order=6,
                 min_residual_partition_order=2), B=2, CH=2, C=8,
         max_order=32)
+    add("-r 15, N=32768: 32768 partitions of one sample, 16 levels", 32768,
+        _config(32768, max_residual_partition_order=15), B=1, CH=1, C=2)
+    add("RICE2, N=32768: a row of -2^31 only, S_0 near 2^47", 32768,
+        _config(32768, 24), B=1, CH=1, C=2, bits=20, lowest=True)
     return out
 
 

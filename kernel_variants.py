@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of kernels K1, K2 and K3 goes, on one NVIDIA GPU.
+"""Where the time of kernels K1, K2, K3, K4 and K7 goes, on one NVIDIA GPU.
 
     python3 kernel_variants.py            # every variant of every kernel
-    python3 kernel_variants.py --k1       # K1's only (or --k2, --k3)
+    python3 kernel_variants.py --k1       # K1's only (or --k2, --k3, --k4,
+                                          # --k7; several may be given)
     python3 kernel_variants.py --other "old=DIR"  # and DIR/*.cu as they are
 
 Each variant is the kernel's source with one change (a constant, a part of
@@ -12,7 +13,10 @@ shapes: K1 on a -5 batch's fields (64 frames of 2263 fields into 8192
 words), K2 on the first full decode batch of a 100 s -5 stream (65,536
 lanes of 128 codes), K3 on the same batch's residuals (2048 subframes of
 4096 samples, int16 out) as each engine gives them: int32 (the device
-engine) and int16 (the fast engine).  Before K3's variants, a one-thread
+engine) and int16 (the fast engine), K4 on the field lists of the
+track's first 64 frames at -5 and of its first 256 (the sharded form's
+batch), K7 on the search inputs of the track's first 64 frames at -5
+(1536 rows) and at -8 (3584 rows).  Before K3's variants, a one-thread
 probe times the recursion's chain (cycles a sample, generic and folded,
 and the SM clock); each K3 line carries the chain floor it gives,
 N x cycles / clock.  A variant that cuts work out
@@ -20,9 +24,10 @@ computes a wrong result; it is timed only.  `ms` is the device time of one launc
 (torch.profiler over 50 launches), taken in turns with the unchanged
 kernel ("base") so drift shows.  A "phases" variant also reports, from
 one more launch, each CTA's clock64() at numbered points of the kernel
-(see PHASE_DEFS).  `--other` times another version of a source (another
-commit's csrc/, say) beside them.  Prints one JSON line a variant and the
-card's name and power limit.
+(see PHASE_DEFS and each kernel's phase list).  `--other` times another
+version of a source (another commit's csrc/, say) beside them, through
+the same C entry point.  Prints one JSON line a variant and the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -238,6 +243,108 @@ K3_VARIANTS = [
         ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
 ]
 
+# K4: clock64 at 1 the channel scalars in, 2 the slots stored (the last
+# warp), 3 every CTA of the cluster running, 4 the shares pushed to rank 0
+# (the cluster barrier), 7 the end (rank 0's outputs)
+K4_VARIANTS = [
+    ("base", []),
+    ("phases", [
+        ("namespace {\n", "namespace {\n" + PHASE_DEFS),
+        ("    __shared__ Smem sh;\n",
+         "    __shared__ Smem sh;\n    PHSTART();\n"),
+        ("                       ? a.N >> po : 0;\n    }\n    __syncthreads();\n",
+         "                       ? a.N >> po : 0;\n    }\n    __syncthreads();\n"
+         "    PH(1);\n"),
+        ("    // the share's bit total and fit flag: warps, then the CTA, then rank 0\n",
+         "    PHMAX(2);\n"),
+        ("    cluster_wait();\n    if (threadIdx.x == 0) {\n",
+         "    cluster_wait();\n    PH(3);\n    if (threadIdx.x == 0) {\n"),
+        ("    cluster_barrier();\n    if (rank == 0 && threadIdx.x == 0) {\n",
+         "    cluster_barrier();\n    PH(4);\n"
+         "    if (rank == 0 && threadIdx.x == 0) {\n"),
+        ("                         + a.bs_tail_bits / 8 + a.sr_tail_bits / 8;\n"
+         "    }\n}\n",
+         "                         + a.bs_tail_bits / 8 + a.sr_tail_bits / 8;\n"
+         "    }\n    PHMAX(7);\n}\n"),
+        ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
+    # other cluster sizes: at most 4 or 2 CTAs a frame, one CTA a frame
+    # (the frame's slots in one CTA, as before clusters, with this
+    # source's loads and reductions), and 8 whatever the batch
+    ("at most 4 a frame", [("constexpr int CLUSTER = 8;",
+                            "constexpr int CLUSTER = 4;")]),
+    ("at most 2 a frame", [("constexpr int CLUSTER = 8;",
+                            "constexpr int CLUSTER = 2;")]),
+    ("a CTA a frame", [("constexpr int CLUSTER = 8;",
+                        "constexpr int CLUSTER = 1;")]),
+    ("8 a frame always", [("constexpr int CTA_TARGET = 512;",
+                           "constexpr int CTA_TARGET = 1 << 30;")]),
+    ("128 threads", [("constexpr int THREADS = 256;",
+                      "constexpr int THREADS = 128;")]),
+]
+K7_NODE_CALL = "cost_node<RICE2>(t, r, lane, lvl, idx, st, tot4, tot5);"
+# K7 (the batched path on words, the main path's): thread 0 (warp 0)
+# keeps its cycles in the groups' transposes (2) and in the partitions'
+# count stores and merges (3), from the CTA's start; 1 the walk starts
+# (the zero fill done), 4 thread 0's walk done, 6 the costs summed (the
+# batched costing done), 7 the end (the last warp's stores)
+K7_VARIANTS = [
+    ("base", []),
+    ("phases", [
+        ("namespace {\n", "namespace {\n" + PHASE_DEFS),
+        ("    __shared__ unsigned char use5[LEVELS];\n",
+         "    __shared__ unsigned char use5[LEVELS];\n    PHSTART();\n"
+         "    long long t_cnt = 0, t_node = 0;\n"),
+        ("    if (warp < (1 << top_lvl) && BATCH && (m & 31) == 0) {\n",
+         "    PH(1);\n    if (warp < (1 << top_lvl) && BATCH && (m & 31) == 0) {\n"),
+        ("            unsigned x[GROUP];\n",
+         "            const long long t0 = clock64();\n"
+         "            unsigned x[GROUP];\n"),
+        ("                if (++in_p == wpl) {                 // partition p is counted\n",
+         "                if (j == 0) t_cnt += clock64() - t0;\n"
+         "                if (++in_p == wpl) {                 // partition p is counted\n"),
+        ("                    push_counts(cnt, max_po, top_lvl, p, c, lane);\n"
+         "                    c = 0;\n                    in_p = 0;\n",
+         "                    const long long t1 = clock64();\n"
+         "                    push_counts(cnt, max_po, top_lvl, p, c, lane);\n"
+         "                    t_node += clock64() - t1;\n"
+         "                    c = 0;\n                    in_p = 0;\n"),
+        ("    if (BATCH) {\n        __syncthreads();\n",
+         "    if (threadIdx.x == 0) {\n"
+         "        g_ph[blockIdx.x * 10 + 2] = g_ph[blockIdx.x * 10] + t_cnt;\n"
+         "        g_ph[blockIdx.x * 10 + 3] = g_ph[blockIdx.x * 10] + t_node;\n"
+         "    }\n    PH(4);\n"
+         "    if (BATCH) {\n        __syncthreads();\n"),
+        ("    // the levels' bits, the RICE2 choice and the partition-order limits\n",
+         "    PH(6);\n"),
+        ("                t.ks[row * L * P + e] = t.ks5[row * L * P + e];\n"
+         "        }\n    }\n}\n",
+         "                t.ks[row * L * P + e] = t.ks5[row * L * P + e];\n"
+         "        }\n    }\n    PHMAX(7);\n}\n"),
+        ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
+    # the counts alone (a wrong result): no leaf scan, no node cost
+    ("counts only", [(K7_NODE_CALL, ""),
+                     ("                st = leaf_state(c, lane);\n",
+                      "                st = c;\n"),
+                     ("            if (node)\n                cost_counts<RICE2>(",
+                      "            if (false)\n                cost_counts<RICE2>(")]),
+    # a warp a node as it is finished at every max_po (no batched costing)
+    ("no batch", [("    const bool batch = max_po <= BATCH_MAX_PO;",
+                   "    const bool batch = false;")]),
+    # no transposes (a wrong result): the loads and the tree only
+    ("no transposes", [
+        ("            for (int j = 0; j < GROUP; ++j) x[j] = transpose32(zigzag(cur[j]),\n"
+         "                                                              bf);\n",
+         "            for (int j = 0; j < GROUP; ++j) x[j] = cur[j];\n")]),
+    # a group of 4 or 16 words at a time
+    ("groups of 4", [("    constexpr int GROUP = 8;", "    constexpr int GROUP = 4;")]),
+    ("groups of 16", [("    constexpr int GROUP = 8;", "    constexpr int GROUP = 16;")]),
+    ("8 warps a row", [("constexpr int WARPS = 4;", "constexpr int WARPS = 8;"),
+                       ("constexpr int TOP = 2; ", "constexpr int TOP = 3; ")]),
+    # at most 40 registers: 12 CTAs an SM in place of 8
+    ("12 CTAs an SM", [("__launch_bounds__(THREADS) rice_cost_kernel",
+                        "__launch_bounds__(THREADS, 12) rice_cost_kernel")]),
+]
+
 # One thread's chain of dependent samples, as the recursion runs it: the
 # generic form (x = (int)(P >> sh) + r; P = q * x + c by mad.wide) and the
 # folded one (x = the low word of P >> sh by one funnel shift; P = q * x + c
@@ -344,23 +451,28 @@ def build(kernel: str, variants, others) -> dict:
 
 
 def device_ms(fn, kernel: str, runs: int = 50) -> float:
+    """Device ms of one launch: torch.profiler over `runs` launches; a
+    trace that misses launches (CUPTI drops a window's records now and
+    then) is taken again, twice, and then chip_smoke.queued_device_ms's
+    CUDA events around calls queued behind a sleep take its place."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     sys.path.insert(0, str(HERE))
-    from chip_smoke import _device_us
+    from chip_smoke import _device_us, queued_device_ms
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if kernel in e.key]
-    n = sum(e.count for e in ev)
-    if n != runs:
-        raise SystemExit(f"the profiler saw {n} launches of {kernel}")
-    return sum(_device_us(e, True) for e in ev) / n / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if kernel in e.key]
+        n = sum(e.count for e in ev)
+        if n == runs:
+            return sum(_device_us(e, True) for e in ev) / n / 1e3
+    return queued_device_ms(fn, runs)
 
 
 def phases(lib, run, ctas: int) -> dict:
@@ -475,6 +587,134 @@ def k3_inputs():
                       fkw["max_order"])}
 
 
+def k4_inputs() -> dict:
+    """K4's launch arguments on the track's first 64 frames at -5 and on
+    its first 256 (the ops form's choice): {label: (ins, outs, ints,
+    layout)}, as assemble_cuda.launch_arguments gives them."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import RATE, TRACK_SECONDS, capture_assembly
+    from flac_tpu_torch import EncoderConfig, signals
+    from flac_tpu_torch.models import frame as frame_mod
+    from flac_tpu_torch.ops import assemble_cuda
+    cfg = EncoderConfig.from_preset(5, blocksize=4096).resolve()
+    pcm = signals.make_test_signal(TRACK_SECONDS * RATE, seed=180)
+    out = {}
+    for B in (64, 256):
+        blocks = torch.from_numpy(np.ascontiguousarray(
+            pcm[:, :B * 4096].reshape(2, B, 4096).transpose(1, 0, 2))).cuda()
+        choice, signal, asg, nums, cfg_a, N, layout = capture_assembly(
+            blocks, cfg)["k4"]
+        quad, wide = frame_mod.resolve_layout(
+            cfg_a, signal.shape[2], choice.params.shape[-1], layout)
+        ins, outs, ints, lay = assemble_cuda.launch_arguments(
+            choice, signal, asg, nums, cfg_a, N, quad, wide)
+        out[f"-5, B={B}"] = (ins, outs, ints, lay.group_layout)
+    return out
+
+
+def k7_inputs() -> dict:
+    """K7's arguments on the search inputs of the track's first 64 frames
+    at -5 and at -8 (the ops form's): {label: (res, order, N, max_po,
+    cfg)}."""
+    from chip_smoke import RATE, TRACK_SECONDS, real_search
+    from flac_tpu_torch import EncoderConfig, signals
+    pcm = signals.make_test_signal(TRACK_SECONDS * RATE, seed=180)
+    return {f"-{lv}": real_search(EncoderConfig.from_preset(
+        lv, blocksize=4096).resolve(), pcm)["k7"] for lv in (5, 8)}
+
+
+def time_k4(libs: dict, inputs: dict) -> None:
+    """Time each built K4 library on each of `k4_inputs`, in turns with
+    "base"; each output compared with base's."""
+    import torch
+
+    from flac_tpu_torch.ops import assemble_cuda
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, (lib, regs) in libs.items():
+        lib.flac_assemble_fields.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        for label, (ins, outs, ints, layout) in inputs.items():
+            mine = [torch.empty_like(o) for o in outs]
+
+            def run(lib=lib, ins=ins, mine=mine, ints=ints, layout=layout):
+                ptrs = (ctypes.c_void_p * (len(ins) + len(mine)))(
+                    *[t.data_ptr() for t in ins + mine])
+                arr = (ctypes.c_longlong * len(ints))(*ints)
+                code = lib.flac_assemble_fields(ptrs, len(ptrs), arr,
+                                                len(arr), layout, stream)
+                if code:
+                    raise SystemExit(f"K4 {name!r}: CUDA error {code}")
+
+            def run_base(ins=ins, outs=outs, ints=ints, layout=layout):
+                ptrs = (ctypes.c_void_p * (len(ins) + len(outs)))(
+                    *[t.data_ptr() for t in ins + outs])
+                arr = (ctypes.c_longlong * len(ints))(*ints)
+                libs["base"][0].flac_assemble_fields(
+                    ptrs, len(ptrs), arr, len(arr), layout, stream)
+            ms = device_ms(run, "assemble_fields_kernel")
+            base = device_ms(run_base, "assemble_fields_kernel")
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(mine, outs))
+            B = ints[0]
+            extra = (phases(lib, run, B * assemble_cuda.cluster_size(B))
+                     if name == "phases" else {})
+            print(json.dumps({"kernel": "K4", "variant": name,
+                              "input": label, "ms": ms, "base_ms": base,
+                              "same_as_base": same, **extra,
+                              "ptxas": regs}), flush=True)
+
+
+def time_k7(libs: dict, inputs: dict) -> None:
+    """Time each built K7 library on each of `k7_inputs`, in turns with
+    "base"; each output compared with base's."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, (lib, regs) in libs.items():
+        lib.flac_rice_cost.argtypes = [p] * 6 + [i] * 6 + [p]
+        for label, (res, order, N, max_po, cfg) in inputs.items():
+            lead = tuple(res.shape[:-1])
+            L, P = max_po + 1, 1 << max_po
+            rows = res.numel() // N
+            rice2_mode = cfg.rice_param_limit > 15
+
+            def outputs():
+                return (torch.empty(lead + (L,), dtype=torch.int32,
+                                    device="cuda"),
+                        torch.empty(lead + (L, P), dtype=torch.int32,
+                                    device="cuda"),
+                        torch.empty(lead + (L, P), dtype=torch.int32,
+                                    device="cuda"),
+                        torch.empty(lead + (L,), dtype=torch.bool,
+                                    device="cuda"))
+            mine, want = outputs(), outputs()
+
+            def call(lib_, o, res=res, order=order, N=N, max_po=max_po,
+                     cfg=cfg, rows=rows, rice2_mode=rice2_mode):
+                code = lib_.flac_rice_cost(
+                    res.data_ptr(), order.data_ptr(), o[0].data_ptr(),
+                    o[1].data_ptr(), o[2].data_ptr(), o[3].data_ptr(),
+                    rows, N, max_po, cfg.min_residual_partition_order,
+                    int(rice2_mode), int(cfg.do_escape_coding), stream)
+                if code:
+                    raise SystemExit(f"K7 {name!r}: CUDA error {code}")
+            run = lambda lib=lib, mine=mine: call(lib, mine)  # noqa: E731
+            ms = device_ms(run, "rice_cost_kernel")
+            base = device_ms(lambda want=want: call(libs["base"][0], want),
+                             "rice_cost_kernel")
+            torch.cuda.synchronize()
+            same = all(torch.equal(mine[k], want[k]) for k in (0, 1, 3))
+            extra = (phases(lib, run, rows) if name == "phases" else {})
+            print(json.dumps({"kernel": "K7", "variant": name,
+                              "input": label, "rows": rows, "N": N,
+                              "partitions": P, "ms": ms, "base_ms": base,
+                              "same_as_base": same, **extra,
+                              "ptxas": regs}), flush=True)
+
+
 def build_chain_probe() -> ctypes.CDLL:
     """nvcc the chain probe (CHAIN_PROBE) into a library of its own."""
     from flac_tpu_torch import kernels
@@ -583,14 +823,16 @@ def main() -> int:
     ap.add_argument("--k1", action="store_true")
     ap.add_argument("--k2", action="store_true")
     ap.add_argument("--k3", action="store_true")
+    ap.add_argument("--k4", action="store_true")
+    ap.add_argument("--k7", action="store_true")
     ap.add_argument("--sass", metavar="DIR",
                     help="write cuobjdump's SASS of the K3 variants' "
                          "narrow order-8 kernel (the main path's) to "
                          "DIR/restore_sass_<variant>.txt")
     ap.add_argument("--other", action="append", default=[],
                     metavar="LABEL=DIR",
-                    help="also time DIR's pack_fields64.cu/rice_codes.cu/"
-                         "restore.cu")
+                    help="also time DIR's pack_fields64.cu, rice_codes.cu, "
+                         "restore.cu, assemble_fields.cu and rice_cost.cu")
     args = ap.parse_args()
     others = dict(o.split("=", 1) for o in args.other)
     import torch
@@ -602,19 +844,34 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    every = not (args.k1 or args.k2 or args.k3)
-    do_k1, do_k2, do_k3 = (every or args.k1), (every or args.k2), \
-        (every or args.k3)
-    with ThreadPoolExecutor(3) as pool:
+    every = not (args.k1 or args.k2 or args.k3 or args.k4 or args.k7)
+    do_k1, do_k2, do_k3, do_k4, do_k7 = (
+        every or args.k1, every or args.k2, every or args.k3,
+        every or args.k4, every or args.k7)
+    with ThreadPoolExecutor(6) as pool:
+        # the package's own kernels, which K4's and K7's inputs (an encode
+        # batch's ops form) launch, build beside the variants
+        from chip_smoke import KERNEL_MODULES
+        from flac_tpu_torch import kernels as package_kernels
+        fp = pool.submit(package_kernels.load_all, list(KERNEL_MODULES)) \
+            if do_k4 or do_k7 else None
         f1 = pool.submit(build, "pack_fields64", K1_VARIANTS, others) \
             if do_k1 else None
         f2 = pool.submit(build, "rice_codes", K2_VARIANTS, others) \
             if do_k2 else None
         f3 = pool.submit(build, "restore", K3_VARIANTS, others) \
             if do_k3 else None
+        f4 = pool.submit(build, "assemble_fields", K4_VARIANTS, others) \
+            if do_k4 else None
+        f7 = pool.submit(build, "rice_cost", K7_VARIANTS, others) \
+            if do_k7 else None
         libs1 = f1.result() if f1 else {}
         libs2 = f2.result() if f2 else {}
         libs3 = f3.result() if f3 else {}
+        libs4 = f4.result() if f4 else {}
+        libs7 = f7.result() if f7 else {}
+        if fp:
+            fp.result()
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     p = ctypes.c_void_p
     if do_k1:
@@ -671,6 +928,10 @@ def main() -> int:
         if args.sass:
             write_sass(libs3, Path(args.sass))
         time_k3(libs3, k3_inputs(), probe)
+    if do_k4:
+        time_k4(libs4, k4_inputs())
+    if do_k7:
+        time_k7(libs7, k7_inputs())
     print(smi, flush=True)
     return 0
 

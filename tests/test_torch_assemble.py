@@ -5,7 +5,8 @@ CRC seal (seal_frames_plain, the plain version of K5), on the CPU.
 - the three plain steps against flac_tpu's jitted assemble_frames on the
   reference's own subframe choice (words, byte lengths, fit flags, bits):
   the 33-bit side's wide pairs, a 3072-sample block at 37800 Hz (both
-  header tails, 16 bits each) and mono 24-bit with 7-byte frame numbers;
+  header tails, 16 bits each), mono 24-bit with 7-byte frame numbers and
+  a batch of one frame;
 - the plain seal against the host CRC-8 and CRC-16 (ops/crc.py) on every
   frame of ops/assemble_synth.py's corners;
 - ops/assemble_cuda.field_layout (K4's static layout) against the plain
@@ -18,6 +19,7 @@ only).
 """
 
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -74,6 +76,7 @@ REFERENCE_CASES = {  # (preset, kind, B, C, N, bps, rate, first frame)
     "3072 samples at 37800 Hz": (5, "music", 3, 2, 3072, 16, 37800, 40),
     "mono 24-bit, 7-byte numbers": (8, "music", 3, 1, 1024, 24, 48000,
                                     (1 << 31) - 1),
+    "a batch of one frame": (5, "music", 1, 2, 1024, 16, 44100, 7),
 }
 
 
@@ -212,6 +215,21 @@ def test_field_layout_rejects_what_it_cannot_hold():
         assemble_cuda.field_layout(2, 4048, 256, False, False)
     lay = assemble_cuda.field_layout(2, 4096, 32, True, False)
     assert (lay.F, lay.per, lay.G) == (2263, 32, 32)
+
+
+def test_cluster_size_mirrors_the_source():
+    """assemble_cuda.cluster_size, K4's CTAs a frame, follows the source's
+    constants and rule: 8 a frame, halved while a launch would pass 512
+    CTAs."""
+    src = (Path(assemble_cuda.__file__).parents[1] / "csrc"
+           / "assemble_fields.cu").read_text()
+    assert f"constexpr int CLUSTER = {assemble_cuda.CLUSTER};" in src
+    assert f"constexpr int CTA_TARGET = {assemble_cuda.CTA_TARGET};" in src
+    assert "while (nc > 1 && (long long)a.B * nc > CTA_TARGET) nc >>= 1;" \
+        in src
+    sizes = {B: assemble_cuda.cluster_size(B)
+             for B in (1, 3, 64, 65, 133, 256, 1024)}
+    assert sizes == {1: 8, 3: 8, 64: 8, 65: 4, 133: 2, 256: 2, 1024: 1}
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu(monkeypatch):
