@@ -32,8 +32,14 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             outputs) and K5 (on the plain deposit of the plain fields)
             bit-identical on the corners of ops/assemble_synth.py and on a
             64-frame -5 and -8 batch whose subframe choice comes from the
-            ops form, and the chain K4 -> K1 -> K5 byte for byte against
-            plain -> plain -> plain on the -5 batch.  K6 (all five
+            ops form; K5 on its own corners (assemble_synth.seal_cases:
+            every residue of byte_len - 2 mod 16, the longest header,
+            minimal frames, a carrying CRC-8 deposit, 1, 64 and 256
+            frames, and past the plain version's domain byte_len - 2 past
+            the row, byte_len below 2, an odd W) against the host seal and,
+            in its domain, the plain one; and the chain K4 -> K1 -> K5
+            byte for byte against plain -> plain -> plain on the -5
+            batch.  K6 (all five
             outputs) and K7 (all three) bit-identical on the corners of
             ops/search_synth.py and on the search inputs of the ops form
             of 64-frame -5 and -8 batches of the track's recipe, of 64
@@ -77,17 +83,23 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             `kernels` line with each kernel's ptxas usage, K1's cluster
             size and K2's staged CTAs per main-path launch.  K4 and K5 are
             timed on the track's first batch (the ops form's arguments;
-            K5 on a copy of the words it seals in place), K4 also on the
-            track's first 256 frames (`at_B256`); K4 and K7 carry a
-            one-line `design`.  K3 is timed
+            K5 on a copy of the words it seals in place), both also on the
+            track's first 256 frames (`at_B256`), K5 beside the device
+            time of an empty launch of its grid, clusters and shared
+            memory (`empty_launch_ms`); K4-K7
+            carry a one-line `design`.  K3 is timed
             on both engines' inputs (int32 and int16 residuals) with its
             chain floor (N x the chain probe's cycles a sample / the SM
             clock) beside the bound; the device engine's transpose copy
             of K2's codes is timed on its own line before it.  K6 and K7
             on the search inputs of the -5 and -8 batches of phase 3
             (`ms` at -5, the -8 times beside it); K6 also beside its
-            chain floor (the float64 operations on one thread's critical
-            path x the dependent add's cycles / the SM clock).
+            chain floor (the dependent float64 operations of the longest
+            problem's chain, lpc_cuda.chain_ops for the longest candidate
+            of this run, each at its own latency from lpc_cuda.op_cycles,
+            over the SM clock) and the earlier one-thread design's figure
+            (`chain_floor_ms_before`: two recursions and 32 quantizer
+            steps, every operation at an add's latency).
 7. profile: torch.profiler over a 10 s encode (through the graphs,
             and op by op, whose flac.* ranges a replay does not record)
             and 10 s decodes with the "device" and "fast" engines: the
@@ -243,9 +255,12 @@ K4_OPS_PER_SAMPLE = 20
 # K5 a byte: the table index (shift, xor, mask), its load and the update
 K5_OPS_PER_BYTE = 6
 # K6 a problem: each Levinson step i's i products and adds, the reflection
-# and error update (~8), twice without -e; a candidate's 32 quantizer
-# steps (~10 each) and its precision, estimate and stores (~40)
+# and error update (~8), once; each order's estimates (a log2 and ~5 more
+# each: ~15; two without -e, the bits and the test, one with it); a
+# candidate's quantizer steps up to its order (~10 each) and its max,
+# log2, precision and stores (~40)
 K6_OPS_PER_STEP = 8
+K6_OPS_PER_ESTIMATE = 15
 K6_OPS_PER_QUANT_STEP = 10
 K6_OPS_PER_CANDIDATE = 40
 # K7 a residual: the zigzag and the OR (~4), then a shift and a 64-bit add
@@ -261,6 +276,30 @@ K4_DESIGN = ("a cluster of up to 8 CTAs a frame (at most 512 CTAs a "
 K7_DESIGN = ("bit counts: a warp transpose and __popc a 32 samples; a tree "
              "of up to 127 nodes costed a thread a node from its 32 counts, "
              "a larger one a warp a node (the cost is convex in k)")
+K5_DESIGN = ("a cluster of up to 8 CTAs a frame (one CTA an SM at B=64); "
+             "the frame's 8-byte pairs end-aligned, a column of 16-byte "
+             "loads a thread, slicing tables, Horner and a tree of constant "
+             "powers of x (two lookups each), ranks meeting in rank 0's "
+             "shared memory; the CRC-8 by one warp beside them")
+K6_DESIGN = ("a group of 8-32 lanes a problem in one-warp CTAs; one "
+             "recursion unrolled by order template, each order's error and "
+             "coefficients kept by its lane; the estimates side by side, a "
+             "shuffle argmin; quantizers stop at the order, precisions "
+             "shared out over the lanes")
+
+
+def k6_chain_ops_before(O: int, cfg) -> int:
+    """K6's chain as the earlier one-thread design counted it
+    (dependent float64 operations, each priced as an add): the recursion
+    twice without -e, O estimates in a row and 32 quantizer steps a
+    candidate, all on one thread."""
+    from flac_tpu_torch.ops import lpc_cuda
+    recursion = sum(i + 5 for i in range(O))
+    per_candidate = 32 * 7 + 10
+    cands = lpc_cuda.candidates(1, O, cfg)
+    if cfg.do_exhaustive_model_search:
+        return recursion + cands * per_candidate
+    return 2 * recursion + 3 * O + cands * per_candidate
 
 
 def ptxas_usage(report: str, kernel: str) -> dict:
@@ -2256,10 +2295,12 @@ def main() -> int:
     if len(usage["assemble_fields"]) != 3 or len(usage["frame_crc"]) != 1:
         return fail(f"K4's three layouts or K5 are missing: "
                     f"{usage['assemble_fields']} {usage['frame_crc']}")
-    if len(usage["lpc_coeffs"]) != 1 or len(usage["rice_cost"]) != 4:
-        return fail(f"K6, or one of K7's four forms (RICE or RICE2, the "
-                    f"costs batched or a warp a node), is missing: "
-                    f"{usage['lpc_coeffs']} {usage['rice_cost']}")
+    if len(usage["lpc_coeffs"]) != len(lpc_cuda.TEMPLATE_ORDERS) \
+            or len(usage["rice_cost"]) != 4:
+        return fail(f"one of K6's order templates, or one of K7's four "
+                    f"forms (RICE or RICE2, the costs batched or a warp a "
+                    f"node), is missing: {usage['lpc_coeffs']} "
+                    f"{usage['rice_cost']}")
     if any(a != b or a > 232448 for a, b in k3_smem.values()):
         return fail(f"K3's dynamic shared memory differs from the host "
                     f"mirror or passes 227 KB: {k3_smem}")
@@ -2324,6 +2365,26 @@ def main() -> int:
             return fail(f"K4 or K5 differs from its plain version on "
                         f"'{label}': {ok4}, {ok5}")
         k4_err, k5_err = max(k4_err, err4), max(k5_err, err5)
+    # K5 on its own corners: against the host seal everywhere, and against
+    # the plain version inside its domain
+    for label, case in assemble_synth.seal_cases():
+        w_c, bl_c, hb_c = assemble_synth.as_seal_inputs(case, "cuda")
+        got = frame_mod.seal_frames(w_c.clone(), bl_c, hb_c)
+        host = assemble_synth.seal_host(case["words"], case["byte_len"],
+                                        case["hdr_bytes"])
+        ok5 = bool((got.cpu().numpy() == host).all())
+        err5 = int(np.abs(got.cpu().numpy() - host).max())
+        if case["plain"]:
+            ok5 = ok5 and torch.equal(
+                got, frame_mod.seal_frames_plain(w_c, bl_c, hb_c))
+        emit({"phase": "kernels", "kernel": "frame_crc", "case": label,
+              "frames": int(bl_c.shape[0]), "W": int(w_c.shape[1]),
+              "cluster": seal_cuda.cluster_size(int(bl_c.shape[0])),
+              "against": "host and plain" if case["plain"] else "host",
+              "identical": ok5, "max_abs_err": err5})
+        if not ok5:
+            return fail(f"K5 differs on its corner '{label}'")
+        k5_err = max(k5_err, err5)
     # the whole chain, K4 -> K1 -> K5 against plain -> plain -> plain, on
     # the -5 batch: the frames' bytes
     a4 = real["-5, 64 frames"]["k4"]
@@ -2860,15 +2921,19 @@ def main() -> int:
         return fail("K4 or K5 differs from its plain version on the main "
                     "path's first batch")
     k4_err, k5_err = max(k4_err, err4), max(k5_err, err5)
-    a4_256 = capture_assembly(torch.from_numpy(np.ascontiguousarray(
+    seen_256 = capture_assembly(torch.from_numpy(np.ascontiguousarray(
         pcm[:, :256 * 4096].reshape(2, 256, 4096).transpose(1, 0, 2)))
-        .cuda(), cfg5)["k4"]
+        .cuda(), cfg5)
+    a4_256, (w5_256, bl5_256, hb5_256) = seen_256["k4"], seen_256["k5"]
+    del seen_256
     ok4, err4 = k4_compare(a4_256)
-    if not ok4:
-        return fail("K4 differs from its plain version on the track's first "
-                    "256 frames")
-    k4_err = max(k4_err, err4)
+    ok5, err5 = k5_compare(w5_256, bl5_256, hb5_256)
+    if not (ok4 and ok5):
+        return fail("K4 or K5 differs from its plain version on the track's "
+                    "first 256 frames")
+    k4_err, k5_err = max(k4_err, err4), max(k5_err, err5)
     w5k = w5.clone()                 # K5 seals in place: time on a copy
+    w5k_256 = w5_256.clone()
 
     def k4_kernel():
         frame_mod.assemble_fields(*a4)
@@ -2881,6 +2946,13 @@ def main() -> int:
 
     def k5_plain():
         frame_mod.seal_frames_plain(w5, bl5, hb5)
+
+    def k5_kernel_256():
+        frame_mod.seal_frames(w5k_256, bl5_256, hb5_256)
+
+    def k5_plain_256():
+        frame_mod.seal_frames_plain(w5_256, bl5_256, hb5_256)
+
     def k4_kernel_256():
         frame_mod.assemble_fields(*a4_256)
 
@@ -2892,7 +2964,9 @@ def main() -> int:
              "assemble_fields_kernel"),
             ("assemble_fields B=256", k4_kernel_256, k4_plain_256,
              "assemble_fields_kernel"),
-            ("frame_crc", k5_kernel, k5_plain, "frame_crc_kernel")):
+            ("frame_crc", k5_kernel, k5_plain, "frame_crc_kernel"),
+            ("frame_crc B=256", k5_kernel_256, k5_plain_256,
+             "frame_crc_kernel")):
         runs = [cuda_time_ms(f) for f in (plain, kern, kern, plain)]
         k45[name] = {"dev": kernel_device_ms(kern, dev_name),
                      "plain_ms_runs": [runs[0], runs[3]],
@@ -2941,9 +3015,37 @@ def main() -> int:
           "plain_ms_runs": t["plain_ms_runs"]})
     # K5: each frame's bytes under the CRCs read once, its length and
     # header length, the 3 CRC bytes written; K5_OPS_PER_BYTE a byte
-    crc_bytes = int((bl5.long() - 2).clamp(min=0).sum())
-    k5_bytes = crc_bytes + B4 * 8 + B4 * 3
-    k5_ops = crc_bytes * K5_OPS_PER_BYTE
+    def k5_work(byte_len):
+        crc_bytes = int((byte_len.long() - 2).clamp(min=0).sum())
+        B_ = int(byte_len.shape[0])
+        return crc_bytes + B_ * 8 + B_ * 3, crc_bytes * K5_OPS_PER_BYTE
+    k5_bytes, k5_ops = k5_work(bl5)
+    t = k45["frame_crc B=256"]
+    nbytes, nops = k5_work(bl5_256)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
+    k5_at_256 = {"B": 256, "ms": t["dev"]["ms"], "ms_by": t["dev"]["ms_by"],
+                 "ms_queued_events": t["dev"]["ms_queued_events"],
+                 "cluster": seal_cuda.cluster_size(256),
+                 "kernel_ms": min(t["kernel_ms_runs"]),
+                 "plain_ms": min(t["plain_ms_runs"]), "bytes": nbytes,
+                 "operations": nops, "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit({"phase": "times", "kernel": "frame_crc", **k5_at_256,
+          "device_ms": t["dev"]["ms"], "kernel_ms_runs": t["kernel_ms_runs"],
+          "plain_ms_runs": t["plain_ms_runs"]})
+    # the device time of an empty launch of K5's grid at B=64, launched as
+    # K5 is (CTAs of 256 threads in clusters of its size, each holding its
+    # shared memory): the least a launch takes
+    empty_cluster = seal_cuda.cluster_size(B4)
+    empty_ctas = B4 * empty_cluster
+    empty_smem = max(f["smem_static_bytes"]
+                     for f in usage["frame_crc"].values())
+    empty_launch = kernel_device_ms(
+        lambda: probe_lib.flac_empty_launch(
+            empty_ctas, 256, empty_cluster, empty_smem,
+            torch.cuda.current_stream().cuda_stream),
+        "empty_kernel")
     kernels45 = []
     for name, mod, nbytes, nops, err, launches_main in (
             ("assemble_fields", assemble_cuda, k4_bytes, k4_ops, k4_err,
@@ -2971,7 +3073,13 @@ def main() -> int:
                              "lists" if name == "assemble_fields" else
                              "no PyTorch call computes a CRC"),
             **({"design": K4_DESIGN, "at_B256": k4_at_256}
-               if name == "assemble_fields" else {}),
+               if name == "assemble_fields" else
+               {"design": K5_DESIGN, "at_B256": k5_at_256,
+                "cluster": seal_cuda.cluster_size(B4),
+                "empty_launch_ms": empty_launch["ms"],
+                "empty_launch_ctas": empty_ctas,
+                "empty_launch_cluster": empty_cluster,
+                "empty_launch_smem": empty_smem}),
             "ptxas": usage[name]})
     k4, k5 = kernels45
 
@@ -2979,7 +3087,7 @@ def main() -> int:
     # ops form's arguments): the kernel's device time (torch.profiler), the
     # kernel and the plain version through their dispatch (CUDA events,
     # plain, kernel, kernel, plain), the bound; K6 beside its chain floor
-    dadd_cycles = lpc_cuda.chain_probe()
+    op_cycles = lpc_cuda.op_cycles()
     timed_inputs = {lv: real_search(*real_cfgs[f"{lv}, 64 frames"])
                     for lv in ("-5", "-8")}
     kernels67 = []
@@ -3005,21 +3113,37 @@ def main() -> int:
                 B6, CH6, A6, O6 = (*autoc.shape[:3], autoc.shape[3] - 1)
                 AC6 = lpc_cuda.candidates(A6, O6, cfg_k)
                 problems = B6 * CH6 * A6
-                passes = 1 if cfg_k.do_exhaustive_model_search else 2
+                ests = 1 if cfg_k.do_exhaustive_model_search else 2
+                # what these inputs need: the candidates' own orders
+                orders = plain_fn(*a67)[2]
                 # each input read once (autoc, bps), each output written
-                # once (qc, shift, order, precision, ok)
+                # once (qc, shift, order, precision, ok); the operations
+                # of one recursion a problem, its orders' estimates and
+                # each candidate's quantizer up to its order
                 nbytes = (autoc.numel() * 8 + bps_k.numel() * 4
                           + B6 * CH6 * AC6 * (32 * 4 + 3 * 4 + 1))
-                nops = (problems * passes * sum(
-                    2 * i + K6_OPS_PER_STEP for i in range(O6))
-                    + B6 * CH6 * AC6 * (32 * K6_OPS_PER_QUANT_STEP
-                                        + K6_OPS_PER_CANDIDATE))
-                chain = lpc_cuda.chain_ops(O6, cfg_k)
+                nops = (problems * sum(2 * i + K6_OPS_PER_STEP
+                                       for i in range(O6))
+                        + problems * O6 * ests * K6_OPS_PER_ESTIMATE
+                        + int(orders.sum()) * K6_OPS_PER_QUANT_STEP
+                        + B6 * CH6 * AC6 * K6_OPS_PER_CANDIDATE)
+                # the longest problem's chain, each operation at its own
+                # dependent latency; the earlier design's count (every
+                # operation as an add, two recursions, 32 quantizer steps)
+                # beside it
+                chain = lpc_cuda.chain_ops(O6, int(orders.max()))
+                before = k6_chain_ops_before(O6, cfg_k)
                 extra = {"problems": problems, "candidates": B6 * CH6 * AC6,
-                         "order": O6, "chain_ops": chain,
-                         "dadd_cycles": dadd_cycles,
-                         "chain_floor_ms": chain * dadd_cycles
-                         / probe["cycles_per_ns"] / 1e6}
+                         "order": O6, "longest_candidate": int(orders.max()),
+                         "chain_ops": chain, "op_cycles": op_cycles,
+                         "chain_floor_ms": lpc_cuda.chain_cycles(
+                             chain, op_cycles)
+                         / probe["cycles_per_ns"] / 1e6,
+                         "chain_ops_before": before,
+                         "chain_floor_ms_before": before * op_cycles["add"]
+                         / probe["cycles_per_ns"] / 1e6,
+                         "ctas": lpc_cuda.ctas(problems, O6),
+                         "lanes": lpc_cuda.lanes(O6)}
             else:
                 res_k, order_k, N_k, max_po_k = a67[:4]
                 rows = res_k.numel() // N_k
@@ -3054,7 +3178,8 @@ def main() -> int:
             "max_abs_err": err, **main["dev"],
             "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            **({"chain_floor_ms": main["chain_floor_ms"]}
+            **({"chain_floor_ms": main["chain_floor_ms"],
+                "chain_floor_ms_before": main["chain_floor_ms_before"]}
                if key == "k6" else {}),
             "at_-8": {k: (v["ms"] if k == "dev" else v)
                       for k, v in shapes["-8"].items()},
@@ -3063,7 +3188,7 @@ def main() -> int:
                              "quantizer" if key == "k6" else
                              "no PyTorch call computes partitioned Rice "
                              "costs"),
-            **({"design": K7_DESIGN} if key == "k7" else {}),
+            "design": K7_DESIGN if key == "k7" else K6_DESIGN,
             "ptxas": usage[name]})
     k6, k7 = kernels67
     del timed_inputs, a67

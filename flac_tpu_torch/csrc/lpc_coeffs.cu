@@ -22,16 +22,28 @@
 // integer steps that could overflow wrap as torch's int32 arithmetic does;
 // ties in the order guess go to the first index.
 //
-// Design: one thread a (r, a) problem, looping over its own candidates
-// (every order with -e, every precision with -p); the recursion's state
-// lives in the thread's local arrays.  Without -e the thread runs the
-// recursion once for the errors, guesses the order, and runs it again up
-// to that order for the coefficients (the same operations, so the same
-// values).  At -5 a batch of 64 stereo frames is 256 problems of order 8,
-// at -8 some thousands of order 12, ~50 KB of data in all: the bound is
-// the serial chain of dependent float64 operations in one thread and the
-// launch, not bytes.  lpc_chain_probe measures the dependent latency of
-// the chain's float64 add, from which chip_smoke.py states that floor.
+// Design (Hopper): a group of G lanes a (r, a) problem, G = lanes_for(O),
+// a CTA of one warp (so a -5 batch's 256 problems of order 8 take 64 CTAs
+// on 64 SMs).  Every lane of a group runs the one Levinson recursion, fully
+// unrolled through a template on the order (6, 8 and 12, the presets'; 32
+// for every other order, with the steps past O skipped), so the state
+// lives in registers and the group's lanes cost nothing more in SIMT; the
+// autocorrelations sit in shared memory.  Lane i % G owns order i + 1: at
+// step i it keeps that order's error, "dead" flag and float32
+// coefficients in its registers (selects, so the group does not diverge),
+// and no order's coefficients are computed twice.  Without -e each lane
+// estimates its own orders (the O log2 calls side by side), a butterfly of
+// shuffles takes the first-index argmin, and the guessed order's
+// coefficients go from their owner to the group a shuffle each; with -e
+// each lane quantizes its own orders.  The candidates' precisions (-p) are shared
+// out over the lanes, each quantizer stops at its order (the tail is the
+// clamp of 0, as the plain version writes it), and each qc row goes out as
+// eight 16-byte stores.  At -5 a batch is 256 problems of order 8, at -8
+// 2304 of order 12, ~50 KB of data in all: the bound is the chain of
+// dependent float64 operations of one problem (the recursion, an estimate,
+// a quantizer) and the launch, not bytes.  flac_lpc_op_probe measures the
+// dependent latency of each kind of operation on that chain, from which
+// chip_smoke.py states the floor.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,9 +53,16 @@ namespace {
 constexpr int MAX_ORDER = 32;          // format.MAX_LPC_ORDER
 constexpr int MIN_PREC = 5;            // format.MIN_QLP_COEFF_PRECISION
 constexpr int MAX_PREC = 15;           // format.MAX_QLP_COEFF_PRECISION
+constexpr int N_PREC = MAX_PREC - MIN_PREC + 1;
 constexpr int MAX_SHIFT = 15;
 constexpr int MIN_SHIFT = -16;
-constexpr int THREADS = 64;
+constexpr int CTA = 32;                // threads a CTA: one warp
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+// lanes a problem for a template order (ops/lpc_cuda.py lanes mirrors it)
+__host__ __device__ constexpr int lanes_for(int ot) {
+    return ot <= 8 ? 8 : ot <= 16 ? 16 : 32;
+}
 
 // int32 arithmetic that wraps, as torch's does on the card
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -66,53 +85,62 @@ __device__ __forceinline__ int ilog2(int v) {
     return (v > 1) + (v > 3) + (v > 7) + (v > 15) + (v > 31);
 }
 
-// estimate_best_order's est_bps for one error
+// estimate_best_order's est_bps for one error (selects, no branch: the
+// log2 of 1 where it is not used, so that two estimates can overlap)
 __device__ __forceinline__ double est_bps(double err, double scale) {
-    if (err > 0.0) {
-        const double b = __dmul_rn(0.5, log2(__dmul_rn(err, scale)));
-        return b < 0.0 ? 0.0 : b;
-    }
-    return err < 0.0 ? 1e32 : 0.0;
+    const double b =
+        __dmul_rn(0.5, log2(err > 0.0 ? __dmul_rn(err, scale) : 1.0));
+    return err > 0.0 ? (b < 0.0 ? 0.0 : b) : (err < 0.0 ? 1e32 : 0.0);
 }
 
-// one step i of Levinson-Durbin on (lpc, err), rounded as
-// ops/lpc.py levinson_all_orders rounds it
-__device__ __forceinline__ void levinson_step(int i, const double* ac,
-                                              double* lpc, double& err) {
-    double s = 0.0;
-    for (int j = 0; j < i; ++j)
-        s = __dadd_rn(s, __dmul_rn(lpc[j], ac[i - j]));
-    const double safe = err == 0.0 ? 1.0 : err;
-    const double r = __ddiv_rn(-__dadd_rn(ac[i + 1], s), safe);
-    // lpc'[j] = lpc[j] + r * lpc[i-1-j] for j < i (from the old values)
-    for (int j = 0, k = i - 1; j < k; ++j, --k) {
-        const double a = lpc[j], b = lpc[k];
-        lpc[j] = __dadd_rn(a, __dmul_rn(r, b));
-        lpc[k] = __dadd_rn(b, __dmul_rn(r, a));
-    }
-    if (i & 1) {
-        const int m = (i - 1) >> 1;
-        lpc[m] = __dadd_rn(lpc[m], __dmul_rn(r, lpc[m]));
-    }
-    lpc[i] = r;
-    err = __dmul_rn(err, __dsub_rn(1.0, __dmul_rn(r, r)));
+// the larger of two |c| with NaN sticking, as the plain version's max
+__device__ __forceinline__ double nanmax(double x, double y) {
+    return (y > x || y != y) ? y : x;
 }
 
-// quantize_coefficients for one candidate: c[] the float32 coefficients
-// (as doubles, zero past `order`); writes qc[32], returns the shift and
-// sets `valid`
-__device__ int quantize(const double* c, int order, int prec, int* qc,
-                        bool& valid) {
-    double cmax = 0.0;
-    for (int j = 0; j < order; ++j) {
-        const double a = fabs(c[j]);
-        cmax = (a > cmax || a != a) ? a : cmax;     // max, NaN sticks
-    }
-    valid = cmax > 0.0;
+struct Args {
+    const double* autoc;
+    const int* bps;
+    int* qc;
+    int* qshift;
+    int* order;
+    int* prec;
+    unsigned char* ok;
+    int R, A, O, N, exhaustive, prec_search, static_prec;
+    int vec;                           // qc is 16-byte aligned
+};
+
+// quantize_coefficients for one candidate: cs[] its float32 coefficients
+// (`order` of them, order <= OT); writes qc[32] and the candidate's shift,
+// order, precision and ok flag at k
+template <int OT>
+__device__ __forceinline__ void quantize(const Args& a, long long k,
+                                         const float (&cs)[OT], int order,
+                                         int prec, bool cand_ok) {
+    double c[OT];
+#pragma unroll
+    for (int j = 0; j < OT; ++j) c[j] = j < order ? (double)cs[j] : 0.0;
+    // max |c| over the order as a tree (the zeros past it change nothing)
+    double m[OT];
+#pragma unroll
+    for (int j = 0; j < OT; ++j) m[j] = fabs(c[j]);
+#pragma unroll
+    for (int w = 1; w < OT; w <<= 1)
+#pragma unroll
+        for (int j = 0; j + w < OT; j += 2 * w) m[j] = nanmax(m[j], m[j + w]);
+    const double cmax = nanmax(0.0, m[0]);
+    bool valid = cmax > 0.0;
     const double safe = valid ? cmax : 1.0;
-    int e0 = (int)floor(log2(safe));
-    if (pow2(e0) > safe) e0 = wsub(e0, 1);
-    const int log2cmax = pow2(wadd(e0, 1)) <= safe ? wadd(e0, 1) : e0;
+    // floor(log2(safe)), repaired at the powers of two as the plain
+    // version does; for a finite safe (a float's |c| as a double: normal,
+    // or 1.0) the repaired value is its exponent, read from its bits
+    const int ebits = (int)((__double_as_longlong(safe) >> 52) & 0x7FF);
+    int log2cmax = ebits - 1023;
+    if (ebits == 0x7FF) {
+        int e0 = (int)floor(log2(safe));
+        if (pow2(e0) > safe) e0 = wsub(e0, 1);
+        log2cmax = pow2(wadd(e0, 1)) <= safe ? wadd(e0, 1) : e0;
+    }
     int shift = wsub(wsub(wsub(prec, 1), log2cmax), 1);
     shift = shift < MAX_SHIFT ? shift : MAX_SHIFT;
     valid = valid && shift >= MIN_SHIFT;
@@ -123,142 +151,245 @@ __device__ int quantize(const double* c, int order, int prec, int* qc,
     const int top = (sb < 0 || sb >= 32) ? 0 : (int)(1u << sb);
     const double qmax = (double)wsub(top, 1);
     const double qmin = -__dadd_rn(qmax, 1.0);
+    // past the order the plain version's q is 0 clamped to [qmin, qmax]:
+    // 0 for every precision of the grid (5..15), -1 where top is 0
+    double qt = 0.0;
+    qt = qt < qmin ? qmin : qt;
+    qt = qt > qmax ? qmax : qt;
+    const int tail = (int)qt;
+    int q[OT];
     double error = 0.0;
-    for (int j = 0; j < MAX_ORDER; ++j) {
-        const double e = __dadd_rn(error, __dmul_rn(c[j], scale));
-        double q = 0.0;
-        const bool in = j < order;
-        if (in) {
-            const double sgn = (double)((0.0 < e) - (e < 0.0));
-            q = __dmul_rn(sgn, floor(__dadd_rn(fabs(e), 0.5)));
+#pragma unroll
+    for (int j = 0; j < OT; ++j) {
+        q[j] = tail;
+        if (j < order) {
+            const double e = __dadd_rn(error, __dmul_rn(c[j], scale));
+            // sign(e) * floor(|e| + 0.5) as the plain version rounds it;
+            // copysign differs from the sign's product only in the sign of
+            // a zero (e = -0), which no integer output or later nonzero
+            // error sees
+            double v = copysign(floor(__dadd_rn(fabs(e), 0.5)), e);
+            v = v < qmin ? qmin : v;        // torch.maximum, then minimum
+            v = v > qmax ? qmax : v;
+            error = __dsub_rn(e, v);
+            q[j] = (int)v;
         }
-        q = q < qmin ? qmin : q;        // torch.maximum, then minimum
-        q = q > qmax ? qmax : q;
-        if (in) error = __dsub_rn(e, q);
-        qc[j] = (int)q;
     }
-    return shift > 0 ? shift : 0;
-}
-
-struct Out {
-    int* qc;
-    int* qshift;
-    int* order;
-    int* prec;
-    unsigned char* ok;
-};
-
-// quantize candidate `slot` (coefficients c of `order`) at every precision
-// of its grid, writing nP consecutive candidates from slot * nP
-__device__ void emit(const Out& out, long long slot, const double* c,
-                     int order, bool cand_ok, int bps, int static_prec,
-                     bool prec_search) {
-    const int nP = prec_search ? MAX_PREC - MIN_PREC + 1 : 1;
-    int clamp;
-    if (prec_search) {
-        const int v = wsub(wsub(32, bps), ilog2(order));
-        clamp = bps <= 17 ? (v > MIN_PREC ? v : MIN_PREC) : MAX_PREC;
+    int* row = a.qc + k * MAX_ORDER;
+    if (a.vec) {
+        int4* row4 = reinterpret_cast<int4*>(row);
+#pragma unroll
+        for (int v = 0; v < MAX_ORDER / 4; ++v) {
+            int x[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int j = 4 * v + u;
+                x[u] = j < OT ? q[j < OT ? j : 0] : tail;
+            }
+            row4[v] = make_int4(x[0], x[1], x[2], x[3]);
+        }
     } else {
-        const int v = wsub(wsub(32, bps), ilog2(order));
-        clamp = bps <= 17 ? (v < static_prec ? v : static_prec)
-                          : static_prec;
+#pragma unroll
+        for (int j = 0; j < MAX_ORDER; ++j)
+            row[j] = j < OT ? q[j < OT ? j : 0] : tail;
     }
-    for (int p = 0; p < nP; ++p) {
-        const long long k = slot * nP + p;
-        const int prec = prec_search ? MIN_PREC + p : clamp;
-        const bool ok_p = !prec_search || prec <= clamp;
-        bool q_ok;
-        const int sh = quantize(c, order, prec, out.qc + k * MAX_ORDER, q_ok);
-        out.qshift[k] = sh;
-        out.order[k] = order;
-        out.prec[k] = prec;
-        out.ok[k] = (unsigned char)(cand_ok && ok_p && q_ok);
-    }
+    a.qshift[k] = shift > 0 ? shift : 0;
+    a.order[k] = order;
+    a.prec[k] = prec;
+    a.ok[k] = (unsigned char)(cand_ok && valid);
 }
 
-// the float32 coefficients of an order, as the plain version gathers them:
-// (-lpc).to(float32), zero when the order is dead, then back to float64
-__device__ __forceinline__ void coefficients(const double* lpc, int order,
-                                             bool dead, double* c) {
-    for (int j = 0; j < MAX_ORDER; ++j)
-        c[j] = (j < order && !dead) ? (double)(float)(-lpc[j]) : 0.0;
+// precision p of a candidate's grid (-p: 5 + p, else the static one), and
+// whether the grid allows it
+__device__ __forceinline__ int precision(const Args& a, int order, int bps,
+                                         int p, bool& ok_p) {
+    const int v = wsub(wsub(32, bps), ilog2(order));
+    if (a.prec_search) {
+        const int clamp = bps <= 17 ? (v > MIN_PREC ? v : MIN_PREC)
+                                    : MAX_PREC;
+        ok_p = MIN_PREC + p <= clamp;
+        return MIN_PREC + p;
+    }
+    ok_p = true;
+    return bps <= 17 ? (v < a.static_prec ? v : a.static_prec)
+                     : a.static_prec;
 }
 
-__global__ void __launch_bounds__(THREADS) lpc_coeffs_kernel(
-        const double* __restrict__ autoc, const int* __restrict__ bps_in,
-        Out out, int R, int A, int O, int N, int exhaustive,
-        int prec_search, int static_prec) {
-    const int t = blockIdx.x * THREADS + threadIdx.x;
-    if (t >= R * A) return;
-    const int r = t / A, a = t - r * A;
-    const int bps = bps_in[r];
-    double ac[MAX_ORDER + 1], lpc[MAX_ORDER], c[MAX_ORDER];
-    for (int l = 0; l <= O; ++l) ac[l] = autoc[(long long)t * (O + 1) + l];
-    for (int j = 0; j < MAX_ORDER; ++j) lpc[j] = 0.0;
+template <int OT>
+__global__ void __launch_bounds__(CTA) lpc_coeffs_kernel(const Args a) {
+    constexpr int G = lanes_for(OT);
+    constexpr int PPC = CTA / G;                    // problems a CTA
+    constexpr int NS = (OT + G - 1) / G;            // orders a lane
+    __shared__ double s_ac[PPC][OT + 1];
+    const int gl = threadIdx.x % G, slot = threadIdx.x / G;
+    const long long prob = (long long)blockIdx.x * PPC + slot;
+    const bool live = prob < (long long)a.R * a.A;
+    const int O = a.O;
+    const int r = live ? (int)(prob / a.A) : 0;
+    // the autocorrelations into shared memory, the group's lanes side by
+    // side
+    for (int l = gl; l <= O; l += G)
+        s_ac[slot][l] = live ? a.autoc[prob * (O + 1) + l] : 0.0;
+    const int bps = live ? a.bps[r] : 0;
+    __syncwarp();
+    const double* ac = s_ac[slot];
+
+    // the recursion, once: lane i % G keeps order i + 1's error, dead flag
+    // (before the step) and float32 coefficients
+    double lpc[OT];
+#pragma unroll
+    for (int j = 0; j < OT; ++j) lpc[j] = 0.0;
     double err = ac[0];
     bool dead = err == 0.0;
+    double err_own[NS];
+    bool dead_own[NS];
+    float own[NS][OT];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+        err_own[s] = 0.0;
+        dead_own[s] = true;
+#pragma unroll
+        for (int j = 0; j < OT; ++j) own[s][j] = 0.0f;
+    }
+    // unrolled: the recursion's state stays in registers
+#pragma unroll
+    for (int i = 0; i < OT; ++i) {
+        if (i >= O) continue;
+        double s = 0.0;
+#pragma unroll
+        for (int j = 0; j < i; ++j)
+            s = __dadd_rn(s, __dmul_rn(lpc[j], ac[i - j]));
+        const double safe = err == 0.0 ? 1.0 : err;
+        const double rr = __ddiv_rn(-__dadd_rn(ac[i + 1], s), safe);
+        // lpc'[j] = lpc[j] + r * lpc[i-1-j] for j < i (from the old values)
+#pragma unroll
+        for (int j = 0; j < i / 2; ++j) {
+            const double x = lpc[j], y = lpc[i - 1 - j];
+            lpc[j] = __dadd_rn(x, __dmul_rn(rr, y));
+            lpc[i - 1 - j] = __dadd_rn(y, __dmul_rn(rr, x));
+        }
+        if (i & 1) {
+            const int mid = (i - 1) >> 1;
+            lpc[mid] = __dadd_rn(lpc[mid], __dmul_rn(rr, lpc[mid]));
+        }
+        lpc[i] = rr;
+        err = __dmul_rn(err, __dsub_rn(1.0, __dmul_rn(rr, rr)));
+        // selects, not a branch: the group's lanes do not diverge
+        const bool mine = gl == i % G;
+        err_own[i / G] = mine ? err : err_own[i / G];
+        dead_own[i / G] = mine ? dead : dead_own[i / G];
+#pragma unroll
+        for (int j = 0; j <= i; ++j) {
+            // the plain version's (-lpc).to(float32), 0 for a dead order
+            const float c = dead ? 0.0f : (float)(-lpc[j]);
+            own[i / G][j] = mine ? c : own[i / G][j];
+        }
+        dead = dead || err == 0.0;
+    }
     const double bpsd = (double)bps;
+    const int nP = a.prec_search ? N_PREC : 1;
 
-    if (exhaustive) {
-        // every order is a candidate, quantized as the recursion makes it;
-        // its own estimate at scale 0.5 / (N - order)
-        const long long base = (long long)r * A * O + (long long)a * O;
-        for (int i = 0; i < O; ++i) {
-            levinson_step(i, ac, lpc, err);
+    if (a.exhaustive) {
+        // every order a candidate, quantized by its owner at every
+        // precision; its own estimate at scale 0.5 / (N - order)
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            const int i = gl + s * G;
+            if (i >= O || !live) continue;
             const int order = i + 1;
             const double scale =
-                __dmul_rn(__drcp_rn((double)(N - order)), 0.5);
-            const bool ok = !dead && est_bps(err, scale) < bpsd;
-            coefficients(lpc, order, dead, c);
-            emit(out, base + i, c, order, ok, bps, static_prec,
-                 prec_search != 0);
-            dead = dead || err == 0.0;
+                __dmul_rn(__drcp_rn((double)(a.N - order)), 0.5);
+            const bool ok = !dead_own[s] && est_bps(err_own[s], scale) < bpsd;
+            const long long cand = prob * O + i;
+            for (int p = 0; p < nP; ++p) {
+                bool ok_p;
+                const int prec = precision(a, order, bps, p, ok_p);
+                quantize<OT>(a, cand * nP + p, own[s], order, prec,
+                             ok && ok_p);
+            }
         }
         return;
     }
 
-    // the errors of every order, then the guess (first index on ties)
-    double errs[MAX_ORDER];
-    bool was_dead[MAX_ORDER];
-    for (int i = 0; i < O; ++i) {
-        levinson_step(i, ac, lpc, err);
-        errs[i] = err;
-        was_dead[i] = dead;
-        dead = dead || err == 0.0;
-    }
-    const double scale_n = __ddiv_rn(0.5, (double)N);
-    const double ovh = (double)wadd(bps, static_prec);
-    int best = 0;
-    double best_bits = 0.0;
-    for (int i = 0; i < O; ++i) {
-        const double o = (double)(i + 1);
+    // the guess: each lane scores its orders, then the first-index argmin
+    // over the group (bits never NaN: est_bps gives 0 for a NaN error)
+    const double scale_n = __ddiv_rn(0.5, (double)a.N);
+    const double ovh = (double)wadd(bps, a.static_prec);
+    double best_bits = __longlong_as_double(0x7FF0000000000000LL);
+    int best = (1 << 30) | 0;                        // (index << 1) | ok
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+        const int i = gl + s * G;
+        if (i >= O) continue;
+        const int order = i + 1;
+        const double o = (double)order;
         const double bits = __dadd_rn(
-            __dmul_rn(est_bps(errs[i], scale_n), (double)N - o),
+            __dmul_rn(est_bps(err_own[s], scale_n), (double)a.N - o),
             __dmul_rn(o, ovh));
-        if (i == 0 || bits < best_bits) {
-            best = i;
+        const double scale =
+            __dmul_rn(__drcp_rn((double)(a.N - order)), 0.5);
+        const bool ok = !dead_own[s] && est_bps(err_own[s], scale) < bpsd;
+        if (s == 0 || bits < best_bits) {
             best_bits = bits;
+            best = (i << 1) | (int)ok;
         }
     }
-    const int order = best + 1;
-    const double scale = __dmul_rn(__drcp_rn((double)(N - order)), 0.5);
-    const bool ok = !was_dead[best] && est_bps(errs[best], scale) < bpsd;
-    // the guessed order's coefficients: the recursion again, up to it
-    for (int j = 0; j < MAX_ORDER; ++j) lpc[j] = 0.0;
-    err = ac[0];
-    for (int i = 0; i < order; ++i) levinson_step(i, ac, lpc, err);
-    coefficients(lpc, order, was_dead[best], c);
-    emit(out, (long long)t, c, order, ok, bps, static_prec,
-         prec_search != 0);
+#pragma unroll
+    for (int w = 1; w < G; w <<= 1) {
+        const double ob = __shfl_xor_sync(FULL, best_bits, w, G);
+        const int oi = __shfl_xor_sync(FULL, best, w, G);
+        if (ob < best_bits || (ob == best_bits && oi < best)) {
+            best_bits = ob;
+            best = oi;
+        }
+    }
+    const int order = (best >> 1) + 1;
+    const bool ok = best & 1;
+    // the guessed order's coefficients from its owner, a shuffle each
+    float cs[OT];
+    const int owner = (order - 1) % G, s_own = (order - 1) / G;
+#pragma unroll
+    for (int j = 0; j < OT; ++j) {
+        float v = own[0][j];
+#pragma unroll
+        for (int s = 1; s < NS; ++s) v = s == s_own ? own[s][j] : v;
+        cs[j] = __shfl_sync(FULL, v, owner, G);
+    }
+    if (!live) return;
+    for (int p = gl; p < nP; p += G) {
+        bool ok_p;
+        const int prec = precision(a, order, bps, p, ok_p);
+        quantize<OT>(a, prob * nP + p, cs, order, prec, ok && ok_p);
+    }
 }
 
-// the dependent latency of the chain's float64 add: one thread runs
-// `steps` dependent __dadd_rn and writes the clock64 cycles they took
-__global__ void lpc_chain_probe_kernel(double x, int steps, double* sink,
-                                       long long* cycles) {
+template <int OT>
+int launch(const Args& a, cudaStream_t stream) {
+    constexpr int PPC = CTA / lanes_for(OT);
+    const long long problems = (long long)a.R * a.A;
+    const long long ctas = (problems + PPC - 1) / PPC;
+    lpc_coeffs_kernel<OT><<<(unsigned)ctas, CTA, 0, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// the dependent latency of one kind of the chain's operations: one thread
+// runs `steps` of them in a row (op 0 __dadd_rn; 1 __ddiv_rn; 2 log2 and
+// an add; 3 floor and an add; 4 __dmul_rn) and writes the clock64 cycles
+// they took
+__global__ void lpc_op_probe_kernel(int op, double x, int steps,
+                                    double* sink, long long* cycles) {
     double v = x;
     const long long t0 = clock64();
-    for (int i = 0; i < steps; ++i) v = __dadd_rn(v, x);
+    switch (op) {
+        case 0: for (int i = 0; i < steps; ++i) v = __dadd_rn(v, x); break;
+        case 1: for (int i = 0; i < steps; ++i) v = __ddiv_rn(x, v); break;
+        case 2: for (int i = 0; i < steps; ++i) v = __dadd_rn(log2(v), 2.0);
+                break;
+        case 3: for (int i = 0; i < steps; ++i)
+                    v = __dadd_rn(floor(v), 0.75);
+                break;
+        default: for (int i = 0; i < steps; ++i) v = __dmul_rn(v, x);
+    }
     const long long t1 = clock64();
     sink[0] = v;
     cycles[0] = t1 - t0;
@@ -279,21 +410,24 @@ int flac_lpc_coeffs(const void* autoc, const void* bps, void* qc,
                     int static_prec, void* stream) {
     if (R <= 0 || A <= 0) return 0;
     if (O < 1 || O > MAX_ORDER || N <= O) return (int)cudaErrorInvalidValue;
-    Out out{(int*)qc, (int*)qshift, (int*)order, (int*)prec,
-            (unsigned char*)ok};
-    const int problems = R * A;
-    lpc_coeffs_kernel<<<(problems + THREADS - 1) / THREADS, THREADS, 0,
-                        (cudaStream_t)stream>>>(
-        (const double*)autoc, (const int*)bps, out, R, A, O, N, exhaustive,
-        prec_search, static_prec);
-    return (int)cudaGetLastError();
+    Args a{(const double*)autoc, (const int*)bps, (int*)qc, (int*)qshift,
+           (int*)order, (int*)prec, (unsigned char*)ok, R, A, O, N,
+           exhaustive, prec_search, static_prec,
+           (int)(((uintptr_t)qc & 15) == 0)};
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (O <= 6) return launch<6>(a, s);
+    if (O <= 8) return launch<8>(a, s);
+    if (O <= 12) return launch<12>(a, s);
+    return launch<32>(a, s);
 }
 
-// The chain probe: `steps` dependent float64 adds in one thread; sink [1]
-// float64 and cycles [1] int64 device pointers.  Synchronous.
-int flac_lpc_chain_probe(int steps, void* sink, void* cycles) {
-    lpc_chain_probe_kernel<<<1, 1>>>(1.0, steps, (double*)sink,
-                                     (long long*)cycles);
+// The chain probe: `steps` dependent operations `op` (see
+// lpc_op_probe_kernel) in one thread, each on its own start value; sink
+// [1] float64 and cycles [1] int64 device pointers.  Synchronous.
+int flac_lpc_op_probe(int op, int steps, void* sink, void* cycles) {
+    const double x[] = {1.0, 2.0, 2.5, 1.25, 1.0000001};
+    lpc_op_probe_kernel<<<1, 1>>>(op, x[op < 0 || op > 4 ? 4 : op], steps,
+                                  (double*)sink, (long long*)cycles);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     return (int)cudaDeviceSynchronize();

@@ -3,8 +3,9 @@
 A source is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
 with a plain C interface, loaded with ctypes.  Libraries go to
 `flac_tpu_torch/build/` (listed in .gitignore), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is reused within a checkout.  Several sources build in parallel
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused within a
+checkout.  Several sources build in parallel
 (`load_all`: one nvcc each, started together).  Nothing is imported or
 built when the package is imported: the CPU paths never need `nvcc`.
 """
@@ -40,7 +41,9 @@ def nvcc_path() -> str:
 
 def _library_path(name: str) -> Path:
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
+    # the headers a source may include (csrc/*.cuh) are part of its hash
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -12,11 +12,21 @@ frame numbers, mono and 8 channels, the 33-bit side's (high, low-16)
 pairs, with int64 signals, in the wide layout and under an explicit quad
 layout, and the edges of K4's cluster of CTAs a frame: a batch of one
 frame, 133 frames (more clusters than the H100's 132 SMs), 16-sample
-frames, whose few field slots leave the last ranks of a cluster none, and
+frames, whose few field slots leave the last ranks of a cluster none,
 36-sample frames whose partitions of 9 and 18 samples put a quad's four
-samples in two partitions.  A case's subframe choice is random but keeps each frame within
+samples in two partitions, minimal frames (a 5-byte header, a CONSTANT
+8-bit mono subframe: 10 bytes) and 256 frames (K5's launch of one CTA a
+frame).  A case's subframe choice is random but keeps each frame within
 the word rows (residuals near their partition's Rice parameter), so the
 whole chain fields -> pack -> seal runs on it too.
+
+`seal_cases` are K5's own corners, packed words made up directly:
+byte_len - 2 at every residue mod 16, the longest header (15 bytes
+before the CRC-8), minimal frames, a CRC-8 byte whose word is not zero
+(the deposit carries), a batch of one 10 KB frame, 64 and 256 frames,
+and, past the plain version's domain (`seal_host` is the reference
+there), byte_len - 2 past the row (those bytes count as zeros), byte_len
+of 0, 1 and 2 (L < 0 counts as 0) and rows of an odd W.
 
 chip_smoke.py and the card-only tests hold K4 and K5 against their plain
 versions on them; the CPU tests hold the plain seal against the host CRC.
@@ -30,6 +40,7 @@ import torch
 from .. import format as fmt
 from ..config import EncoderConfig
 from ..models.subframe import SubframeChoice
+from . import crc
 from .rice import ESCAPE_K_BASE
 
 TYPES = (fmt.SUBFRAME_TYPE_CONSTANT, fmt.SUBFRAME_TYPE_VERBATIM,
@@ -172,7 +183,112 @@ def cases():
          batch(14, B=3, C=1, N=16, P=16, bps=16)),
         ("quad, N=36 with P=8: partitions of 9 and 18, quads across them",
          batch(15, B=3, C=2, N=36, P=8, bps=16)),
+        ("quad, minimal frames: CONSTANT mono 8-bit, 10 bytes",
+         batch(16, B=3, C=1, N=192, P=1, bps=8, types=TYPES[:1],
+               wasted_max=0)),
+        ("quad, 256 frames of 16 samples: K5 a CTA a frame",
+         batch(17, B=256, C=1, N=16, P=4, bps=16)),
     ]
+
+
+def seal_batch(seed: int, *, W: int, byte_len, hdr_bytes,
+               crc8_slot: bool = False) -> dict:
+    """Packed words [B, W] (uint32 in int64) of random bytes, zero from
+    each frame's byte_len - 2 on and at its CRC-8 byte (`crc8_slot`: that
+    byte random too), with byte_len and hdr_bytes [B] int32.  `plain`:
+    whether the case lies in the plain seal's domain (W a power of two,
+    the CRC-8 byte inside the CRC-16's bytes, byte_len - 2 in [0, 4W])."""
+    rng = np.random.default_rng(seed)
+    byte_len = np.asarray(byte_len, np.int32)
+    hdr_bytes = np.asarray(hdr_bytes, np.int32)
+    B = len(byte_len)
+    raw = rng.integers(0, 256, (B, 4 * W), dtype=np.uint8)
+    at = np.arange(4 * W)[None, :]
+    raw[at >= np.maximum(byte_len - 2, 0)[:, None]] = 0
+    if not crc8_slot:
+        raw[at == hdr_bytes[:, None]] = 0
+    words = raw.reshape(B, W, 4).astype(np.int64)
+    words = (words[..., 0] << 24) | (words[..., 1] << 16) \
+        | (words[..., 2] << 8) | words[..., 3]
+    L = byte_len.astype(np.int64) - 2
+    plain = bool(W & (W - 1) == 0 and (L >= 0).all() and (L <= 4 * W).all()
+                 and (hdr_bytes < L).all() and (hdr_bytes <= 15).all())
+    return {"words": words, "byte_len": byte_len, "hdr_bytes": hdr_bytes,
+            "plain": plain}
+
+
+def seal_cases():
+    """[(label, seal_batch)] for K5's corners."""
+    rng = np.random.default_rng(99)
+    res16 = np.concatenate([base + np.arange(16) for base in (33, 120, 200)])
+    return [
+        ("byte_len - 2 at every residue mod 16",
+         seal_batch(1, W=64, byte_len=res16 + 2,
+                    hdr_bytes=rng.integers(5, 16, len(res16)))),
+        ("the longest header: 15 bytes before the CRC-8",
+         seal_batch(2, W=64, byte_len=[18, 19, 24, 25, 120, 255],
+                    hdr_bytes=[15] * 6)),
+        ("minimal frames: the CRC-16 over the header and the CRC-8",
+         seal_batch(3, W=8, byte_len=np.arange(5, 16) + 3,
+                    hdr_bytes=np.arange(5, 16))),
+        ("a CRC-8 byte in a word that is not zero: the deposit carries",
+         seal_batch(4, W=64, byte_len=rng.integers(20, 250, 40),
+                    hdr_bytes=rng.integers(5, 16, 40), crc8_slot=True)),
+        ("a batch of one 10 KB frame: a cluster of 8",
+         seal_batch(5, W=4096, byte_len=[10301], hdr_bytes=[6])),
+        ("64 frames of ~10 KB: the main path's launch",
+         seal_batch(6, W=4096, byte_len=rng.integers(9000, 11000, 64),
+                    hdr_bytes=rng.integers(5, 16, 64))),
+        ("256 frames of 1-4 KB: a CTA a frame",
+         seal_batch(7, W=1024, byte_len=rng.integers(1000, 4097, 256),
+                    hdr_bytes=rng.integers(5, 16, 256))),
+        ("byte_len - 2 past 4W: the bytes past the row count as zeros",
+         seal_batch(8, W=16, byte_len=[64, 65, 66, 67, 70, 100, 1000, 4099],
+                    hdr_bytes=[6, 7, 8, 9, 10, 11, 12, 15])),
+        ("byte_len 0, 1 and 2: L < 0 counts as 0",
+         seal_batch(9, W=8, byte_len=[0, 1, 2, 3, 8], hdr_bytes=[5] * 5)),
+        ("an odd W (37): rows not 16-byte aligned",
+         seal_batch(10, W=37, byte_len=rng.integers(10, 149, 12),
+                    hdr_bytes=rng.integers(5, 9, 12))),
+    ]
+
+
+def seal_host(words, byte_len, hdr_bytes) -> np.ndarray:
+    """K5's contract on the host, byte by byte (ops/crc.py): the CRC-8 of
+    each frame's first hdr_bytes bytes added into its byte hdr_bytes, then
+    the CRC-16 of its first max(byte_len - 2, 0) bytes (those past the row
+    zeros) added into the two bytes after them; a deposit adds into its
+    uint32 word and is dropped outside [0, W)."""
+    out = np.array(words, np.int64)
+    W = out.shape[1]
+
+    def as_bytes(row):
+        return np.stack([(row >> s) & 0xFF for s in (24, 16, 8, 0)],
+                        -1).reshape(-1).astype(np.uint8)
+
+    def deposit(row, idx, value):
+        if 0 <= idx and idx >> 2 < W:
+            sh = (3 - (idx & 3)) * 8
+            row[idx >> 2] = (int(row[idx >> 2]) + (int(value) << sh)) \
+                & 0xFFFFFFFF
+
+    for b in range(out.shape[0]):
+        row, hb, bl = out[b], int(hdr_bytes[b]), int(byte_len[b])
+        deposit(row, hb, crc.crc8(as_bytes(row)[:max(hb, 0)]))
+        L = max(bl - 2, 0)
+        msg = np.zeros(L, np.uint8)
+        raw = as_bytes(row)[:L]
+        msg[:len(raw)] = raw
+        c16 = crc.crc16(msg)
+        deposit(row, bl - 2, c16 >> 8)
+        deposit(row, bl - 1, c16 & 0xFF)
+    return out
+
+
+def as_seal_inputs(case: dict, device):
+    """(words, byte_len, hdr_bytes) on `device`."""
+    return tuple(torch.from_numpy(case[k]).to(device)
+                 for k in ("words", "byte_len", "hdr_bytes"))
 
 
 def as_inputs(case: dict, device):

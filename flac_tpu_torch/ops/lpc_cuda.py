@@ -7,17 +7,22 @@ candidate grid around them (flac_tpu/models/subframe.py:155-218: -e, -p,
 the "don't even try" estimate, the precision clamp), which XLA fuses into
 the jitted encode_batch and the port ran op by op: some 900 small kernels
 a -5 batch, each one serial step over a few hundred values.  The source
-is csrc/lpc_coeffs.cu: a thread a (frame and channel candidate,
-apodization) problem, looping over its own candidates, every float64 step
-rounded as the plain version (models/subframe.py lpc_candidates_plain)
-rounds it, so the two agree bit for bit.
+is csrc/lpc_coeffs.cu: a group of `lanes(O)` lanes a (frame and channel
+candidate, apodization) problem in CTAs of one warp; every lane runs the
+one recursion, unrolled through a template on the order, and lane i % G
+keeps order i + 1's error and coefficients; the lanes estimate their
+orders side by side, a shuffle butterfly takes the first-index argmin,
+and the candidates' precisions are shared out over the lanes.  Every
+float64 step is rounded as the plain version (models/subframe.py
+lpc_candidates_plain) rounds it, so the two agree bit for bit.
 
 Bound: a -5 batch of 64 stereo frames is 256 problems of order 8 (~20 KB
 of autocorrelations in, ~40 KB out): the card moves that in ~0.02 us at
-3.35 TB/s (the NVIDIA H100 SXM data sheet's rate).  A launch is the serial
-chain of one thread's dependent float64 operations (`chain_ops`) and the
-launch itself.  chip_smoke.py measures it, with the chain's floor from
-`chain_probe`.
+3.35 TB/s (the NVIDIA H100 SXM data sheet's rate).  A launch is one
+problem's chain of dependent float64 operations (`chain_ops`: the
+recursion, an estimate, the quantizer up to the candidate's order) and
+the launch itself.  chip_smoke.py measures it, with the chain's floor
+from each operation's dependent latency (`op_cycles`).
 
 `subframe.lpc_candidates` dispatches on the tensors' device: the plain
 version for CPU tensors, `lpc_candidates` here for CUDA tensors (it
@@ -41,6 +46,10 @@ SOURCE = "flac_tpu_torch/csrc/lpc_coeffs.cu"
 REPLACES = "flac_tpu/ops/lpc.py:149"     # levinson_all_orders, with :205, :257
 _LIB_NAME = "lpc_coeffs"
 N_PREC = fmt.MAX_QLP_COEFF_PRECISION - fmt.MIN_QLP_COEFF_PRECISION + 1
+TEMPLATE_ORDERS = (6, 8, 12, 32)   # the source's instantiations
+CTA = 32                           # threads a CTA (CTA in the source)
+# the probe's operations (lpc_op_probe_kernel), in its order
+PROBE_OPS = ("add", "div", "log2", "floor", "mul")
 
 launches = 0          # kernel launches of K6 in this process
 captured = 0          # K6 launches recorded into CUDA graphs (not run)
@@ -55,9 +64,9 @@ def _library() -> ctypes.CDLL:
         lib.flac_lpc_coeffs.argtypes = [ctypes.c_void_p] * 7 + [
             ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.flac_lpc_coeffs.restype = ctypes.c_int
-        lib.flac_lpc_chain_probe.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                             ctypes.c_void_p]
-        lib.flac_lpc_chain_probe.restype = ctypes.c_int
+        lib.flac_lpc_op_probe.argtypes = [ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p, ctypes.c_void_p]
+        lib.flac_lpc_op_probe.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -69,18 +78,46 @@ def candidates(A: int, O: int, cfg) -> int:
     return AC * (N_PREC if cfg.do_qlp_coeff_prec_search else 1)
 
 
-def chain_ops(O: int, cfg) -> int:
-    """Dependent float64 operations on one thread's critical path: the
-    recursion (its inner sum, the reflection's add and divide, the error
-    update), once for the errors and once more up to the guessed order
-    (counted at O) without -e; then, per candidate, the quantizer's 32
-    steps of error feedback (add, abs and add, floor, multiply, two
-    clamps, the subtraction) and the order guess or estimate."""
-    recursion = sum(i + 5 for i in range(O))
-    per_candidate = 32 * 7 + 10
-    if cfg.do_exhaustive_model_search:
-        return recursion + candidates(1, O, cfg) * per_candidate
-    return 2 * recursion + 3 * O + candidates(1, O, cfg) * per_candidate
+def template_order(O: int) -> int:
+    """The instantiation a launch of order O takes (the source's
+    dispatch)."""
+    return next(t for t in TEMPLATE_ORDERS if O <= t)
+
+
+def lanes(O: int) -> int:
+    """Lanes a problem at order O (the source's lanes_for of its
+    template order)."""
+    t = template_order(O)
+    return 8 if t <= 8 else 16 if t <= 16 else 32
+
+
+def ctas(problems: int, O: int) -> int:
+    """CTAs a launch of `problems` problems of order O."""
+    per = CTA // lanes(O)
+    return -(-problems // per)
+
+
+def chain_ops(O: int, order: int) -> dict:
+    """Dependent float64 operations, by kind, on the critical path of a
+    problem of order O whose longest candidate has `order` coefficients:
+    the recursion once (step 0: an add and the division; step 1: the
+    product, two adds, the division; step i >= 2: the update's multiply
+    and add, the product, i adds of the inner sum, the autocorrelation's
+    add, the division), the last error (3), the last order's estimate (its
+    multiply, log2, halving, clamp and one more step: 5 and a log2), then
+    the quantizer: the max over the order as a tree, 3 steps to the scale
+    (the exponent read from the bits), and each coefficient's error
+    feedback (the add, the rounding add, floor, the sign, two clamps, the
+    subtraction).  Multiplies, compares and selects count as adds; the
+    shuffles of the order guess are left out."""
+    adds = (1 + (3 if O > 1 else 0) + sum(i + 4 for i in range(2, O))
+            + 3 + 5 + (order - 1).bit_length() + 3 + 6 * order)
+    return {"add": adds, "div": O, "log2": 1, "floor": order}
+
+
+def chain_cycles(ops: dict, cycles: dict) -> float:
+    """Cycles of a chain_ops count at the probe's cycles an operation."""
+    return sum(n * cycles[kind] for kind, n in ops.items())
 
 
 def check_arguments(autoc, bps_eff, N: int) -> None:
@@ -140,14 +177,22 @@ def lpc_candidates(autoc, bps_eff, N: int, cfg):
     return qc, qshift, order, prec, ok
 
 
-def chain_probe(steps: int = 4096) -> float:
-    """Clock cycles of one dependent float64 add on the card (one thread,
-    `steps` of them in a row, clock64 around them)."""
+def op_cycles(steps: int = 4096) -> dict:
+    """Clock cycles of one dependent operation of each kind of K6's chain
+    on the card ({"add", "div", "log2", "floor", "mul"}): one thread,
+    `steps` in a row; log2 and floor are probed each with an add after it,
+    whose cycles are taken off."""
     sink = torch.empty(1, dtype=torch.float64, device="cuda")
     cycles = torch.empty(1, dtype=torch.int64, device="cuda")
-    kernels.check(_library().flac_lpc_chain_probe(
-        steps, sink.data_ptr(), cycles.data_ptr()), "flac_lpc_chain_probe")
-    return int(cycles.item()) / steps
+    out = {}
+    for op, kind in enumerate(PROBE_OPS):
+        kernels.check(_library().flac_lpc_op_probe(
+            op, steps, sink.data_ptr(), cycles.data_ptr()),
+            "flac_lpc_op_probe")
+        out[kind] = int(cycles.item()) / steps
+    for kind in ("log2", "floor"):
+        out[kind] -= out["add"]
+    return out
 
 
 def count_replay(n: int) -> None:

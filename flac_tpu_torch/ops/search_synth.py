@@ -10,9 +10,12 @@ K6 (`lpc_cases`): autocorrelations of windowed signals beside
 silence (autoc[0] == 0), exact fits that kill the later orders (a
 constant signal's autocorrelation: the error reaches 0 at order 1), a
 non-positive-definite autocorrelation whose error goes negative (the
-estimate's 1e32), constant blocks under a window, -e, -p and -e -p, the
-precision branch past 17 bits (up to the 33-bit side), orders 1 to 32,
-and N of 16, 1152, 4096 and 4608.
+estimate's 1e32) at order 1 or only from order 2, constant blocks under a
+window, white-noise rows whose orders all score exactly the same bits (the
+guess must take the first), -e, -p and -e -p, the precision branch past
+17 bits (up to the 33-bit side), orders 1 to 32 (6, 8 and 12, the
+kernel's templates, and its generic path with every lane busy: order 32
+at N = 33 under -e -p), and N of 16, 33, 1152, 4096 and 4608.
 
 K7 (`rice_cases`): residual rows of Laplacian-like partitions of
 scattered sizes, with every partition order up to the largest each
@@ -52,12 +55,17 @@ def _autocorrelation(x: np.ndarray, O: int) -> np.ndarray:
 
 
 def lpc_batch(seed: int, *, B: int, CH: int, A: int, O: int, N: int,
-              bps: int = 16, corners: bool = True) -> dict:
+              bps: int = 16, corners: bool = True, ties: int = 0) -> dict:
     """Autocorrelations [B, CH, A, O+1] of windowed signals (a tone and
     filtered noise) of N samples (each apodization a Tukey window of its
     own width) and bps_eff [B, CH] near `bps`; with `corners`, rows 0-3 of
     the first frame are silence, an exact fit, a negative error and a
-    constant block."""
+    constant block.  With `ties` (the configuration's qlp precision, N a
+    power of two), rows 4 and up are white noise whose every order's
+    error is autoc[0] = 2^(2 ovh + 1) N (ovh = bps_eff + ties): every
+    order's estimated bits are exactly ovh N, a tie the guess breaks to
+    order 1; and row 5 has a positive error at order 1 and a negative one
+    from order 2."""
     rng = np.random.default_rng(seed)
     n = np.arange(N)
     sig = np.zeros((B, CH, N))
@@ -89,6 +97,12 @@ def lpc_batch(seed: int, *, B: int, CH: int, A: int, O: int, N: int,
         w = np.hanning(N) if N > 1 else np.ones(N)
         flat[3] = _autocorrelation((const * w).astype(np.float32)
                                    .astype(np.float64), O)
+    if ties and B * CH >= 6:
+        flat = autoc.reshape(B * CH, A, O + 1)
+        ovh = bps_eff.reshape(-1).astype(np.int64) + ties
+        flat[4:] = 0.0
+        flat[4:, :, 0] = np.ldexp(float(N), 2 * ovh[4:] + 1)[:, None]
+        flat[5, :, 0], flat[5, :, 1], flat[5, :, 2:] = 1.0e6, 0.0, 1.9e6
     return {"autoc": autoc, "bps_eff": bps_eff}
 
 
@@ -128,6 +142,15 @@ def lpc_cases() -> list:
     add("bps 17, orders 1-32 under -e", 4096,
         _config(4096, max_lpc_order=32, do_exhaustive_model_search=True),
         B=1, CH=4, A=1, bps=17)
+    add("-3: order 6, N=4096", 4096, _config(4096, max_lpc_order=6),
+        B=4, CH=2, A=1)
+    add("ties: every order's bits equal; a negative error from order 2",
+        4096, _config(4096), B=2, CH=4, A=2, ties=12)
+    add("near-ties at order 12: N=4608, the bits differ in their last places", 4608,
+        _config(4608, max_lpc_order=12), B=2, CH=4, A=1, ties=12)
+    add("-e -p, order 32, N=33: the generic path, every lane busy", 33,
+        _config(33, max_lpc_order=32, do_exhaustive_model_search=True,
+                do_qlp_coeff_prec_search=True), B=2, CH=2, A=2)
     return out
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of kernels K1, K2, K3, K4 and K7 goes, on one NVIDIA GPU.
+"""Where the time of kernels K1-K7 goes, on one NVIDIA GPU.
 
     python3 kernel_variants.py            # every variant of every kernel
-    python3 kernel_variants.py --k1       # K1's only (or --k2, --k3, --k4,
-                                          # --k7; several may be given)
+    python3 kernel_variants.py --k1       # K1's only (or --k2 ... --k7;
+                                          # several may be given)
     python3 kernel_variants.py --other "old=DIR"  # and DIR/*.cu as they are
 
 Each variant is the kernel's source with one change (a constant, a part of
@@ -15,8 +15,11 @@ lanes of 128 codes), K3 on the same batch's residuals (2048 subframes of
 4096 samples, int16 out) as each engine gives them: int32 (the device
 engine) and int16 (the fast engine), K4 on the field lists of the
 track's first 64 frames at -5 and of its first 256 (the sharded form's
-batch), K7 on the search inputs of the track's first 64 frames at -5
-(1536 rows) and at -8 (3584 rows).  Before K3's variants, a one-thread
+batch), K5 on the packed words of the same 64 and 256 frames (each launch
+on a fresh copy: it seals in place), K6 and K7 on the search inputs of the
+track's first 64 frames at -5 (K6: 256 problems of order 8; K7: 1536 rows)
+and at -8 (2304 problems of order 12; 3584 rows).  Before K3's variants,
+a one-thread
 probe times the recursion's chain (cycles a sample, generic and folded,
 and the SM clock); each K3 line carries the chain floor it gives,
 N x cycles / clock.  A variant that cuts work out
@@ -345,6 +348,190 @@ K7_VARIANTS = [
                         "__launch_bounds__(THREADS, 12) rice_cost_kernel")]),
 ]
 
+# K5: clock64 at 4 the frame's lengths in (thread 0), 1 the loads issued
+# and the tables in shared memory, 5 thread 0's first pairs in, 2 its
+# column's Horner done, 3 the CTA's remainder (warp 0's tree), 6 every
+# rank past the cluster barrier, 7 the end (rank 0's deposits)
+K5_SLICING = (
+    "    return (sh.slice[7][hi >> 24] ^ sh.slice[6][(hi >> 16) & 0xFFu])\n"
+    "         ^ (sh.slice[5][(hi >> 8) & 0xFFu] ^ sh.slice[4][hi & 0xFFu])\n"
+    "         ^ (sh.slice[3][lo >> 24] ^ sh.slice[2][(lo >> 16) & 0xFFu])\n"
+    "         ^ (sh.slice[1][(lo >> 8) & 0xFFu] ^ sh.slice[0][lo & 0xFFu]);\n")
+K5_BYTE_STEPS = (
+    "    unsigned c = 0;\n#pragma unroll\n"
+    "    for (int k = 0; k < 8; ++k) {\n"
+    "        const unsigned byte = ((k < 4 ? hi : lo) >> (24 - 8 * (k & 3)))\n"
+    "                              & 0xFFu;\n"
+    "        c = ((c << 8) & 0xFFFFu) ^ sh.slice[0][(c >> 8) ^ byte];\n"
+    "    }\n    return c;\n")
+K5_VARIANTS = [
+    ("base", []),
+    ("phases", [
+        ("namespace {\n", "namespace {\n" + PHASE_DEFS),
+        ("    __shared__ __align__(16) Smem sh;\n",
+         "    __shared__ __align__(16) Smem sh;\n    PHSTART();\n"),
+        ("    __syncthreads();\n\n    // 2. the CRC-8",
+         "    __syncthreads();\n    PH(1);\n\n    // 2. the CRC-8"),
+        ("    // 4. the columns", "    PH(2);\n    // 4. the columns"),
+        ("    // 5. each rank's", "    PH(3);\n    // 5. each rank's"),
+        ("    cluster_barrier();\n    if (!last) return;\n",
+         "    cluster_barrier();\n    PHMAX(6);\n    if (!last) return;\n"),
+        ("    const long long off = K * T - Q;                     // leading zero pairs\n",
+         "    const long long off = K * T - Q;\n"
+         "    asm volatile(\"\" :: \"l\"(K));\n    PH(4);\n"),
+        ("    // 3. each column's pairs by Horner",
+         "    asm volatile(\"\" :: \"r\"(hi[0] ^ hi[1] ^ hi[2] ^ hi[3]));\n"
+         "    PH(5);\n    // 3. each column's pairs by Horner"),
+        ("        row[didx[d] >> 2] = w;\n    }\n}\n",
+         "        row[didx[d] >> 2] = w;\n    }\n    PHMAX(7);\n}\n"),
+        ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
+    # other cluster sizes: one CTA a frame, at most 2 or 4 a frame, and
+    # two CTAs an SM before halving
+    ("a CTA a frame", [("constexpr int CLUSTER = 8;",
+                        "constexpr int CLUSTER = 1;")]),
+    ("at most 2 a frame", [("constexpr int CLUSTER = 8;",
+                            "constexpr int CLUSTER = 2;")]),
+    ("at most 4 a frame", [("constexpr int CLUSTER = 8;",
+                            "constexpr int CLUSTER = 4;")]),
+    ("2 CTAs an SM", [("constexpr int CTA_TARGET = 132;",
+                       "constexpr int CTA_TARGET = 264;")]),
+    # a pair's CRC by eight dependent steps of the byte table
+    ("byte tables", [(K5_SLICING, K5_BYTE_STEPS)]),
+    # wider CTAs: 512 threads (at most 2 a frame), or 1024 and one a frame
+    ("512 threads", [("constexpr int LOG_THREADS = 8; ",
+                      "constexpr int LOG_THREADS = 9; "),
+                     ("constexpr int CLUSTER = 8;",
+                      "constexpr int CLUSTER = 2;")]),
+    # the pairs not loaded (a wrong result): what their latency costs
+    ("no pair loads", [("        if (u < K && p >= 0) load_pair(row, p, vec, hi[u], lo[u]);",
+                        "        if (u < K && p >= 0 && W < 0) load_pair(row, p, vec, hi[u], lo[u]);")]),
+    # the tables' image not copied (a wrong result): what its loads cost
+    ("no table image", [("        if (tid + c * THREADS < n4) img[c] = __ldg(",
+                         "        if (tid + c * THREADS < n4 && W < 0) img[c] = __ldg(")]),
+    ("1024 threads, a CTA a frame", [("constexpr int LOG_THREADS = 8; ",
+                                      "constexpr int LOG_THREADS = 10; "),
+                                     ("constexpr int CLUSTER = 8;",
+                                      "constexpr int CLUSTER = 1;")]),
+]
+K6_SUM = ("        double s = 0.0;\n#pragma unroll\n"
+          "        for (int j = 0; j < i; ++j)\n"
+          "            s = __dadd_rn(s, __dmul_rn(lpc[j], ac[i - j]));\n")
+# the guessed order's coefficients from their owner lane, and the one-thread
+# design's second recursion up to the guess in their place
+K6_PICK = (
+    "    float cs[OT];\n"
+    "    const int owner = (order - 1) % G, s_own = (order - 1) / G;\n"
+    "#pragma unroll\n"
+    "    for (int j = 0; j < OT; ++j) {\n"
+    "        float v = own[0][j];\n"
+    "#pragma unroll\n"
+    "        for (int s = 1; s < NS; ++s) v = s == s_own ? own[s][j] : v;\n"
+    "        cs[j] = __shfl_sync(FULL, v, owner, G);\n"
+    "    }\n")
+K6_RECOMPUTE = """\
+    float cs[OT];
+    double l2[OT];
+#pragma unroll
+    for (int j = 0; j < OT; ++j) l2[j] = 0.0;
+    double e2 = ac[0];
+    bool d2 = e2 == 0.0, d_at = d2;
+#pragma unroll
+    for (int i = 0; i < OT; ++i) {
+        if (i >= order) continue;
+        double s = 0.0;
+#pragma unroll
+        for (int j = 0; j < i; ++j)
+            s = __dadd_rn(s, __dmul_rn(l2[j], ac[i - j]));
+        const double safe = e2 == 0.0 ? 1.0 : e2;
+        const double rr = __ddiv_rn(-__dadd_rn(ac[i + 1], s), safe);
+#pragma unroll
+        for (int j = 0; j < i / 2; ++j) {
+            const double x = l2[j], y = l2[i - 1 - j];
+            l2[j] = __dadd_rn(x, __dmul_rn(rr, y));
+            l2[i - 1 - j] = __dadd_rn(y, __dmul_rn(rr, x));
+        }
+        if (i & 1) {
+            const int mid = (i - 1) >> 1;
+            l2[mid] = __dadd_rn(l2[mid], __dmul_rn(rr, l2[mid]));
+        }
+        l2[i] = rr;
+        e2 = __dmul_rn(e2, __dsub_rn(1.0, __dmul_rn(rr, rr)));
+        d_at = d2;
+        d2 = d2 || e2 == 0.0;
+    }
+#pragma unroll
+    for (int j = 0; j < OT; ++j) cs[j] = d_at ? 0.0f : (float)(-l2[j]);
+"""
+# K6: clock64 at 1 the autocorrelations in shared memory, 2 the recursion
+# done, 3 the guess (the shuffle argmin), 4 the quantizer's shift and
+# scale, 5 its error feedback done, 7 the end (the last quantizer of the
+# CTA's problem 0's lanes)
+K6_VARIANTS = [
+    ("base", []),
+    ("phases", [
+        ("namespace {\n", "namespace {\n" + PHASE_DEFS),
+        ("    __shared__ double s_ac[PPC][OT + 1];\n",
+         "    PHSTART();\n    __shared__ double s_ac[PPC][OT + 1];\n"),
+        ("    __syncwarp();\n    const double* ac = s_ac[slot];\n",
+         "    __syncwarp();\n    PH(1);\n    const double* ac = s_ac[slot];\n"),
+        ("    const double bpsd = (double)bps;\n",
+         "    PH(2);\n    const double bpsd = (double)bps;\n"),
+        ("    double error = 0.0;\n", "    PH(4);\n    double error = 0.0;\n"),
+        ("    int* row = a.qc + k * MAX_ORDER;\n",
+         "    PH(5);\n    int* row = a.qc + k * MAX_ORDER;\n"),
+        ("    const int order = (best >> 1) + 1;\n",
+         "    PH(3);\n    const int order = (best >> 1) + 1;\n"),
+        ("        quantize<OT>(a, prob * nP + p, cs, order, prec, ok && ok_p);\n"
+         "    }\n}\n",
+         "        quantize<OT>(a, prob * nP + p, cs, order, prec, ok && ok_p);\n"
+         "    }\n    PHMAX(7);\n}\n"),
+        ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
+    # lanes a problem: half as many (each lane two orders), or a warp
+    ("4-16 lanes a problem", [("return ot <= 8 ? 8 : ot <= 16 ? 16 : 32;",
+                               "return ot <= 8 ? 4 : ot <= 16 ? 8 : 16;")]),
+    ("a warp a problem", [("return ot <= 8 ? 8 : ot <= 16 ? 16 : 32;",
+                           "return 32;")]),
+    # the recursion's steps not unrolled: its state in local memory
+    ("state in local memory", [
+        ("#pragma unroll\n    for (int i = 0; i < OT; ++i) {\n        if (i >= O)",
+         "#pragma unroll 1\n    for (int i = 0; i < OT; ++i) {\n        if (i >= O)")]),
+    # the recursion again up to the guess, as the one-thread design did
+    ("two recursions", [(K6_PICK, K6_RECOMPUTE)]),
+    ("CTAs of 4 warps", [("constexpr int CTA = 32; ",
+                          "constexpr int CTA = 128; ")]),
+    # the coefficients through a triangle in shared memory, written in a
+    # branch of their owner lane, in place of registers and shuffles
+    ("triangle in shared memory", [
+        ("    __shared__ double s_ac[PPC][OT + 1];\n",
+         "    __shared__ double s_ac[PPC][OT + 1];\n"
+         "    __shared__ float s_tri[PPC][OT * (OT + 1) / 2];\n"),
+        ("            own[i / G][j] = mine ? c : own[i / G][j];\n        }\n",
+         "            own[i / G][j] = mine ? c : own[i / G][j];\n        }\n"
+         "        if (mine) {\n#pragma unroll\n"
+         "            for (int j = 0; j <= i; ++j)\n"
+         "                s_tri[slot][i * (i + 1) / 2 + j] = own[i / G][j];\n"
+         "        }\n"),
+        (K6_PICK,
+         "    float cs[OT];\n"
+         "    __syncwarp();\n#pragma unroll\n"
+         "    for (int j = 0; j < OT; ++j)\n"
+         "        cs[j] = j < order ? s_tri[slot][(order - 1) * order / 2 + j]\n"
+         "                          : 0.0f;\n")]),
+    # the recursion's divisions cut out (a wrong result: a multiply in
+    # their place)
+    ("no division", [("        const double rr = __ddiv_rn(-__dadd_rn(ac[i + 1], s), safe);",
+                      "        const double rr = __dmul_rn(-__dadd_rn(ac[i + 1], s), safe);")]),
+    # the inner sum's products on the lanes (lane j the j-th), gathered by
+    # shuffles and summed in order by every lane
+    ("lanes over j", [(K6_SUM,
+                       "        double prod = 0.0;\n#pragma unroll\n"
+                       "        for (int j = 0; j < i; ++j)\n"
+                       "            if (gl == j % G) prod = __dmul_rn(lpc[j], ac[i - j]);\n"
+                       "        double s = 0.0;\n#pragma unroll\n"
+                       "        for (int j = 0; j < i; ++j)\n"
+                       "            s = __dadd_rn(s, __shfl_sync(FULL, prod, j % G, G));\n")]),
+]
+
 # One thread's chain of dependent samples, as the recursion runs it: the
 # generic form (x = (int)(P >> sh) + r; P = q * x + c by mad.wide) and the
 # folded one (x = the low word of P >> sh by one funnel shift; P = q * x + c
@@ -404,6 +591,28 @@ extern "C" int flac_chain_probe(long long* out, int n, int q, int sh,
     chain_probe<<<1, lanes, 0, (cudaStream_t)stream>>>(out, n, q, sh, 12345);
     return (int)cudaGetLastError();
 }
+// the least a launch takes: `ctas` CTAs of `threads` threads that do
+// nothing, in clusters of `cluster` CTAs, each holding `smem` bytes of
+// shared memory (launched as the cluster kernels are, by cudaLaunchKernelEx)
+__global__ void empty_kernel(int) {}
+extern "C" int flac_empty_launch(int ctas, int threads, int cluster, int smem,
+                                 void* stream) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(ctas, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, empty_kernel, 0);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
 """
 
 
@@ -432,7 +641,7 @@ def build(kernel: str, variants, others) -> dict:
         path = OUT / f"{kernel}_v{i}.cu"
         path.write_text(src)
         jobs[name] = (path.with_suffix(".so"), subprocess.Popen(
-            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o",
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(SRC), "-o",
              str(path.with_suffix(".so")), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -614,15 +823,125 @@ def k4_inputs() -> dict:
     return out
 
 
-def k7_inputs() -> dict:
-    """K7's arguments on the search inputs of the track's first 64 frames
-    at -5 and at -8 (the ops form's): {label: (res, order, N, max_po,
-    cfg)}."""
+def search_inputs() -> dict:
+    """The arguments of K6 and K7 on the search inputs of the track's first
+    64 frames at -5 and at -8 (the ops form's): {label: {"k6": (autoc,
+    bps_eff, N, cfg), "k7": (res, order, N, max_po, cfg)}}."""
     from chip_smoke import RATE, TRACK_SECONDS, real_search
     from flac_tpu_torch import EncoderConfig, signals
     pcm = signals.make_test_signal(TRACK_SECONDS * RATE, seed=180)
     return {f"-{lv}": real_search(EncoderConfig.from_preset(
-        lv, blocksize=4096).resolve(), pcm)["k7"] for lv in (5, 8)}
+        lv, blocksize=4096).resolve(), pcm) for lv in (5, 8)}
+
+
+def k5_inputs() -> dict:
+    """K5's arguments (the words before the seal, byte_len, hdr_bytes) on
+    the track's first 64 frames at -5 and on its first 256 (the ops
+    form's): {label: (words, byte_len, hdr_bytes)}."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import RATE, TRACK_SECONDS, capture_assembly
+    from flac_tpu_torch import EncoderConfig, signals
+    cfg = EncoderConfig.from_preset(5, blocksize=4096).resolve()
+    pcm = signals.make_test_signal(TRACK_SECONDS * RATE, seed=180)
+    out = {}
+    for B in (64, 256):
+        blocks = torch.from_numpy(np.ascontiguousarray(
+            pcm[:, :B * 4096].reshape(2, B, 4096).transpose(1, 0, 2))).cuda()
+        out[f"-5, B={B}"] = capture_assembly(blocks, cfg)["k5"]
+    return out
+
+
+def time_k5(libs: dict, inputs: dict) -> None:
+    """Time each built K5 library on each of `k5_inputs`, in turns with
+    "base", each launch on a fresh copy of the words (the copy is not in
+    the kernel's device time); each output compared with base's."""
+    import torch
+
+    from flac_tpu_torch.ops import seal_cuda
+    stream = torch.cuda.current_stream().cuda_stream
+    tab = seal_cuda.tables("cuda")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, (lib, regs) in libs.items():
+        lib.flac_frame_crc.argtypes = [p] * 4 + [i] * 2 + [p]
+        for label, (words, byte_len, hdr) in inputs.items():
+            B, W = words.shape
+            mine, want = torch.empty_like(words), torch.empty_like(words)
+
+            def call(lib_, w, words=words, byte_len=byte_len, hdr=hdr, B=B,
+                     W=W):
+                w.copy_(words)
+                code = lib_.flac_frame_crc(w.data_ptr(), byte_len.data_ptr(),
+                                           hdr.data_ptr(), tab.data_ptr(), B,
+                                           W, stream)
+                if code:
+                    raise SystemExit(f"K5 {name!r}: CUDA error {code}")
+            run = lambda lib=lib, mine=mine: call(lib, mine)  # noqa: E731
+            ms = device_ms(run, "frame_crc_kernel")
+            base = device_ms(lambda want=want: call(libs["base"][0], want),
+                             "frame_crc_kernel")
+            torch.cuda.synchronize()
+            same = torch.equal(mine, want)
+            extra = (phases(lib, run, B * seal_cuda.cluster_size(B))
+                     if name == "phases" else {})
+            print(json.dumps({"kernel": "K5", "variant": name,
+                              "input": label, "B": B, "W": W, "ms": ms,
+                              "base_ms": base, "same_as_base": same, **extra,
+                              "ptxas": regs}), flush=True)
+
+
+def time_k6(libs: dict, inputs: dict) -> None:
+    """Time each built K6 library on the K6 arguments of `search_inputs`,
+    in turns with "base"; each output compared with base's."""
+    import torch
+
+    from flac_tpu_torch.ops import lpc_cuda
+    print(json.dumps({"kernel": "K6", "probe": "op cycles",
+                      **lpc_cuda.op_cycles()}), flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, (lib, regs) in libs.items():
+        lib.flac_lpc_coeffs.argtypes = [p] * 7 + [i] * 7 + [p]
+        for label, seen in inputs.items():
+            autoc, bps, N, cfg = seen["k6"]
+            autoc, bps = autoc.contiguous(), bps.contiguous()
+            B, CH, A, O1 = autoc.shape
+            AC = lpc_cuda.candidates(A, O1 - 1, cfg)
+
+            def outputs(B=B, CH=CH, AC=AC):
+                return (torch.empty((B, CH, AC, 32), dtype=torch.int32,
+                                    device="cuda"),
+                        *(torch.empty((B, CH, AC), dtype=torch.int32,
+                                      device="cuda") for _ in range(3)),
+                        torch.empty((B, CH, AC), dtype=torch.bool,
+                                    device="cuda"))
+            mine, want = outputs(), outputs()
+
+            def call(lib_, o, autoc=autoc, bps=bps, N=N, cfg=cfg):
+                code = lib_.flac_lpc_coeffs(
+                    autoc.data_ptr(), bps.data_ptr(),
+                    *(t.data_ptr() for t in o), autoc.shape[0] * autoc.shape[1],
+                    autoc.shape[2], autoc.shape[3] - 1, N,
+                    int(cfg.do_exhaustive_model_search),
+                    int(cfg.do_qlp_coeff_prec_search),
+                    cfg.qlp_coeff_precision, stream)
+                if code:
+                    raise SystemExit(f"K6 {name!r}: CUDA error {code}")
+            run = lambda lib=lib, mine=mine: call(lib, mine)  # noqa: E731
+            ms = device_ms(run, "lpc_coeffs_kernel")
+            base = device_ms(lambda want=want: call(libs["base"][0], want),
+                             "lpc_coeffs_kernel")
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(mine, want))
+            problems = B * CH * A
+            extra = (phases(lib, run, lpc_cuda.ctas(problems, O1 - 1))
+                     if name == "phases" else {})
+            print(json.dumps({"kernel": "K6", "variant": name,
+                              "input": label, "problems": problems,
+                              "order": O1 - 1, "ms": ms, "base_ms": base,
+                              "same_as_base": same, **extra,
+                              "ptxas": regs}), flush=True)
 
 
 def time_k4(libs: dict, inputs: dict) -> None:
@@ -668,8 +987,9 @@ def time_k4(libs: dict, inputs: dict) -> None:
 
 
 def time_k7(libs: dict, inputs: dict) -> None:
-    """Time each built K7 library on each of `k7_inputs`, in turns with
-    "base"; each output compared with base's."""
+    """Time each built K7 library on each input's K7 arguments
+    (`search_inputs`), in turns with "base"; each output compared with
+    base's."""
     import torch
     stream = torch.cuda.current_stream().cuda_stream
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -731,6 +1051,7 @@ def build_chain_probe() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     lib.flac_chain_probe.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
+    lib.flac_empty_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return lib
 
 
@@ -824,6 +1145,8 @@ def main() -> int:
     ap.add_argument("--k2", action="store_true")
     ap.add_argument("--k3", action="store_true")
     ap.add_argument("--k4", action="store_true")
+    ap.add_argument("--k5", action="store_true")
+    ap.add_argument("--k6", action="store_true")
     ap.add_argument("--k7", action="store_true")
     ap.add_argument("--sass", metavar="DIR",
                     help="write cuobjdump's SASS of the K3 variants' "
@@ -832,7 +1155,8 @@ def main() -> int:
     ap.add_argument("--other", action="append", default=[],
                     metavar="LABEL=DIR",
                     help="also time DIR's pack_fields64.cu, rice_codes.cu, "
-                         "restore.cu, assemble_fields.cu and rice_cost.cu")
+                         "restore.cu, assemble_fields.cu, frame_crc.cu, "
+                         "lpc_coeffs.cu and rice_cost.cu")
     args = ap.parse_args()
     others = dict(o.split("=", 1) for o in args.other)
     import torch
@@ -844,17 +1168,19 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    every = not (args.k1 or args.k2 or args.k3 or args.k4 or args.k7)
-    do_k1, do_k2, do_k3, do_k4, do_k7 = (
+    every = not (args.k1 or args.k2 or args.k3 or args.k4 or args.k5
+                 or args.k6 or args.k7)
+    do_k1, do_k2, do_k3, do_k4, do_k5, do_k6, do_k7 = (
         every or args.k1, every or args.k2, every or args.k3,
-        every or args.k4, every or args.k7)
-    with ThreadPoolExecutor(6) as pool:
-        # the package's own kernels, which K4's and K7's inputs (an encode
+        every or args.k4, every or args.k5, every or args.k6,
+        every or args.k7)
+    with ThreadPoolExecutor(8) as pool:
+        # the package's own kernels, which the inputs of K4-K7 (an encode
         # batch's ops form) launch, build beside the variants
         from chip_smoke import KERNEL_MODULES
         from flac_tpu_torch import kernels as package_kernels
         fp = pool.submit(package_kernels.load_all, list(KERNEL_MODULES)) \
-            if do_k4 or do_k7 else None
+            if do_k4 or do_k5 or do_k6 or do_k7 else None
         f1 = pool.submit(build, "pack_fields64", K1_VARIANTS, others) \
             if do_k1 else None
         f2 = pool.submit(build, "rice_codes", K2_VARIANTS, others) \
@@ -863,12 +1189,18 @@ def main() -> int:
             if do_k3 else None
         f4 = pool.submit(build, "assemble_fields", K4_VARIANTS, others) \
             if do_k4 else None
+        f5 = pool.submit(build, "frame_crc", K5_VARIANTS, others) \
+            if do_k5 else None
+        f6 = pool.submit(build, "lpc_coeffs", K6_VARIANTS, others) \
+            if do_k6 else None
         f7 = pool.submit(build, "rice_cost", K7_VARIANTS, others) \
             if do_k7 else None
         libs1 = f1.result() if f1 else {}
         libs2 = f2.result() if f2 else {}
         libs3 = f3.result() if f3 else {}
         libs4 = f4.result() if f4 else {}
+        libs5 = f5.result() if f5 else {}
+        libs6 = f6.result() if f6 else {}
         libs7 = f7.result() if f7 else {}
         if fp:
             fp.result()
@@ -930,8 +1262,13 @@ def main() -> int:
         time_k3(libs3, k3_inputs(), probe)
     if do_k4:
         time_k4(libs4, k4_inputs())
+    if do_k5:
+        time_k5(libs5, k5_inputs())
+    search = search_inputs() if do_k6 or do_k7 else {}
+    if do_k6:
+        time_k6(libs6, search)
     if do_k7:
-        time_k7(libs7, k7_inputs())
+        time_k7(libs7, {lv: seen["k7"] for lv, seen in search.items()})
     print(smi, flush=True)
     return 0
 

@@ -8,7 +8,14 @@ CRC seal (seal_frames_plain, the plain version of K5), on the CPU.
   header tails, 16 bits each), mono 24-bit with 7-byte frame numbers and
   a batch of one frame;
 - the plain seal against the host CRC-8 and CRC-16 (ops/crc.py) on every
-  frame of ops/assemble_synth.py's corners;
+  frame of ops/assemble_synth.py's corners, and against its host seal on
+  K5's own corners (`seal_cases`) inside the plain version's domain;
+- K5's host tables (ops/seal_cuda.py: the slicing tables, the tables of
+  the constant powers x^(64 * 2^l), the CRC-8 bit table) against a
+  bitwise CRC in Python on random messages and split points, and K5's
+  arithmetic (end-aligned pairs, Horner, the tree, the partial pair, the
+  zeros past the row, the CRC-8 folded into its word) mirrored in numpy
+  at each cluster size against the host seal;
 - ops/assemble_cuda.field_layout (K4's static layout) against the plain
   version's concatenated field list: the count and each segment's fields;
 - the wrappers: the plain versions for CPU tensors, and ValueError for a
@@ -302,3 +309,161 @@ def test_byte_shift_powers_append_zero_bytes():
             if (zeros >> i) & 1:
                 r = crc.mulmod(r, int(tab[i]), crc.CRC16_POLY, 16)
         assert r == crc.crc16(np.r_[msg, np.zeros(zeros, np.uint8)])
+
+
+SEAL = assemble_synth.seal_cases()
+SEAL_PLAIN = [c for c in SEAL if c[1]["plain"]]
+
+
+@pytest.mark.parametrize("label,case", SEAL_PLAIN,
+                         ids=[c[0] for c in SEAL_PLAIN])
+def test_plain_seal_matches_the_host_seal_on_k5_corners(label, case):
+    words, byte_len, hdr = assemble_synth.as_seal_inputs(case, "cpu")
+    got = frame.seal_frames_plain(words, byte_len, hdr).numpy()
+    want = assemble_synth.seal_host(case["words"], case["byte_len"],
+                                    case["hdr_bytes"])
+    np.testing.assert_array_equal(got, want)
+
+
+def _crc_bits(msg, poly: int, width: int) -> int:
+    """A CRC (init 0, MSB first) one bit at a time."""
+    r, top, mask = 0, 1 << (width - 1), (1 << width) - 1
+    for byte in msg:
+        for k in range(7, -1, -1):
+            fb = bool(r & top) ^ bool((int(byte) >> k) & 1)
+            r = (r << 1) & mask
+            if fb:
+                r ^= poly
+    return r
+
+
+def test_k5_slicing_and_crc8_tables_against_a_bitwise_crc():
+    sl = seal_cuda.slicing_tables()
+    for i in range(8):
+        for b in range(256):
+            assert sl[i, b] == _crc_bits([b] + [0] * i, crc.CRC16_POLY, 16)
+    p8 = seal_cuda.p8_table()
+    rng = np.random.default_rng(8)
+    for n in (0, 1, 5, 15, 40):
+        msg = rng.integers(0, 256, n)
+        acc = 0
+        for i, byte in enumerate(msg):
+            for k in range(8):
+                if (byte >> k) & 1:
+                    acc ^= int(p8[(8 * (n - 1 - i) + 8 + k) % seal_cuda.P8_LEN])
+        assert acc == _crc_bits(msg, crc.CRC8_POLY, 8) == crc.crc8(msg)
+
+
+@pytest.mark.parametrize("level", range(seal_cuda.LEVELS))
+def test_k5_level_tables_append_zero_bytes(level):
+    """row0[r & 0xFF] ^ row1[r >> 8] of level l is r x^(64 2^l): the CRC of
+    A followed by B (8 2^l bytes) from the CRCs of A and B."""
+    tab = seal_cuda.level_tables()[level]
+    rng = np.random.default_rng(level)
+    for _ in range(2):
+        a = rng.integers(0, 256, int(rng.integers(1, 40)))
+        b = rng.integers(0, 256, 8 << level)
+        ra = _crc_bits(a, crc.CRC16_POLY, 16)
+        assert (int(tab[0, ra & 0xFF]) ^ int(tab[1, ra >> 8])
+                ^ crc.crc16(b)) == crc.crc16(np.r_[a, b])
+
+
+def _mirror_seal(words, byte_len, hdr_bytes, nc):
+    """csrc/frame_crc.cu's arithmetic in numpy at cluster size nc: the
+    whole 8-byte pairs end-aligned over T = 256 nc columns, each column's
+    Horner by x^(64 T), the tree by x^(64 2^l), the ranks by x^(64 256),
+    the partial pair and the zeros past the row once, the CRC-8 from its
+    bit table folded into its word."""
+    sl = seal_cuda.slicing_tables().astype(np.int64)
+    lv = seal_cuda.level_tables().astype(np.int64)
+    p8 = seal_cuda.p8_table()
+    pw = crc.byte_shift_powers(crc.CRC16_POLY, 16, seal_cuda.POW_TERMS)
+    lx = 8 + nc.bit_length() - 1
+    T = 1 << lx
+    out = np.array(words, np.int64)
+    W = out.shape[1]
+
+    def mul(lvl, r):
+        return lv[lvl, 0, r & 0xFF] ^ lv[lvl, 1, r >> 8]
+
+    def deposit(w, idx, value):
+        return (w + (int(value) << (3 - (idx & 3)) * 8)) & 0xFFFFFFFF
+
+    for b in range(out.shape[0]):
+        row, hb, bl = out[b].copy(), int(hdr_bytes[b]), int(byte_len[b])
+        raw = np.stack([(row >> s) & 0xFF for s in (24, 16, 8, 0)],
+                       -1).reshape(-1)
+        c8 = 0
+        for i in range(min(max(hb, 0), 4 * W)):
+            for k in range(8):
+                if (raw[i] >> k) & 1:
+                    c8 ^= int(p8[(8 * (hb - 1 - i) + 8 + k)
+                                 % seal_cuda.P8_LEN])
+        words_in = row.copy()                      # as the CRC-16 reads them
+        if hb >= 0 and hb >> 2 < W:
+            words_in[hb >> 2] = deposit(words_in[hb >> 2], hb, c8)
+        L = max(bl - 2, 0)
+        inrow = min(L, 4 * W)
+        Q = inrow >> 3
+        K = -(-Q // T)
+        off = K * T - Q
+        hi, lo = words_in[0:2 * Q:2], words_in[1:2 * Q:2]
+        pc = sl[7][hi >> 24] ^ sl[6][(hi >> 16) & 0xFF] ^ sl[5][(hi >> 8) & 0xFF] \
+            ^ sl[4][hi & 0xFF] ^ sl[3][lo >> 24] ^ sl[2][(lo >> 16) & 0xFF] \
+            ^ sl[1][(lo >> 8) & 0xFF] ^ sl[0][lo & 0xFF]
+        virt = np.r_[np.zeros(off, np.int64), pc].reshape(K, T)
+        H = np.zeros(T, np.int64)
+        for k in range(K):
+            H = mul(lx, H) ^ virt[k]
+        for lvl in range(8):
+            H = mul(lvl, H[0::2]) ^ H[1::2]
+        r = 0
+        for q in range(nc):
+            r = int(mul(8, r)) ^ int(H[q])
+        n = inrow - 8 * Q
+        tail = [(int(words_in[2 * Q + (k >> 2)]) >> (24 - 8 * (k & 3))) & 0xFF
+                if 2 * Q + (k >> 2) < W else 0 for k in range(n)]
+        if n:
+            tail[0] ^= r >> 8
+            acc = 0 if n >= 2 else (r & 0xFF) << 8
+            if n >= 2:
+                tail[1] ^= r & 0xFF
+            for j in range(n):
+                acc ^= int(sl[n - 1 - j][tail[j]])
+            r = acc
+        after = L - inrow
+        for i in range(seal_cuda.POW_TERMS):
+            if (after >> i) & 1:
+                r = crc.mulmod(r, int(pw[i]), crc.CRC16_POLY, 16)
+        for idx, value in ((hb, c8), (bl - 2, r >> 8), (bl - 1, r & 0xFF)):
+            if idx >= 0 and idx >> 2 < W:
+                row[idx >> 2] = deposit(row[idx >> 2], idx, value)
+        out[b] = row
+    return out
+
+
+@pytest.mark.parametrize("nc", [1, 2, 4, 8])
+def test_k5_arithmetic_mirror_matches_the_host_seal(nc):
+    for label, case in SEAL:
+        if case["words"].shape[1] > 64:
+            continue
+        got = _mirror_seal(case["words"], case["byte_len"],
+                           case["hdr_bytes"], nc)
+        want = assemble_synth.seal_host(case["words"], case["byte_len"],
+                                        case["hdr_bytes"])
+        np.testing.assert_array_equal(got, want, label)
+
+
+def test_k5_cluster_size_mirrors_the_source():
+    """seal_cuda's constants and cluster_size follow the source; the host
+    table's image is the size of the kernel's shared-memory image."""
+    src = (Path(seal_cuda.__file__).parents[1] / "csrc"
+           / "frame_crc.cu").read_text()
+    for name in ("CLUSTER", "CTA_TARGET", "POW_TERMS", "LEVELS", "P8_LEN"):
+        assert f"constexpr int {name} = {getattr(seal_cuda, name)};" in src
+    assert "while (nc > 1 && (long long)B * nc > CTA_TARGET) nc >>= 1;" \
+        in src
+    assert {B: seal_cuda.cluster_size(B) for B in (1, 16, 17, 66, 67, 256)} \
+        == {1: 8, 16: 8, 17: 4, 66: 2, 67: 1, 256: 1}
+    image = (len(seal_cuda.host_tables()) - 512 - seal_cuda.POW_TERMS) * 4
+    assert image == 8 * 256 * 2 + 128 + seal_cuda.LEVELS * 2 * 256 * 2

@@ -5,6 +5,11 @@ GPU:
 
 - every corner of ops/assemble_synth.py: K4's six outputs bit-identical,
   and K5 on the plain-packed words identical to the plain seal;
+- K5's own corners (assemble_synth.seal_cases: every residue of
+  byte_len - 2 mod 16, the longest header, minimal frames, a carrying
+  CRC-8 deposit, one frame, 64 and 256 frames, and past the plain
+  version's domain byte_len - 2 past the row, byte_len below 2, an odd
+  W): identical to the host seal, and to the plain seal in its domain;
 - real -5 and -8 batches of 64 frames whose subframe choice comes from
   the ops form: K4 -> K1 -> K5 against plain -> plain -> plain, word for
   word;
@@ -87,6 +92,24 @@ def test_k4_and_k5_match_plain_on_the_corners(cuda, label, case):
     torch.cuda.synchronize()
     assert seal_cuda.launches == k5 + 1
     assert torch.equal(sealed, plain)
+
+
+SEAL = assemble_synth.seal_cases()
+
+
+@pytest.mark.parametrize("label,case", SEAL, ids=[c[0] for c in SEAL])
+def test_k5_matches_the_host_seal_on_its_corners(cuda, label, case):
+    words, byte_len, hdr = assemble_synth.as_seal_inputs(case, cuda)
+    k5 = seal_cuda.launches
+    got = frame.seal_frames(words.clone(), byte_len, hdr)
+    torch.cuda.synchronize()
+    assert seal_cuda.launches == k5 + 1
+    want = assemble_synth.seal_host(case["words"], case["byte_len"],
+                                    case["hdr_bytes"])
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if case["plain"]:
+        assert torch.equal(got, frame.seal_frames_plain(words, byte_len,
+                                                        hdr))
 
 
 def _real_inputs(level, cuda):

@@ -206,6 +206,38 @@ def test_nothing_is_built_on_import():
             kernels.nvcc_path()
 
 
+def test_library_name_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A library is named by its source and the csrc/*.cuh headers, so an
+    edit to either gives a new name and the source is rebuilt."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(kernels, "SRC_DIR", tmp_path)
+    names = [kernels._library_path("k")]
+    (tmp_path / "h.cuh").write_text("// two\n")
+    names.append(kernels._library_path("k"))
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    names.append(kernels._library_path("k"))
+    assert len(set(names)) == 3
+    assert names[-1] == kernels._library_path("k")
+
+
+@pytest.mark.parametrize("source", ["assemble_fields.cu", "frame_crc.cu"])
+def test_cluster_helpers_come_from_one_header(source):
+    """The kernels that launch clusters take the rank, barrier and remote
+    store helpers from csrc/cluster.cuh and define none of their own."""
+    import re
+
+    csrc = REPO / "flac_tpu_torch" / "csrc"
+    text = (csrc / source).read_text()
+    header = (csrc / "cluster.cuh").read_text()
+    assert '#include "cluster.cuh"' in text
+    for fn in ("cluster_rank", "cluster_size", "cluster_arrive_relaxed",
+               "cluster_wait", "cluster_barrier", "store_remote"):
+        pattern = rf"__device__ __forceinline__ \w+ {fn}\("
+        assert re.search(pattern, header)
+        assert not re.search(pattern, text)
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_gpu_or_package(where, tmp_path, no_gpu):
     """Without a GPU, and in a directory that holds chip_smoke.py and

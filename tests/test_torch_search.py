@@ -22,6 +22,11 @@ corners of ops/search_synth.py.
   cancellation near 0);
 - _rice_cost_plain (K7's plain version, on int32 residuals) against
   flac_tpu's zigzag + _rice_cost: equal;
+- what K6's design leans on, on the plain version's own ops: one
+  Levinson pass to O gives every order's coefficients, errors and
+  validity as a pass stopped at that order does (so the kernel picks the
+  guessed order's coefficients and runs no second pass), and the
+  quantizer writes 0 past the order at every precision of the grid;
 - the dispatch: a CPU tensor takes the plain versions, and the kernels'
   wrappers refuse CPU tensors and malformed arguments;
 - search_and_realize's profiler ranges.
@@ -176,6 +181,57 @@ def test_rice_cost_plain_matches_flac_tpu(label, case):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
 
 
+@pytest.mark.parametrize("label,case", LPC_CASES,
+                         ids=[c[0] for c in LPC_CASES])
+def test_one_levinson_pass_keeps_every_order(label, case):
+    """A pass to O gives order o's coefficients, error and validity as a
+    pass stopped at o does, bit for bit: K6's single recursion."""
+    autoc = torch.from_numpy(case["autoc"])
+    O = autoc.shape[-1] - 1
+    coeffs, errs, valid = tlpc.levinson_all_orders(autoc, O)
+    for o in range(1, O + 1):
+        c2, e2, v2 = tlpc.levinson_all_orders(autoc[..., :o + 1], o)
+        assert torch.equal(coeffs[..., o - 1, :], c2[..., o - 1, :]), o
+        assert torch.equal(errs[..., o - 1], e2[..., o - 1]), o
+        assert torch.equal(valid[..., o - 1], v2[..., o - 1]), o
+
+
+@pytest.mark.parametrize("prec", range(jfmt.MIN_QLP_COEFF_PRECISION,
+                                       jfmt.MAX_QLP_COEFF_PRECISION + 1))
+def test_quantizer_writes_zero_past_the_order(prec):
+    """quantize_coefficients' q past a candidate's order is 0 clamped to
+    [qmin, qmax]: 0 at every precision of the grid (K6 writes that tail
+    without running the steps)."""
+    rng = np.random.default_rng(prec)
+    n = 64
+    orders = torch.from_numpy(rng.integers(1, 33, n).astype(np.int32))
+    c = rng.standard_normal((n, 32)) * 10.0 ** rng.uniform(-3, 2, (n, 1))
+    c[np.arange(32)[None, :] >= orders.numpy()[:, None]] = 0.0
+    qc, _, _ = tlpc.quantize_coefficients(
+        torch.from_numpy(c.astype(np.float32)), orders,
+        torch.full((n,), prec, dtype=torch.int32))
+    past = torch.arange(32)[None, :] >= orders[:, None]
+    assert past.any() and (qc[past] == 0).all()
+
+
+def test_k6_dispatch_mirrors_the_source():
+    """lpc_cuda.lanes, template_order and ctas follow the source's
+    constants and dispatch."""
+    from pathlib import Path
+    src = (Path(lpc_cuda.__file__).parents[1] / "csrc"
+           / "lpc_coeffs.cu").read_text()
+    assert "return ot <= 8 ? 8 : ot <= 16 ? 16 : 32;" in src
+    assert f"constexpr int CTA = {lpc_cuda.CTA};" in src
+    for t in lpc_cuda.TEMPLATE_ORDERS[:-1]:
+        assert f"if (O <= {t}) return launch<{t}>(a, s);" in src
+    assert f"return launch<{lpc_cuda.TEMPLATE_ORDERS[-1]}>(a, s);" in src
+    got = {O: (lpc_cuda.template_order(O), lpc_cuda.lanes(O))
+           for O in (1, 6, 7, 8, 9, 12, 13, 32)}
+    assert got == {1: (6, 8), 6: (6, 8), 7: (8, 8), 8: (8, 8),
+                   9: (12, 16), 12: (12, 16), 13: (32, 32), 32: (32, 32)}
+    assert lpc_cuda.ctas(256, 8) == 64 and lpc_cuda.ctas(2304, 12) == 1152
+
+
 def test_dispatch_takes_the_plain_versions_on_the_cpu(monkeypatch):
     """On CPU tensors lpc_candidates and _rice_cost are their plain
     versions and never reach a kernel's wrapper."""
@@ -235,7 +291,9 @@ def test_candidate_counts():
         A, O = autoc.shape[2], autoc.shape[3] - 1
         qc = subframe.lpc_candidates_plain(autoc, bps, N, cfg)[0]
         assert qc.shape[2] == lpc_cuda.candidates(A, O, cfg), label
-        assert lpc_cuda.chain_ops(O, cfg) > 32 * 7
+        ops = lpc_cuda.chain_ops(O, O)
+        assert ops["div"] == O and ops["floor"] == O and ops["log2"] == 1
+        assert ops["add"] > O * (O + 1) // 2 + 6 * O
 
 
 def test_search_ranges():
