@@ -7,10 +7,11 @@
 Phases, in order, each printing one JSON line; any failure exits non-zero:
 
 1. device:  the GPU's name, and nvidia-smi's name and power limit line.
-2. build:   nvcc builds the seven kernel sources of flac_tpu_torch/csrc/
+2. build:   nvcc builds the nine kernel sources of flac_tpu_torch/csrc/
             (pack_fields64.cu, rice_codes.cu, restore.cu,
             assemble_fields.cu, frame_crc.cu, lpc_coeffs.cu,
-            rice_cost.cu; one nvcc each, started together) while g++
+            rice_cost.cu, candidate_residuals.cu, select_realize.cu; one
+            nvcc each, started together) while g++
             builds the native host runtime; the
             probes P1 and P2 run; each kernel's registers, spills and
             static shared memory from ptxas (no kernel may spill), and K3's
@@ -43,7 +44,14 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             outputs) and K7 (all three) bit-identical on the corners of
             ops/search_synth.py and on the search inputs of the ops form
             of 64-frame -5 and -8 batches of the track's recipe, of 64
-            blocks of the 33-bit clip (RICE2) and of 8 frames at -8 -e -p.
+            blocks of the 33-bit clip (RICE2) and of 8 frames at -8 -e -p;
+            K8 (the candidate residuals) and K9 (the select and realize)
+            on their corners of ops/search_synth.py and on the same real
+            search inputs: K9's every SubframeChoice field bit-identical,
+            K8's orders and flags bit-identical and its residual rows
+            wherever their flag holds (a wide fixed or "f64" row whose
+            flag is false has no defined residuals:
+            residuals_cuda.comparable_rows).
 4. main:    the main path at full size: a 180 s 44.1 kHz 16-bit stereo
             track encoded at -5 (blocksize 4096, 64 frames a batch) on the
             GPU through the compiled encode programs (CUDA graphs: two
@@ -54,7 +62,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             "device" (K2 and K3) and with engine "fast" (the native full
             parse and K3), each with the kernels' launch counts (and K2's
             count of CTAs that staged) read just after (K1 once a
-            quad-layout call, K4-K7 once an encode program call, the
+            quad-layout call, K4-K9 once an encode program call, the
             safe tail's too, counted beside them); each decode must give
             the samples back with a matching MD5, equal the port's host
             engine and launch K3 once a decode batch; every CTA of every
@@ -86,7 +94,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             K5 on a copy of the words it seals in place), both also on the
             track's first 256 frames (`at_B256`), K5 beside the device
             time of an empty launch of its grid, clusters and shared
-            memory (`empty_launch_ms`); K4-K7
+            memory (`empty_launch_ms`); K4-K9
             carry a one-line `design`.  K3 is timed
             on both engines' inputs (int32 and int16 residuals) with its
             chain floor (N x the chain probe's cycles a sample / the SM
@@ -99,7 +107,11 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             of this run, each at its own latency from lpc_cuda.op_cycles,
             over the SM clock) and the earlier one-thread design's figure
             (`chain_floor_ms_before`: two recursions and 32 quantizer
-            steps, every operation at an add's latency).
+            steps, every operation at an add's latency).  K8 and K9 on
+            the same -5 and -8 search inputs (`ms` at -5), each beside
+            its byte bound (K8: x read once and every candidate row
+            written; K9: x read once, each winner's residual row read and
+            the realized row written).
 7. profile: torch.profiler over a 10 s encode (through the graphs,
             and op by op, whose flac.* ranges a replay does not record)
             and 10 s decodes with the "device" and "fast" engines: the
@@ -107,8 +119,10 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             (the flac.* ranges: flac.lpc_coeffs, flac.residuals,
             flac.rice and flac.select inside flac.search; flac.fields,
             flac.pack and flac.seal inside flac.assemble; the ctypes
-            kernels by name) and the top kernels; the tables go to
-            OUT_DIR/profile_*.txt.
+            kernels by name, each beside the range that launches it:
+            K6 flac.lpc_coeffs, K8 flac.residuals, K7 flac.rice, K9
+            flac.select, K4 flac.fields, K1 flac.pack, K5 flac.seal)
+            and the top kernels; the tables go to OUT_DIR/profile_*.txt.
 8. api:     the library API on the GPU.  The 180 s track at -5 in the
             `with` form of StreamEncoder, with a seek table every 10 s, a
             VORBIS_COMMENT, a PICTURE, a progress callback and verify=True:
@@ -125,7 +139,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             ranged Ogg decode must equal its slice (MB/s).  In a temp
             directory a Chain edit past the padding and a SimpleIterator
             delete must keep the audio (decoded on the GPU) and the file
-            mode.  Each path's K1-K7 launches, counted from 0 just
+            mode.  Each path's K1-K9 launches, counted from 0 just
             before it, go into the `kernels` line as
             `launches_library_api`.
 9. cli:     the command lines on the GPU, in a temp directory.  The 180 s
@@ -153,7 +167,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             channel, decoded by the "device" and "fast" engines with the
             MD5 and equal to the host engine, size within 0.1% of the same
             encode on the CPU.
-            Each path's K1-K7 launches, counted from 0 just before
+            Each path's K1-K9 launches, counted from 0 just before
             it, go into the `kernels` line as `launches_cli`.
 10. parallel: the parallel paths and the encoder's pipeline, on the
             track's 1937 full blocks.  encode_blocks_dp at -5 in calls of
@@ -186,10 +200,10 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             from an empty cache: for each key, three calls on their own
             inputs (the ops, the capture, a replay) must equal the ops
             form (encoder._encode_batch_ops) on the same inputs in words,
-            byte lengths, bits and ok flags, and the counts of K1, K4,
-            K5, K6 and K7 must move by the launches its graph holds on
-            every call (K4, K5 and K7 one each, K6 one where the preset
-            has LPC): -0, -5 and -8 at
+            byte lengths, bits and ok flags, and the counts of K1 and
+            K4-K9 must move by the launches its graph holds on every call
+            (K4, K5, K7, K8 and K9 one each, K6 one where the preset has
+            LPC): -0, -5 and -8 at
             64 frames (int16, StreamEncoder's upload) and 256 (int32, the
             sharded form) on the track's blocks, the trimmed 17-frame
             batch, the final short block, a safe re-encode bucket with
@@ -209,9 +223,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             OUT_DIR/gpu_tests.txt.  Each path's launches go into the
             `kernels` line as `launches_compiled_encode`.
 
-On every path of phases 8-11, K4, K5 and K7 launch equally often, at
-least as often as K1 and K6.  The `kernels` line (K1-K7) comes after
-phase 11.
+On every path of phases 8-11, K4, K5, K7, K8 and K9 launch equally
+often, at least as often as K1 and K6.  The `kernels` line (K1-K9) comes
+after phase 11.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
 register report, the profile tables) go to OUT_DIR, beside this script.
@@ -286,6 +300,37 @@ K6_DESIGN = ("a group of 8-32 lanes a problem in one-warp CTAs; one "
              "coefficients kept by its lane; the estimates side by side, a "
              "shuffle argmin; quantizers stop at the order, precisions "
              "shared out over the lanes")
+
+
+K8_DESIGN = ("a CTA of 256 threads a (frame and channel candidate, "
+             "candidate group): the five fixed orders, or up to 4 LPC "
+             "candidates; x staged in tiles of 1024 samples with a "
+             "32-sample history; 4 consecutive samples a thread, its "
+             "window in registers down the taps, 16-byte stores; range "
+             "flags by __syncthreads_or")
+K9_DESIGN = ("a CTA of 256 threads a (frame, channel candidate): the "
+             "constant test and a thread a candidate's cost, a shuffle "
+             "argmin on (bits, index); the winner's residual row copied "
+             "with 16-byte loads and stores, only its parameter row read")
+# K8 a residual: the fixed orders' differences and masks (~4 a row), an
+# LPC tap's shared load and multiply-add (3 a tap), the shift, subtract,
+# mask and range test (~5)
+K8_OPS_PER_FIXED_SAMPLE = 4
+K8_OPS_PER_TAP = 3
+K8_OPS_PER_LPC_SAMPLE = 5
+# K9 a row: a compare a signal sample (the constant test), a candidate's
+# L compares and ~10 for its header and flags, the argmin's ~20 a
+# candidate
+K9_OPS_PER_SAMPLE = 2
+K9_OPS_PER_CANDIDATE = 30
+# the range of the ops form that launches each ctypes kernel
+ENCODE_KERNEL_RANGES = {"lpc_coeffs_kernel": "flac.lpc_coeffs",
+                        "candidate_residuals_kernel": "flac.residuals",
+                        "rice_cost_kernel": "flac.rice",
+                        "select_realize_kernel": "flac.select",
+                        "assemble_fields_kernel": "flac.fields",
+                        "pack_fields64_kernel": "flac.pack",
+                        "frame_crc_kernel": "flac.seal"}
 
 
 def k6_chain_ops_before(O: int, cfg) -> int:
@@ -696,29 +741,35 @@ def plain_pack(fields, args):
 # phase 3 cases: K6 and K7 against their plain versions
 # ---------------------------------------------------------------------------
 
+# the search's dispatchers by key: K6, K8, K7, K9
+SEARCH_STAGES = {"k6": "lpc_candidates", "k8": "candidate_residuals",
+                 "k7": "_rice_cost", "k9": "select_and_realize"}
+
+
 def capture_search(x, cfg) -> dict:
-    """The arguments of subframe.lpc_candidates (K6, "k6") and of
-    subframe._rice_cost (K7, "k7") in the ops form of one encode batch of
+    """The arguments of subframe.lpc_candidates (K6, "k6"),
+    candidate_residuals (K8, "k8"), _rice_cost (K7, "k7") and
+    select_and_realize (K9, "k9") in the ops form of one encode batch of
     blocks `x` [B, C, N] on the card, blocksize N."""
     from flac_tpu_torch import encoder as encoder_mod
     from flac_tpu_torch.models import subframe
     seen = {}
-    lpc, rice = subframe.lpc_candidates, subframe._rice_cost
+    real = {k: getattr(subframe, name) for k, name in SEARCH_STAGES.items()}
 
-    def spy_lpc(*a):
-        seen["k6"] = a
-        return lpc(*a)
-
-    def spy_rice(*a):
-        seen["k7"] = a
-        return rice(*a)
-    subframe.lpc_candidates, subframe._rice_cost = spy_lpc, spy_rice
+    def spy(key):
+        def call(*a):
+            seen[key] = a
+            return real[key](*a)
+        return call
+    for key, name in SEARCH_STAGES.items():
+        setattr(subframe, name, spy(key))
     try:
         encoder_mod._encode_batch_ops(
             x, encoder_mod._frame_numbers(0, x.shape[0], x.device), cfg,
             x.shape[2], "auto", "kernel")
     finally:
-        subframe.lpc_candidates, subframe._rice_cost = lpc, rice
+        for key, name in SEARCH_STAGES.items():
+            setattr(subframe, name, real[key])
     return seen
 
 
@@ -734,15 +785,27 @@ def real_search(cfg, pcm, frames: int = 64) -> dict:
 
 
 def search_compare(kernel_fn, plain_fn, args) -> tuple[bool, int]:
-    """A search kernel's dispatch (K6: lpc_candidates, K7: _rice_cost)
-    against its plain version on CUDA tensors: (every output identical,
-    max abs difference)."""
+    """A search kernel's dispatch (K6: lpc_candidates, K7: _rice_cost,
+    K8: candidate_residuals, K9: select_and_realize) against its plain
+    version on CUDA tensors: (every output identical, max abs
+    difference).  K8's residual rows count only where their flag holds
+    (residuals_cuda.comparable_rows): a wide fixed or "f64" row whose flag
+    is false has no defined residuals."""
     import torch
+    from flac_tpu_torch.models import subframe
+    from flac_tpu_torch.ops import residuals_cuda
     got = kernel_fn(*args)
     want = plain_fn(*args)
     torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(got, want))
-    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+    if kernel_fn is subframe.candidate_residuals:
+        rows = residuals_cuda.comparable_rows(want[2], want[3], args[5],
+                                              args[6])
+        got = (got[0][rows],) + tuple(got[1:])
+        want = (want[0][rows],) + tuple(want[1:])
+    same = all(a.shape == b.shape and torch.equal(a, b)
+               for a, b in zip(got, want))
+    err = max(int((a.long() - b.long()).abs().max())
+              if a.numel() and a.shape == b.shape else 0
               for a, b in zip(got, want))
     return same, err
 
@@ -868,7 +931,9 @@ KERNEL_MODULES = {"pack_fields64": "pack_cuda", "rice_codes": "rice_cuda",
                   "assemble_fields": "assemble_cuda",
                   "frame_crc": "seal_cuda",
                   "lpc_coeffs": "lpc_cuda",
-                  "rice_cost": "rice_cost_cuda"}
+                  "rice_cost": "rice_cost_cuda",
+                  "candidate_residuals": "residuals_cuda",
+                  "select_realize": "select_cuda"}
 
 
 def _wrappers() -> dict:
@@ -892,18 +957,20 @@ def _k123(c: dict) -> dict:
 
 
 def check_encode_calls(phase: str, launches: dict) -> None:
-    """Every encode program call launches K4, K5 and K7 once, K6 once where
-    its preset has LPC, and K1 once where it takes the quad layout: on each
-    path K4 == K5 == K7 >= K1, K6, and a path that launched K1 launched
-    K4."""
+    """Every encode program call launches K4, K5, K7, K8 and K9 once, K6
+    once where its preset has LPC, and K1 once where it takes the quad
+    layout: on each path K4 == K5 == K7 == K8 == K9 >= K1, K6, and a path
+    that launched K1 launched K4."""
     for path, c in launches.items():
-        k1, k4, k5, k6, k7 = (c["pack_fields64"], c["assemble_fields"],
-                              c["frame_crc"], c["lpc_coeffs"],
-                              c["rice_cost"])
-        if not k4 == k5 == k7 or k4 < max(k1, k6):
+        k1, k4, k5, k6, k7, k8, k9 = (
+            c["pack_fields64"], c["assemble_fields"], c["frame_crc"],
+            c["lpc_coeffs"], c["rice_cost"], c["candidate_residuals"],
+            c["select_realize"])
+        if not k4 == k5 == k7 == k8 == k9 or k4 < max(k1, k6):
             raise AssertionError(f"{phase}, {path}: K4 {k4}, K5 {k5}, K7 "
-                                 f"{k7}, K1 {k1}, K6 {k6}: not K4 == K5 == "
-                                 "K7 >= K1, K6")
+                                 f"{k7}, K8 {k8}, K9 {k9}, K1 {k1}, K6 "
+                                 f"{k6}: not K4 == K5 == K7 == K8 == K9 >= "
+                                 "K1, K6")
 
 
 def _api_extra():
@@ -1930,7 +1997,7 @@ def call_times(fn, runs: int = 5) -> dict:
 
 def compiled_encode(pcm, track_keys: dict) -> dict:
     """Phase 11.  Raises AssertionError on the first check that fails.
-    Returns each path's launches of K1 and K4-K7 (K2 and K3: none),
+    Returns each path's launches of K1 and K4-K9 (K2 and K3: none),
     counted from 0 just before it and read just after."""
     import numpy as np
     import torch
@@ -1957,9 +2024,9 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
     def hold(label, calls, graph_fn, ops_fn, lpc=True):
         """Three calls of one key, each on its own inputs: the ops, the
         capture, a replay.  Each output must equal the ops form's on the
-        same inputs, and the counts of K1, K4-K7 must move by the graph's
-        launches on each replay (K4, K5 and K7 once, K6 once where the
-        preset has LPC)."""
+        same inputs, and the counts of K1, K4-K9 must move by the graph's
+        launches on each replay (K4, K5, K7, K8 and K9 once, K6 once where
+        the preset has LPC)."""
         before = set(progs.graphs)
         steps = []
         torch.cuda.synchronize()
@@ -1981,12 +2048,14 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
                                  "expected one")
         held = dict.fromkeys(KERNEL_MODULES, 0)
         held.update(new[0].kernel_launches)
-        if steps != [held] * 3 or held["assemble_fields"] != 1 \
-                or held["frame_crc"] != 1 or held["rice_cost"] != 1 \
+        once = ("assemble_fields", "frame_crc", "rice_cost",
+                "candidate_residuals", "select_realize")
+        if steps != [held] * 3 or any(held[k] != 1 for k in once) \
                 or held["lpc_coeffs"] != int(lpc):
             raise AssertionError(f"{label}: the kernels counted {steps}, "
                                  f"expected {held} a call (the graph's; "
-                                 "K4, K5 and K7 once, K6 once with LPC)")
+                                 "K4, K5, K7, K8 and K9 once, K6 once with "
+                                 "LPC)")
         launches[label] = {name: sum(st[name] for st in steps)
                            for name in KERNEL_MODULES}
         emit({"phase": "compiled", "case": label, "identical": True,
@@ -2060,9 +2129,11 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
     if any(c[k] != 3 * SHARD_ENTRIES for k in ("pack_fields64",
                                                   "assemble_fields",
                                                   "frame_crc", "lpc_coeffs",
-                                                  "rice_cost")):
+                                                  "rice_cost",
+                                                  "candidate_residuals",
+                                                  "select_realize")):
         raise AssertionError(f"four shard entries, 3 calls: {c}, expected "
-                             f"K1, K4-K7 {3 * SHARD_ENTRIES} times")
+                             f"K1, K4-K9 {3 * SHARD_ENTRIES} times")
     emit({"phase": "compiled", "case": "four shard entries of one card",
           "identical": True, "launches": c})
 
@@ -2222,8 +2293,9 @@ def main() -> int:
         from flac_tpu_torch import encoder as encoder_mod
         from flac_tpu_torch.models import subframe
         from flac_tpu_torch.ops import assemble_cuda, assemble_synth, \
-            bitpack, bitunpack, lpc_cuda, pack_cuda, restore_cuda, \
-            rice_cost_cuda, rice_cuda, seal_cuda, search_synth
+            bitpack, bitunpack, lpc_cuda, pack_cuda, residuals_cuda, \
+            restore_cuda, rice_cost_cuda, rice_cuda, seal_cuda, \
+            search_synth, select_cuda
     except ImportError as e:
         return fail(f"the flac_tpu_torch package is not here ({e})")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2272,7 +2344,12 @@ def main() -> int:
              "lpc_coeffs": ptxas_usage(reports["lpc_coeffs"],
                                        "lpc_coeffs_kernel"),
              "rice_cost": ptxas_usage(reports["rice_cost"],
-                                      "rice_cost_kernel")}
+                                      "rice_cost_kernel"),
+             "candidate_residuals": ptxas_usage(
+                 reports["candidate_residuals"],
+                 "candidate_residuals_kernel"),
+             "select_realize": ptxas_usage(reports["select_realize"],
+                                           "select_realize_kernel")}
     # K3's dynamic shared memory (its rings), by the kernel's own count and
     # by the host mirror, for each residual width, narrow and wide
     k3_lib = restore_cuda._library()
@@ -2301,6 +2378,13 @@ def main() -> int:
                     f"forms (RICE or RICE2, the costs batched or a warp a "
                     f"node), is missing: {usage['lpc_coeffs']} "
                     f"{usage['rice_cost']}")
+    # K8: int32 x (narrow or wide fixed rows, "i32" or "f64") and int64
+    # x (wide, "f64"); K9: int32 and int64 signals
+    if len(usage["candidate_residuals"]) != 5 \
+            or len(usage["select_realize"]) != 2:
+        return fail(f"one of K8's five forms or K9's two is missing: "
+                    f"{usage['candidate_residuals']} "
+                    f"{usage['select_realize']}")
     if any(a != b or a > 232448 for a, b in k3_smem.values()):
         return fail(f"K3's dynamic shared memory differs from the host "
                     f"mirror or passes 227 KB: {k3_smem}")
@@ -2402,10 +2486,10 @@ def main() -> int:
           "frame_bytes": int((tk // 8).sum())})
     if not chain_ok:
         return fail("the chain K4 -> K1 -> K5 differs from the plain chain")
-    # K6 and K7 on the corners, then on the search inputs of real batches:
+    # K6-K9 on the corners, then on the search inputs of real batches:
     # -5 and -8 (64 frames of the track's recipe), the 33-bit clip (64
     # blocks: int64 signals, RICE2) and -8 with -e -p (8 frames)
-    k6_err = k7_err = 0
+    search_err = dict.fromkeys(SEARCH_STAGES, 0)
     track = signals.make_test_signal(64 * 4096, seed=180)
     hi = hires_clip()
     real_cfgs = {
@@ -2420,43 +2504,56 @@ def main() -> int:
             8, blocksize=4096, do_exhaustive_model_search=True,
             do_qlp_coeff_prec_search=True).resolve(), track, 8)}
 
+    # each stage's kernel name, its kernel id, its dispatch and its plain
+    # version
+    stages = {"k6": ("lpc_coeffs", "K6", subframe.lpc_candidates,
+                     subframe.lpc_candidates_plain),
+              "k8": ("candidate_residuals", "K8",
+                     subframe.candidate_residuals,
+                     subframe.candidate_residuals_plain),
+              "k7": ("rice_cost", "K7", subframe._rice_cost,
+                     subframe._rice_cost_plain),
+              "k9": ("select_realize", "K9", subframe.select_and_realize,
+                     subframe.select_and_realize_plain)}
+
     def search_cases():
-        """(label, "k6" or "k7", the arguments on the card), made one at a
-        time, so that no case's tensors outlive its comparison (they
-        would count in the later phases' peak memory)"""
+        """(label, "k6", "k8", "k7" or "k9", the arguments on the card,
+        the case's configuration or None), made one at a time, so that
+        no case's tensors outlive its comparison (they would count in the
+        later phases' peak memory)"""
         for label, case in search_synth.lpc_cases():
             yield (f"corner: {label}", "k6",
-                   search_synth.as_lpc_inputs(case, "cuda"))
+                   search_synth.as_lpc_inputs(case, "cuda"), case["cfg"])
         for label, case in search_synth.rice_cases():
             yield (f"corner: {label}", "k7",
-                   search_synth.as_rice_inputs(case, "cuda"))
+                   search_synth.as_rice_inputs(case, "cuda"), case["cfg"])
+        for label, case in search_synth.residual_cases():
+            yield (f"corner: {label}", "k8",
+                   search_synth.as_residual_inputs(case, "cuda"), None)
+        for label, case in search_synth.select_cases():
+            yield (f"corner: {label}", "k9",
+                   search_synth.as_select_inputs(case, "cuda"), None)
         for label, (cfg_r, src, frames) in real_cfgs.items():
             seen = real_search(cfg_r, src, frames)
-            yield label, "k6", seen.pop("k6")
-            yield label, "k7", seen.pop("k7")
-    for label, which, a67 in search_cases():
-        if which == "k6":
-            ok, err = search_compare(subframe.lpc_candidates,
-                                     subframe.lpc_candidates_plain, a67)
-            shape = list(a67[0].shape)
-            k6_err = max(k6_err, err)
-        else:
-            ok, err = search_compare(subframe._rice_cost,
-                                     subframe._rice_cost_plain, a67)
-            shape = list(a67[0].shape)
-            k7_err = max(k7_err, err)
-        emit({"phase": "kernels", "kernel": ("lpc_coeffs" if which == "k6"
-                                             else "rice_cost"),
-              "case": label, "input_shape": shape,
-              "config": {k: getattr(a67[-1], k) for k in (
-                  "bits_per_sample", "max_lpc_order",
-                  "do_exhaustive_model_search", "do_qlp_coeff_prec_search",
-                  "do_escape_coding", "max_residual_partition_order")},
+            for key in SEARCH_STAGES:
+                yield label, key, seen.pop(key), cfg_r
+    for label, which, a_s, cfg_s in search_cases():
+        name, kid, kern_fn, plain_fn = stages[which]
+        ok, err = search_compare(kern_fn, plain_fn, a_s)
+        search_err[which] = max(search_err[which], err)
+        emit({"phase": "kernels", "kernel": name, "case": label,
+              "input_shape": list(a_s[0].shape),
+              "config": None if cfg_s is None else {
+                  k: getattr(cfg_s, k) for k in (
+                      "bits_per_sample", "max_lpc_order",
+                      "do_exhaustive_model_search",
+                      "do_qlp_coeff_prec_search", "do_escape_coding",
+                      "max_residual_partition_order")},
               "identical": ok, "max_abs_err": err})
         if not ok:
-            return fail(f"{'K6' if which == 'k6' else 'K7'} differs from "
-                        f"its plain version on '{label}'")
-    del a67
+            return fail(f"{kid} differs from its plain version on "
+                        f"'{label}'")
+    del a_s
     if args.quick:
         emit({"phase": "done", "quick": True,
               "seconds": time.perf_counter() - t_start})
@@ -2514,6 +2611,8 @@ def main() -> int:
     k5_launches = main_counts["frame_crc"]
     k6_launches = main_counts["lpc_coeffs"]
     k7_launches = main_counts["rice_cost"]
+    k8_launches = main_counts["candidate_residuals"]
+    k9_launches = main_counts["select_realize"]
     pcm_bytes = pcm.size * 2
     enc_mbps = pcm_bytes / 1e6 / wall
     emit({"phase": "main", "preset": -5, "seconds_audio": TRACK_SECONDS,
@@ -2522,7 +2621,7 @@ def main() -> int:
           "compression_ratio": len(stream) / pcm_bytes,
           "launches": {k: main_counts[k] for k in (
               "pack_fields64", "assemble_fields", "frame_crc", "lpc_coeffs",
-              "rice_cost")},
+              "rice_cost", "candidate_residuals", "select_realize")},
           "encode_program_calls": len(program_calls),
           "calls_by_program": dict(collections.Counter(
               f"{n[0]}, N={n[2]}, {n[3]}" for n in program_calls)),
@@ -2538,6 +2637,10 @@ def main() -> int:
                     "and the safe tail)")
     if k6_launches != len(program_calls) or k7_launches != k6_launches:
         return fail(f"K6 and K7 launched {k6_launches} and {k7_launches} "
+                    f"times on the main path, expected once per encode "
+                    f"program call ({len(program_calls)})")
+    if k8_launches != len(program_calls) or k9_launches != k8_launches:
+        return fail(f"K8 and K9 launched {k8_launches} and {k9_launches} "
                     f"times on the main path, expected once per encode "
                     f"program call ({len(program_calls)})")
     t0 = time.perf_counter()
@@ -3083,19 +3186,26 @@ def main() -> int:
             "ptxas": usage[name]})
     k4, k5 = kernels45
 
-    # K6 and K7 on the search inputs of phase 3's -5 and -8 batches (the
-    # ops form's arguments): the kernel's device time (torch.profiler), the
+    # K6-K9 on the search inputs of phase 3's -5 and -8 batches (the ops
+    # form's arguments): the kernel's device time (torch.profiler), the
     # kernel and the plain version through their dispatch (CUDA events,
     # plain, kernel, kernel, plain), the bound; K6 beside its chain floor
     op_cycles = lpc_cuda.op_cycles()
     timed_inputs = {lv: real_search(*real_cfgs[f"{lv}, 64 frames"])
                     for lv in ("-5", "-8")}
-    kernels67 = []
+    kernels_search = []
     for name, mod, key, kern_fn, plain_fn, launches_main, err in (
             ("lpc_coeffs", lpc_cuda, "k6", subframe.lpc_candidates,
-             subframe.lpc_candidates_plain, k6_launches, k6_err),
+             subframe.lpc_candidates_plain, k6_launches, search_err["k6"]),
             ("rice_cost", rice_cost_cuda, "k7", subframe._rice_cost,
-             subframe._rice_cost_plain, k7_launches, k7_err)):
+             subframe._rice_cost_plain, k7_launches, search_err["k7"]),
+            ("candidate_residuals", residuals_cuda, "k8",
+             subframe.candidate_residuals,
+             subframe.candidate_residuals_plain, k8_launches,
+             search_err["k8"]),
+            ("select_realize", select_cuda, "k9",
+             subframe.select_and_realize, subframe.select_and_realize_plain,
+             k9_launches, search_err["k9"])):
         shapes = {}
         for lv in ("-5", "-8"):
             a67 = timed_inputs[lv][key]
@@ -3144,6 +3254,54 @@ def main() -> int:
                          / probe["cycles_per_ns"] / 1e6,
                          "ctas": lpc_cuda.ctas(problems, O6),
                          "lanes": lpc_cuda.lanes(O6)}
+            elif key == "k8":
+                x8, qc8, _, order8 = a67[:4]
+                B8, CH8, N8 = x8.shape
+                AC8 = qc8.shape[2]
+                rows = B8 * CH8
+                # each input read once (x, the coefficients, shifts,
+                # orders, bps), each output written once (res_all,
+                # order_all, f_ok, fit_ok); the operations of the fixed
+                # rows, and of each LPC candidate's taps to its order
+                nbytes = (x8.numel() * x8.element_size()
+                          + rows * AC8 * (32 + 2) * 4 + rows * 4
+                          + rows * (5 + AC8) * (N8 + 1) * 4
+                          + rows * (5 + AC8))
+                taps = int(order8.clamp(max=residuals_cuda.max_taps(
+                    N8, a67[7])).sum())
+                nops = (rows * N8 * 5 * K8_OPS_PER_FIXED_SAMPLE
+                        + taps * N8 * K8_OPS_PER_TAP
+                        + rows * AC8 * N8 * K8_OPS_PER_LPC_SAMPLE)
+                extra = {"rows": rows, "N": N8, "candidates": 5 + AC8,
+                         "taps": taps,
+                         "ctas": list(residuals_cuda.ctas(rows, AC8))}
+            elif key == "k9":
+                x9 = a67[0]
+                B9, CH9, N9 = x9.shape
+                r_bits9, r_ks9 = a67[11], a67[12]
+                C9, L9 = r_bits9.shape[2:]
+                P9 = r_ks9.shape[-1]
+                AC9 = C9 - 5
+                rows = B9 * CH9
+                # what these inputs need: x once (the constant test), each
+                # candidate's costs, header fields and flags, the
+                # winners' residual rows (FIXED and LPC winners only), one
+                # parameter row and coefficient row a winner; each output
+                # written once
+                choice = plain_fn(*a67)
+                has_res = int((choice.type_ >= 2).sum())
+                lpc_w = int((choice.type_ == 3).sum())
+                nbytes = (x9.numel() * x9.element_size()
+                          + rows * (C9 * L9 * 4 + C9 * 4 + 5 + AC9 * 6 + 8)
+                          + has_res * N9 * 4 + rows * (P9 * 4 + 1)
+                          + lpc_w * (32 + 2) * 4
+                          + rows * (N9 * 4 + P9 * 4 + 32 * 4
+                                    + 32 * x9.element_size() + 6 * 4 + 1))
+                nops = rows * (N9 * K9_OPS_PER_SAMPLE
+                               + C9 * K9_OPS_PER_CANDIDATE)
+                extra = {"rows": rows, "N": N9, "candidates": C9 + 2,
+                         "winners_with_residuals": has_res,
+                         "partitions": P9}
             else:
                 res_k, order_k, N_k, max_po_k = a67[:4]
                 rows = res_k.numel() // N_k
@@ -3172,7 +3330,7 @@ def main() -> int:
                   "plain_ms_runs": [runs[0], runs[3]], "bytes": nbytes,
                   "operations": nops, **extra})
         main = shapes["-5"]
-        kernels67.append({
+        kernels_search.append({
             "name": name, "route": "cuda", "source": mod.SOURCE,
             "replaces": mod.REPLACES, "launches": launches_main,
             "max_abs_err": err, **main["dev"],
@@ -3184,14 +3342,21 @@ def main() -> int:
             "at_-8": {k: (v["ms"] if k == "dev" else v)
                       for k, v in shapes["-8"].items()},
             "library_ms": None,
-            "library_note": ("no PyTorch call runs Levinson-Durbin and the "
-                             "quantizer" if key == "k6" else
-                             "no PyTorch call computes partitioned Rice "
-                             "costs"),
-            "design": K7_DESIGN if key == "k7" else K6_DESIGN,
+            "library_note": {
+                "k6": "no PyTorch call runs Levinson-Durbin and the "
+                      "quantizer",
+                "k7": "no PyTorch call computes partitioned Rice costs",
+                "k8": "no single PyTorch call computes the fixed and LPC "
+                      "residuals: conv1d has no integer form on the card, "
+                      "and the shift, masks and range flags are more ops",
+                "k9": "no single PyTorch call selects and realizes a "
+                      "subframe: an argmin, then gathers from five "
+                      "tables"}[key],
+            "design": {"k6": K6_DESIGN, "k7": K7_DESIGN, "k8": K8_DESIGN,
+                       "k9": K9_DESIGN}[key],
             "ptxas": usage[name]})
-    k6, k7 = kernels67
-    del timed_inputs, a67
+    k6, k7, k8, k9 = kernels_search
+    del timed_inputs, a67, choice
 
     # ---- 7. where the time goes in a steady encode and decode ----
     short = signals.make_test_signal(10 * RATE, seed=7)
@@ -3199,17 +3364,16 @@ def main() -> int:
                      "flac.rice", "flac.select", "flac.assign",
                      "flac.assemble", "flac.fields", "flac.pack",
                      "flac.seal")
-    encode_kernels = ("lpc_coeffs_kernel", "rice_cost_kernel",
-                      "pack_fields64_kernel", "assemble_fields_kernel",
-                      "frame_crc_kernel")
+    encode_kernels = tuple(ENCODE_KERNEL_RANGES)
     # through the compiled programs (two warm calls: the 43-frame batch
     # and the final block are captured on their second), then op by op,
     # whose ranges say where the programs' device time goes
     emit(profile_run(lambda: encode(short, 5), "encode_-5", encode_ranges,
                      encode_kernels, warm=2))
     with ops_form():
-        emit(profile_run(lambda: encode(short, 5), "encode_-5_ops",
-                         encode_ranges, encode_kernels))
+        emit({**profile_run(lambda: encode(short, 5), "encode_-5_ops",
+                            encode_ranges, encode_kernels),
+              "own_kernels_range": ENCODE_KERNEL_RANGES})
     short_stream, _ = encode(short, 5)
     emit(profile_run(lambda: decode_stream_tpu(short_stream), "decode",
                      ("flac.tile_scan", "flac.upload", "flac.codes",
@@ -3225,7 +3389,7 @@ def main() -> int:
     api = library_api(pcm, stream, expect)
     check_encode_calls("api", api)
     emit({"phase": "api", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7):
+    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9):
         k["launches_library_api"] = {path: c[k["name"]]
                                      for path, c in api.items()}
 
@@ -3234,7 +3398,7 @@ def main() -> int:
     clis = command_lines(pcm, stream)
     check_encode_calls("cli", clis)
     emit({"phase": "cli", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7):
+    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9):
         k["launches_cli"] = {path: c[k["name"]] for path, c in clis.items()}
 
     # ---- 10. the parallel paths and the encoder's pipeline ----
@@ -3242,7 +3406,7 @@ def main() -> int:
     par = parallel_paths(pcm, stream, expect)
     check_encode_calls("parallel", par)
     emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7):
+    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9):
         k["launches_parallel"] = {path: c[k["name"]]
                                   for path, c in par.items()}
     # ---- 11. the compiled encode programs ----
@@ -3250,10 +3414,10 @@ def main() -> int:
     comp = compiled_encode(pcm, track_keys)
     check_encode_calls("compiled", comp)
     emit({"phase": "compiled", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7):
+    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9):
         k["launches_compiled_encode"] = {path: c[k["name"]]
                                          for path, c in comp.items()}
-    emit({"kernels": [k1, k2, k3, k4, k5, k6, k7]})
+    emit({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8, k9]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": dev_info})

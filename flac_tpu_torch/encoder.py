@@ -6,7 +6,9 @@ Port of flac_tpu/encoder.py.
       -> stereo candidates + wasted bits        (models/stereo.py)
       -> exact candidate grid search + realize  (models/subframe.py: K6
                                                  the LPC coefficients,
-                                                 K7 the Rice costs)
+                                                 K8 the residuals, K7
+                                                 the Rice costs, K9 the
+                                                 select and realize)
       -> channel assignment argmin              (models/stereo.py)
       -> field lists, bit-pack, CRCs            (models/frame.py: K4, K1,
                                                  K5)
@@ -27,8 +29,8 @@ K2, then K3) and compared with its input before a byte of it is written.
 On a CUDA device encode_batch and encode_batch_trimmed run as compiled
 programs, the counterpart of the reference's jitted ones: a CUDA graph for
 each static key (configuration, shapes, dtypes, layout, packer), captured
-on the key's second call and replayed after that, with K6, K7, K4, K1 and
-K5 inside (_EncodePrograms).  The ops they capture read nothing back from
+on the key's second call and replayed after that, with K6, K8, K7, K9,
+K4, K1 and K5 inside (_EncodePrograms).  The ops they capture read nothing back from
 the device and copy no constant from host memory on a warm call.
 
 The ops mark their stages as profiler ranges (flac.search, with
@@ -63,8 +65,8 @@ from .metadata import SeekPoint
 from .models import frame as frame_mod
 from .models import stereo as stereo_mod
 from .models import subframe as subframe_mod
-from .ops import assemble_cuda, lpc_cuda, pack_cuda, rice_cost_cuda, \
-    seal_cuda
+from .ops import assemble_cuda, lpc_cuda, pack_cuda, residuals_cuda, \
+    rice_cost_cuda, seal_cuda, select_cuda
 from .ops import lpc as lpc_ops
 from .ref_decoder import DecodedStream, FlacDecodeError
 from .utils.bits import BitWriter
@@ -79,7 +81,9 @@ def _bank_for(cfg: EncoderConfig, blocksize: int):
 # each counts a launch recorded during a capture in `captured` and takes a
 # replay's launches through `count_replay`
 COUNTED_KERNELS = {"lpc_coeffs": lpc_cuda,
+                   "candidate_residuals": residuals_cuda,
                    "rice_cost": rice_cost_cuda,
+                   "select_realize": select_cuda,
                    "pack_fields64": pack_cuda,
                    "assemble_fields": assemble_cuda,
                    "frame_crc": seal_cuda}

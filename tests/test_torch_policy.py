@@ -180,16 +180,19 @@ def test_import_builds_no_native_library_or_kernel():
         "                               'flac_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from flac_tpu_torch import kernels, native\n"
-        "from flac_tpu_torch.ops import (assemble_cuda, pack_cuda,\n"
-        "    restore_cuda, rice_cuda, seal_cuda)\n"
+        "from flac_tpu_torch.ops import (assemble_cuda, lpc_cuda,\n"
+        "    pack_cuda, residuals_cuda, restore_cuda, rice_cost_cuda,\n"
+        "    rice_cuda, seal_cuda, select_cuda)\n"
         "print(native._lib is None, kernels.LOADED == {},\n"
         "      pack_cuda._lib is None, rice_cuda._lib is None,\n"
         "      restore_cuda._lib is None, assemble_cuda._lib is None,\n"
-        "      seal_cuda._lib is None)\n")
+        "      seal_cuda._lib is None, lpc_cuda._lib is None,\n"
+        "      rice_cost_cuda._lib is None, residuals_cuda._lib is None,\n"
+        "      select_cuda._lib is None)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["True"] * 7
+    assert out.stdout.split() == ["True"] * 11
 
 
 def test_tf32_is_off():
@@ -219,6 +222,60 @@ def test_library_name_covers_the_shared_headers(tmp_path, monkeypatch):
     names.append(kernels._library_path("k"))
     assert len(set(names)) == 3
     assert names[-1] == kernels._library_path("k")
+
+
+@pytest.mark.parametrize("name, module, dispatcher, plain", [
+    ("candidate_residuals", "residuals_cuda", "candidate_residuals",
+     "candidate_residuals_plain"),
+    ("select_realize", "select_cuda", "select_and_realize",
+     "select_and_realize_plain")])
+def test_search_kernels_take_cuda_tensors_and_hash_their_sources(
+        name, module, dispatcher, plain, monkeypatch, tmp_path):
+    """K8 and K9: a tensor on the card goes to the kernel's wrapper and
+    never to the plain version; the wrapper launches or raises (here, on
+    a CPU tensor, it raises: there is no fallback); each library is named
+    by a hash of its own source (and the shared headers and flags), so an
+    edited source is rebuilt."""
+    import hashlib
+    import importlib
+    import types
+
+    from flac_tpu_torch.models import subframe
+    mod = importlib.import_module(f"flac_tpu_torch.ops.{module}")
+    wrapper = getattr(mod, dispatcher)
+    calls = []
+    outputs = getattr(mod, "OUTPUTS", ("res", "order", "f_ok", "fit_ok"))
+
+    def launched(*a):
+        calls.append(a)
+        return tuple(range(len(outputs)))
+
+    def refuse(*a):
+        raise AssertionError("the plain version took a tensor on the card")
+    monkeypatch.setattr(mod, dispatcher, launched)
+    monkeypatch.setattr(subframe, plain, refuse)
+    on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    n_args = 8 if name == "candidate_residuals" else 14
+    getattr(subframe, dispatcher)(on_card, *range(1, n_args))
+    assert len(calls) == 1 and calls[0][0] is on_card
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="not on a GPU"):
+        wrapper(torch.zeros((1, 2, 16), dtype=torch.int32),
+                *range(1, n_args))
+    # the library's name: a hash of the source, the headers and the flags
+    src = kernels.SRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(kernels.SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers + " ".join(
+        kernels.NVCC_FLAGS).encode()).hexdigest()[:12]
+    assert kernels._library_path(name).name == f"lib{name}-{digest}.so"
+    for f in [src, *kernels.SRC_DIR.glob("*.cuh")]:
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(kernels, "SRC_DIR", tmp_path)
+    before = kernels._library_path(name)
+    assert before.name == f"lib{name}-{digest}.so"
+    (tmp_path / src.name).write_text(src.read_text() + "// edited\n")
+    assert kernels._library_path(name) != before
 
 
 @pytest.mark.parametrize("source", ["assemble_fields.cu", "frame_crc.cu"])

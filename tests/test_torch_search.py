@@ -27,6 +27,18 @@ corners of ops/search_synth.py.
   validity as a pass stopped at that order does (so the kernel picks the
   guessed order's coefficients and runs no second pass), and the
   quantizer writes 0 past the order at every precision of the grid;
+- candidate_residuals_plain (K8's plain version: the five fixed orders
+  and the LPC candidates' residuals, the masks, the range flags) against
+  flac_tpu's fixed_residuals_all and lpc_residual, glued as
+  flac_tpu/models/subframe.py:130-146, :224-227 and :240-241 glue them,
+  on ops/search_synth.py's residual corners: order_all, f_ok and fit_ok
+  equal, and the residual rows equal wherever their flag holds (a wide
+  fixed or "f64" row whose flag is false has no defined residuals: each
+  package casts out-of-range doubles its own way);
+- select_and_realize_plain (K9's plain version) against the reference's
+  select and realize (flac_tpu/models/subframe.py:123-128 and :243-299,
+  with its _select_c) on the select corners: every integer field of the
+  SubframeChoice equal;
 - the dispatch: a CPU tensor takes the plain versions, and the kernels'
   wrappers refuse CPU tensors and malformed arguments;
 - search_and_realize's profiler ranges.
@@ -46,17 +58,21 @@ import torch
 from flac_tpu import EncoderConfig as JConfig
 from flac_tpu import format as jfmt
 from flac_tpu.models import subframe as jsub
+from flac_tpu.ops import fixed as jfixed
 from flac_tpu.ops import lpc as jlpc
 from flac_tpu.ops import rice as jrice
 from flac_tpu_torch import EncoderConfig, signals
 from flac_tpu_torch.models import stereo, subframe
 from flac_tpu_torch.ops import lpc as tlpc
-from flac_tpu_torch.ops import lpc_cuda, rice_cost_cuda, search_synth
+from flac_tpu_torch.ops import lpc_cuda, residuals_cuda, rice_cost_cuda, \
+    search_synth, select_cuda
 
 torch.set_num_threads(1)
 
 LPC_CASES = search_synth.lpc_cases()
 RICE_CASES = search_synth.rice_cases()
+RESIDUAL_CASES = search_synth.residual_cases()
+SELECT_CASES = search_synth.select_cases()
 
 
 def _jconfig(cfg: EncoderConfig) -> JConfig:
@@ -311,3 +327,282 @@ def test_search_ranges():
     names = [e.name for e in prof.events() if e.name.startswith("flac.")]
     assert names == ["flac.lpc_coeffs", "flac.residuals", "flac.rice",
                      "flac.select"]
+
+
+@functools.partial(jax.jit, static_argnames=("fixed_wide", "lpc_mode"))
+def _reference_residuals(x, qc, qshift, cand_order, bps32, fixed_wide,
+                         lpc_mode):
+    """flac_tpu's fixed and LPC residuals, glued as search_and_realize
+    glues them (flac_tpu/models/subframe.py:130-146, :224-227,
+    :240-241)."""
+    B, CH, N = x.shape
+    n_idx = jnp.arange(N, dtype=jnp.int32)
+    forder = jnp.arange(5, dtype=jnp.int32)
+    fmask = n_idx[None, :] >= forder[:, None]
+    if fixed_wide:
+        fres_w = jfixed.fixed_residuals_all(x.astype(jnp.float64))
+        fres_w = jnp.where(fmask, fres_w, 0)
+        f_ok = jnp.max(jnp.abs(fres_w), axis=-1) < jnp.float64(2 ** 31)
+        fres = fres_w.astype(jnp.int32)
+    else:
+        fres = jnp.where(fmask, jfixed.fixed_residuals_all(x), 0)
+        f_ok = jnp.ones(fres.shape[:-1], bool)
+    forder_b = jnp.broadcast_to(forder, (B, CH, 5)).astype(jnp.int32)
+    if qc.shape[2]:
+        res_lpc, fit_ok = jlpc.lpc_residual(x, qc, qshift, cand_order,
+                                            bps32, lpc_mode)
+    else:
+        res_lpc = jnp.zeros((B, CH, 0, N), jnp.int32)
+        fit_ok = jnp.zeros((B, CH, 0), bool)
+    res_all = jnp.concatenate([fres, res_lpc], axis=2)
+    order_all = jnp.concatenate([forder_b, cand_order], axis=2)
+    return res_all, order_all, f_ok, fit_ok
+
+
+@pytest.mark.parametrize("label,case", RESIDUAL_CASES,
+                         ids=[c[0] for c in RESIDUAL_CASES])
+def test_candidate_residuals_plain_matches_flac_tpu(label, case):
+    args = search_synth.as_residual_inputs(case, "cpu")
+    got = subframe.candidate_residuals_plain(*args)
+    want = _reference_residuals(
+        *(jnp.asarray(case[k]) for k in ("x", "qc", "qshift", "cand_order",
+                                         "bps_eff")),
+        fixed_wide=case["fixed_wide"], lpc_mode=case["lpc_mode"])
+    want = [np.asarray(w) for w in want]
+    for name, g, w in zip(("order_all", "f_ok", "fit_ok"), got[1:],
+                          want[1:]):
+        np.testing.assert_array_equal(g.numpy(), w, name)
+    # the residual rows wherever their flag holds: every narrow fixed and
+    # "i32" row (those wrap alike), a wide fixed or "f64" row where it
+    # is valid
+    rows = residuals_cuda.comparable_rows(got[2], got[3], case["fixed_wide"],
+                                          case["lpc_mode"]).numpy()
+    np.testing.assert_array_equal(got[0].numpy()[rows], want[0][rows],
+                                  "res_all")
+    assert got[0].shape == want[0].shape
+
+
+@jax.jit
+def _reference_select(x, bps32, wasted, res_all, order_all, f_ok, cand_ok,
+                      fit_ok, prec, qc, qshift, r_bits, r_ks, r_rice2):
+    """The reference's select and realize, as search_and_realize runs it
+    (flac_tpu/models/subframe.py:123-128 and :243-299)."""
+    B, CH, N = x.shape
+    AC = qc.shape[2]
+    C_rice = 5 + AC
+    overhead = 8 + wasted
+    verb_bits = overhead + N * bps32
+    is_const = jnp.all(x == x[..., :1], axis=-1)
+    const_bits = jnp.where(is_const, overhead + bps32, jsub.BIG)
+    forder = jnp.arange(5, dtype=jnp.int32)
+    rice_best = jnp.min(r_bits, axis=-1)
+    po_all = jnp.argmin(r_bits, axis=-1).astype(jnp.int32)
+    fixed_hdr = overhead[..., None] + forder * bps32[..., None]
+    if AC:
+        lpc_hdr = (overhead[..., None] + 4 + 5
+                   + order_all[:, :, 5:] * (prec + bps32[..., None]))
+        hdr_all = jnp.concatenate([fixed_hdr, lpc_hdr], axis=2)
+        ok_all = jnp.concatenate([f_ok & (forder < N), cand_ok & fit_ok],
+                                 axis=2)
+    else:
+        hdr_all = fixed_hdr
+        ok_all = f_ok & (forder < N)
+    total_all = jnp.where(ok_all & (rice_best < jsub.BIG),
+                          hdr_all + jnp.minimum(rice_best, jsub.BIG),
+                          jsub.BIG)
+    allbits = jnp.concatenate(
+        [verb_bits[..., None], const_bits[..., None], total_all], axis=-1)
+    win = jnp.argmin(allbits, axis=-1).astype(jnp.int32)
+    best_bits = jnp.min(allbits, axis=-1)
+    is_verb, is_constw = win == 0, win == 1
+    is_fixed, is_lpc = (win >= 2) & (win < 7), win >= 7
+    win_c = jnp.clip(win - 2, 0, C_rice - 1)
+    type_ = jnp.where(is_verb, jfmt.SUBFRAME_TYPE_VERBATIM,
+                      jnp.where(is_constw, jfmt.SUBFRAME_TYPE_CONSTANT,
+                                jnp.where(is_fixed, jfmt.SUBFRAME_TYPE_FIXED,
+                                          jfmt.SUBFRAME_TYPE_LPC))
+                      ).astype(jnp.int32)
+    has_res = is_fixed | is_lpc
+    order = jnp.where(has_res, jsub._select_c(order_all, win_c, C_rice), 0)
+    residual = jnp.where(has_res[..., None],
+                         jsub._select_c(res_all, win_c, C_rice), 0)
+    po = jnp.where(has_res, jsub._select_c(po_all, win_c, C_rice), 0)
+    ks_sel = jsub._select_c(r_ks, win_c, C_rice)
+    params = jnp.take_along_axis(ks_sel, po[..., None, None],
+                                 axis=-2)[..., 0, :]
+    r2_sel = jsub._select_c(r_rice2, win_c, C_rice)
+    use_rice2 = jnp.take_along_axis(r2_sel, po[..., None], -1)[..., 0]
+    if AC:
+        lidx = jnp.clip(win - 7, 0, AC - 1)
+        qc_win = jnp.where(is_lpc[..., None], jsub._select_c(qc, lidx, AC),
+                           0)
+        sh_win = jnp.where(is_lpc, jsub._select_c(qshift, lidx, AC), 0)
+        prec_win = jnp.where(is_lpc, jsub._select_c(prec, lidx, AC), 0)
+    else:
+        qc_win = jnp.zeros((B, CH, 32), jnp.int32)
+        sh_win = jnp.zeros((B, CH), jnp.int32)
+        prec_win = jnp.zeros((B, CH), jnp.int32)
+    warmup = x[..., :32] if N >= 32 else \
+        jnp.pad(x, [(0, 0), (0, 0), (0, 32 - N)])
+    return {"bits": best_bits, "type_": type_, "order": order,
+            "qcoeffs": qc_win, "shift": sh_win, "precision": prec_win,
+            "warmup": warmup, "residual": residual, "po": po,
+            "params": params, "use_rice2": use_rice2}
+
+
+@pytest.mark.parametrize("label,case", SELECT_CASES,
+                         ids=[c[0] for c in SELECT_CASES])
+def test_select_and_realize_plain_matches_flac_tpu(label, case):
+    args = search_synth.as_select_inputs(case, "cpu")
+    got = subframe.select_and_realize_plain(*args)
+    want = _reference_select(*(jnp.asarray(case[k])
+                               for k in search_synth.SELECT_KEYS))
+    assert set(want) == set(select_cuda.OUTPUTS)
+    for name in select_cuda.OUTPUTS:
+        g = getattr(got, name).numpy()
+        w = np.asarray(want[name])
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, name)
+    assert got.wasted is args[2] and got.bps_eff is args[1]
+
+
+def test_select_corners_reach_every_winner():
+    """The select corners make each kind of winner, and their ties go to
+    the first index: verbatim over an equal fixed order, a fixed order
+    over an equal LPC candidate, the first of two equal LPC candidates;
+    every table has equal partition-order bits somewhere."""
+    kinds = set()
+    for label, case in SELECT_CASES:
+        ch = subframe.select_and_realize_plain(
+            *search_synth.as_select_inputs(case, "cpu"))
+        kinds |= set(ch.type_.flatten().tolist())
+        R = ch.type_.numel()
+        rows = np.arange(R) % 6
+        t = ch.type_.reshape(-1).numpy()
+        assert (t[rows == 1] == jfmt.SUBFRAME_TYPE_CONSTANT).all(), label
+        assert (t[rows == 2] == jfmt.SUBFRAME_TYPE_VERBATIM).all(), label
+        assert (t[rows == 5] == jfmt.SUBFRAME_TYPE_VERBATIM).all(), label
+        AC = case["qc"].shape[2]
+        if AC >= 1:
+            # the LPC candidate that ties fixed order 2 never wins
+            assert (t[rows == 4] != jfmt.SUBFRAME_TYPE_LPC).all(), label
+        if AC >= 2:
+            # of two equal LPC candidates the first wins: its coefficients
+            lpc = (rows == 3) & (t == jfmt.SUBFRAME_TYPE_LPC)
+            qc0 = case["qc"].reshape(R, AC, 32)[:, 0]
+            assert (ch.qcoeffs.reshape(R, 32).numpy()[lpc] == qc0[lpc]).all()
+        # equal partition-order bits in every table
+        rb = case["r_bits"].reshape(R, 5 + AC, -1)
+        if rb.shape[-1] > 1:
+            assert ((rb == rb.min(-1, keepdims=True)).sum(-1) > 1).any()
+    assert kinds == {0, 1, 2, 3}
+
+
+def test_residual_corners_reach_every_flag():
+    """The residual corners hold "i32" rows whose range analysis fails,
+    wide fixed and "f64" rows past 2^31 (flags false) and rows within it,
+    orders 1-32 and shifts 0 and 15."""
+    seen = {"fit_false_i32": False, "fit_false_f64": False,
+            "fit_true_f64": False, "f_false": False, "f_true_wide": False}
+    orders, shifts = set(), set()
+    for label, case in RESIDUAL_CASES:
+        _, _, f_ok, fit_ok = subframe.candidate_residuals_plain(
+            *search_synth.as_residual_inputs(case, "cpu"))
+        if case["lpc_mode"] == "i32":
+            seen["fit_false_i32"] |= bool((~fit_ok).any())
+        else:
+            seen["fit_false_f64"] |= bool((~fit_ok).any())
+            seen["fit_true_f64"] |= bool(fit_ok.any())
+        if case["fixed_wide"]:
+            seen["f_false"] |= bool((~f_ok).any())
+            seen["f_true_wide"] |= bool(f_ok.any())
+        orders |= set(case["cand_order"].reshape(-1).tolist())
+        shifts |= set(case["qshift"].reshape(-1).tolist())
+        # the quantizer's contract: zero past each candidate's order
+        past = (np.arange(32)[None, None, None, :]
+                >= case["cand_order"][..., None])
+        assert (case["qc"][past] == 0).all(), label
+    assert all(seen.values()), seen
+    assert set(range(1, 33)) <= orders and {0, 15} <= shifts
+
+
+def test_quantizer_shifts_are_in_k8s_range():
+    """K8 shifts its predictions right by the quantizer's shift; the
+    quantizer clamps it to 0..15 (ops/lpc.py quantize_coefficients), so a
+    right shift by it is the plain version's floor division."""
+    for label, case in LPC_CASES:
+        qshift = subframe.lpc_candidates_plain(
+            *search_synth.as_lpc_inputs(case, "cpu"))[1]
+        assert int(qshift.min()) >= 0 and int(qshift.max()) <= 15, label
+
+
+def test_k8_k9_dispatch_takes_the_plain_versions_on_the_cpu(monkeypatch):
+    """On CPU tensors candidate_residuals and select_and_realize are their
+    plain versions and never reach a kernel's wrapper."""
+    def refuse(*a, **k):
+        raise AssertionError("a kernel wrapper was called for CPU tensors")
+    monkeypatch.setattr(residuals_cuda, "candidate_residuals", refuse)
+    monkeypatch.setattr(select_cuda, "select_and_realize", refuse)
+    args = search_synth.as_residual_inputs(RESIDUAL_CASES[1][1], "cpu")
+    for a, b in zip(subframe.candidate_residuals(*args),
+                    subframe.candidate_residuals_plain(*args)):
+        assert torch.equal(a, b)
+    args = search_synth.as_select_inputs(SELECT_CASES[1][1], "cpu")
+    for a, b in zip(subframe.select_and_realize(*args),
+                    subframe.select_and_realize_plain(*args)):
+        assert torch.equal(a, b)
+    assert residuals_cuda.launches == 0 and select_cuda.launches == 0
+
+
+def test_k8_k9_wrappers_refuse_cpu_tensors_and_bad_arguments():
+    args = search_synth.as_residual_inputs(RESIDUAL_CASES[1][1], "cpu")
+    with pytest.raises(ValueError, match="not on a GPU"):
+        residuals_cuda.candidate_residuals(*args)
+    residuals_cuda.check_arguments(*args)
+    x, qc, qshift, order, bps, wide, mode, mo = args
+    for bad in ((x.float(), qc, qshift, order, bps, wide, mode, mo),
+                (x.long(), qc, qshift, order, bps, wide, mode, mo),
+                (x, qc[..., :8], qshift, order, bps, wide, mode, mo),
+                (x, qc, qshift.long(), order, bps, wide, mode, mo),
+                (x, qc, qshift, order[..., :1], bps, wide, mode, mo),
+                (x, qc, qshift, order, bps[:1], wide, mode, mo),
+                (x, qc, qshift, order, bps, wide, "f32", mo),
+                (x, qc, qshift, order, bps, wide, mode, 33),
+                (x[..., :0], qc, qshift, order, bps, wide, mode, mo)):
+        with pytest.raises(ValueError):
+            residuals_cuda.check_arguments(*bad)
+    args = search_synth.as_select_inputs(SELECT_CASES[1][1], "cpu")
+    with pytest.raises(ValueError, match="not on a GPU"):
+        select_cuda.select_and_realize(*args)
+    select_cuda.check_arguments(*args)
+    for i, t in enumerate(args):
+        wrong = t.to(torch.int16) if t.dtype != torch.int16 else t.int()
+        bad = args[:i] + (wrong,) + args[i + 1:]
+        with pytest.raises(ValueError):
+            select_cuda.check_arguments(*bad)
+        if t.ndim >= 3:
+            bad = args[:i] + (t[:, :, :1],) + args[i + 1:]
+            with pytest.raises(ValueError):
+                select_cuda.check_arguments(*bad)
+
+
+def test_k8_layout_mirrors_the_source():
+    """residuals_cuda's grid and tap bound follow the source's constants:
+    a CTA a row for the fixed orders and one a group of GROUP LPC
+    candidates, the taps stopping at lpc_residual's max_j."""
+    from pathlib import Path
+    src = (Path(residuals_cuda.__file__).parents[1] / "csrc"
+           / "candidate_residuals.cu").read_text()
+    for name, value in (("THREADS", residuals_cuda.THREADS),
+                        ("GROUP", residuals_cuda.GROUP),
+                        ("FIXED", residuals_cuda.FIXED_ORDERS),
+                        ("HALO", jfmt.MAX_LPC_ORDER)):
+        assert f"constexpr int {name} = {value};" in src, name
+    assert "constexpr int TILE = THREADS * PER_THREAD;" in src
+    assert residuals_cuda.TILE == residuals_cuda.THREADS * 4
+    assert residuals_cuda.ctas(256, 1) == (256, 2)
+    assert residuals_cuda.ctas(256, 9) == (256, 4)
+    assert residuals_cuda.ctas(4, 0) == (4, 1)
+    assert [residuals_cuda.max_taps(N, o) for N, o in
+            ((4096, 8), (33, 32), (16, 32), (2, 0), (4096, 0))] \
+        == [8, 32, 15, 1, 1]
