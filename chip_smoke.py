@@ -7,11 +7,12 @@
 Phases, in order, each printing one JSON line; any failure exits non-zero:
 
 1. device:  the GPU's name, and nvidia-smi's name and power limit line.
-2. build:   nvcc builds the nine kernel sources of flac_tpu_torch/csrc/
+2. build:   nvcc builds the twelve kernel sources of flac_tpu_torch/csrc/
             (pack_fields64.cu, rice_codes.cu, restore.cu,
             assemble_fields.cu, frame_crc.cu, lpc_coeffs.cu,
-            rice_cost.cu, candidate_residuals.cu, select_realize.cu; one
-            nvcc each, started together) while g++
+            rice_cost.cu, candidate_residuals.cu, select_realize.cu,
+            channel_candidates.cu, window_autoc.cu, assign_channels.cu;
+            one nvcc each, started together) while g++
             builds the native host runtime; the
             probes P1 and P2 run; each kernel's registers, spills and
             static shared memory from ptxas (no kernel may spill), and K3's
@@ -51,7 +52,12 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             K8's orders and flags bit-identical and its residual rows
             wherever their flag holds (a wide fixed or "f64" row whose
             flag is false has no defined residuals:
-            residuals_cuda.comparable_rows).
+            residuals_cuda.comparable_rows).  K10 (the channel
+            candidates), K11 (the windowed autocorrelation) and K12 (the
+            channel assignment) bit-identical on the corners of
+            ops/frontend_synth.py and on their inputs in the ops form of
+            the same real batches and of a 64-frame -4 batch (the loose
+            path); K10 on the 16-bit batches' int16 uploads too.
 4. main:    the main path at full size: a 180 s 44.1 kHz 16-bit stereo
             track encoded at -5 (blocksize 4096, 64 frames a batch) on the
             GPU through the compiled encode programs (CUDA graphs: two
@@ -62,7 +68,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             "device" (K2 and K3) and with engine "fast" (the native full
             parse and K3), each with the kernels' launch counts (and K2's
             count of CTAs that staged) read just after (K1 once a
-            quad-layout call, K4-K9 once an encode program call, the
+            quad-layout call, K4-K12 once an encode program call, the
             safe tail's too, counted beside them); each decode must give
             the samples back with a matching MD5, equal the port's host
             engine and launch K3 once a decode batch; every CTA of every
@@ -94,7 +100,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             K5 on a copy of the words it seals in place), both also on the
             track's first 256 frames (`at_B256`), K5 beside the device
             time of an empty launch of its grid, clusters and shared
-            memory (`empty_launch_ms`); K4-K9
+            memory (`empty_launch_ms`); K4-K12
             carry a one-line `design`.  K3 is timed
             on both engines' inputs (int32 and int16 residuals) with its
             chain floor (N x the chain probe's cycles a sample / the SM
@@ -111,17 +117,25 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             the same -5 and -8 search inputs (`ms` at -5), each beside
             its byte bound (K8: x read once and every candidate row
             written; K9: x read once, each winner's residual row read and
-            the realized row written).
+            the realized row written).  K10 on the track's first 64
+            frames as uploaded (int16), K11 and K12 on their inputs in the
+            ops form of the -5 and -8 batches (`ms` at -5, -8 beside it),
+            each beside its bound (K10, K12: bytes; K11: the larger of its
+            bytes and its float32 fmas); K11
+            beside one grouped float32 conv1d of the windowed rows
+            (`library_ms`, a yardstick the port never calls).
 7. profile: torch.profiler over a 10 s encode (through the graphs,
             and op by op, whose flac.* ranges a replay does not record)
             and 10 s decodes with the "device" and "fast" engines: the
             device's busy share, kernels, graph replays, time by stage
-            (the flac.* ranges: flac.lpc_coeffs, flac.residuals,
-            flac.rice and flac.select inside flac.search; flac.fields,
-            flac.pack and flac.seal inside flac.assemble; the ctypes
-            kernels by name, each beside the range that launches it:
-            K6 flac.lpc_coeffs, K8 flac.residuals, K7 flac.rice, K9
-            flac.select, K4 flac.fields, K1 flac.pack, K5 flac.seal)
+            (the flac.* ranges: flac.candidates; flac.lpc_coeffs,
+            flac.residuals, flac.rice and flac.select inside flac.search;
+            flac.assign; flac.fields, flac.pack and flac.seal inside
+            flac.assemble; the ctypes kernels by name, each beside the
+            range that launches it: K10 flac.candidates, K11 and K6
+            flac.lpc_coeffs, K8 flac.residuals, K7 flac.rice, K9
+            flac.select, K12 flac.assign, K4 flac.fields, K1 flac.pack,
+            K5 flac.seal)
             and the top kernels; the tables go to OUT_DIR/profile_*.txt.
 8. api:     the library API on the GPU.  The 180 s track at -5 in the
             `with` form of StreamEncoder, with a seek table every 10 s, a
@@ -139,7 +153,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             ranged Ogg decode must equal its slice (MB/s).  In a temp
             directory a Chain edit past the padding and a SimpleIterator
             delete must keep the audio (decoded on the GPU) and the file
-            mode.  Each path's K1-K9 launches, counted from 0 just
+            mode.  Each path's K1-K12 launches, counted from 0 just
             before it, go into the `kernels` line as
             `launches_library_api`.
 9. cli:     the command lines on the GPU, in a temp directory.  The 180 s
@@ -167,7 +181,7 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             channel, decoded by the "device" and "fast" engines with the
             MD5 and equal to the host engine, size within 0.1% of the same
             encode on the CPU.
-            Each path's K1-K9 launches, counted from 0 just before
+            Each path's K1-K12 launches, counted from 0 just before
             it, go into the `kernels` line as `launches_cli`.
 10. parallel: the parallel paths and the encoder's pipeline, on the
             track's 1937 full blocks.  encode_blocks_dp at -5 in calls of
@@ -201,9 +215,10 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             inputs (the ops, the capture, a replay) must equal the ops
             form (encoder._encode_batch_ops) on the same inputs in words,
             byte lengths, bits and ok flags, and the counts of K1 and
-            K4-K9 must move by the launches its graph holds on every call
-            (K4, K5, K7, K8 and K9 one each, K6 one where the preset has
-            LPC): -0, -5 and -8 at
+            K4-K12 must move by the launches its graph holds on every call
+            (K4, K5, K7, K8, K9 and K10 one each, K6 and K11 one where the
+            preset has LPC, K12 one where it has the mid-side search): -0,
+            -5 and -8 at
             64 frames (int16, StreamEncoder's upload) and 256 (int32, the
             sharded form) on the track's blocks, the trimmed 17-frame
             batch, the final short block, a safe re-encode bucket with
@@ -223,9 +238,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             OUT_DIR/gpu_tests.txt.  Each path's launches go into the
             `kernels` line as `launches_compiled_encode`.
 
-On every path of phases 8-11, K4, K5, K7, K8 and K9 launch equally
-often, at least as often as K1 and K6.  The `kernels` line (K1-K9) comes
-after phase 11.
+On every path of phases 8-11, K4, K5, K7, K8, K9 and K10 launch equally
+often, at least as often as K1, K6 (as often as K11) and K12.  The
+`kernels` line (K1-K12) comes after phase 11.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
 register report, the profile tables) go to OUT_DIR, beside this script.
@@ -323,8 +338,28 @@ K8_OPS_PER_LPC_SAMPLE = 5
 # candidate
 K9_OPS_PER_SAMPLE = 2
 K9_OPS_PER_CANDIDATE = 30
+K10_DESIGN = ("a CTA of 512 threads a frame: the rows read once in their "
+              "uploaded type and kept in shared memory, each candidate's OR "
+              "a warp __reduce_or_sync then the warps', __ffs; the shifted "
+              "candidates written with 16-byte stores")
+K11_DESIGN = ("a CTA of 128 threads a row, a thread a Gram column: the "
+              "row staged once in shared memory with 16-byte loads, each "
+              "window's samples formed beside it, each column's float32 "
+              "fmas over its blocks in registers, a float64 shuffle tree, "
+              "the combine in ascending window order")
+K12_DESIGN = ("a CTA of 256 threads a (frame, output channel): the "
+              "first-index argmin of the four totals (or the loose "
+              "assignment) in every thread, the chosen candidate's fields "
+              "and its residual and signal rows copied with 16-byte loads "
+              "and stores")
+# K10 a sample pair: two loads, the mid and side, four ORs and compares,
+# the four shifts (~14)
+K10_OPS_PER_SAMPLE = 14
 # the range of the ops form that launches each ctypes kernel
-ENCODE_KERNEL_RANGES = {"lpc_coeffs_kernel": "flac.lpc_coeffs",
+ENCODE_KERNEL_RANGES = {"channel_candidates_kernel": "flac.candidates",
+                        "window_autoc_kernel": "flac.lpc_coeffs",
+                        "assign_channels_kernel": "flac.assign",
+                        "lpc_coeffs_kernel": "flac.lpc_coeffs",
                         "candidate_residuals_kernel": "flac.residuals",
                         "rice_cost_kernel": "flac.rice",
                         "select_realize_kernel": "flac.select",
@@ -746,31 +781,90 @@ SEARCH_STAGES = {"k6": "lpc_candidates", "k8": "candidate_residuals",
                  "k7": "_rice_cost", "k9": "select_and_realize"}
 
 
+# the dispatchers of K10, K11 and K12 by key: (module, name)
+FRONT_STAGES = {"k10": ("models.stereo", "build_channel_candidates"),
+                "k11": ("ops.lpc", "window_autocorrelation"),
+                "k12": ("models.stereo", "assign_channels")}
+
+
 def capture_search(x, cfg) -> dict:
     """The arguments of subframe.lpc_candidates (K6, "k6"),
     candidate_residuals (K8, "k8"), _rice_cost (K7, "k7") and
-    select_and_realize (K9, "k9") in the ops form of one encode batch of
-    blocks `x` [B, C, N] on the card, blocksize N."""
+    select_and_realize (K9, "k9"), and of stereo.build_channel_candidates
+    (K10, "k10"), lpc.window_autocorrelation (K11,
+    "k11") and stereo.assign_channels (K12, "k12") in the ops form of one
+    encode batch of blocks `x` [B, C, N] on the card, blocksize N."""
+    import importlib
     from flac_tpu_torch import encoder as encoder_mod
-    from flac_tpu_torch.models import subframe
+    stages = {k: ("models.subframe", name)
+              for k, name in SEARCH_STAGES.items()}
+    stages.update(FRONT_STAGES)
+    mods = {k: importlib.import_module(f"flac_tpu_torch.{m}")
+            for k, (m, _) in stages.items()}
     seen = {}
-    real = {k: getattr(subframe, name) for k, name in SEARCH_STAGES.items()}
+    real = {k: getattr(mods[k], name) for k, (_, name) in stages.items()}
 
     def spy(key):
         def call(*a):
             seen[key] = a
             return real[key](*a)
         return call
-    for key, name in SEARCH_STAGES.items():
-        setattr(subframe, name, spy(key))
+    for key, (_, name) in stages.items():
+        setattr(mods[key], name, spy(key))
     try:
         encoder_mod._encode_batch_ops(
             x, encoder_mod._frame_numbers(0, x.shape[0], x.device), cfg,
             x.shape[2], "auto", "kernel")
     finally:
-        for key, name in SEARCH_STAGES.items():
-            setattr(subframe, name, real[key])
+        for key, (_, name) in stages.items():
+            setattr(mods[key], name, real[key])
     return seen
+
+
+def front_calls(key: str):
+    """(the dispatch, the plain version) of K10 ("k10"), K11 ("k11") or
+    K12 ("k12"), each taking the captured arguments."""
+    from flac_tpu_torch.models import stereo
+    from flac_tpu_torch.ops import lpc
+    if key == "k10":
+        from flac_tpu_torch.ops import candidates_cuda
+
+        def plain(pcm, cfg):
+            out = stereo.build_channel_candidates_plain(pcm, cfg)
+            if candidates_cuda.forms(pcm.shape[1], cfg)[2]:
+                out += (stereo.loose_assignment(pcm.int(), cfg)[0],)
+            return out
+        return stereo.build_channel_candidates, plain
+    if key == "k11":
+        return lpc.window_autocorrelation, lpc.autocorrelation_plain
+
+    def plain12(choice, x, loose, cfg, mid_side=True):
+        return stereo.assign_channels_plain(choice, x, loose, cfg)
+    return stereo.assign_channels, plain12
+
+
+def front_compare(key: str, args) -> tuple:
+    """K10, K11 or K12 through its dispatch against its plain version on
+    CUDA tensors: (every output identical in value and type, max abs
+    difference)."""
+    import torch
+    kernel_fn, plain_fn = front_calls(key)
+    got = kernel_fn(*args)
+    want = plain_fn(*args)
+    torch.cuda.synchronize()
+
+    def flat(v):
+        if isinstance(v, torch.Tensor):
+            return [v]
+        return [t for item in v for t in flat(item)]
+    got, want = flat(got), flat(want)
+    same = len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        for a, b in zip(got, want))
+    err = max(float((a.double() - b.double()).abs().max())
+              if a.numel() and a.shape == b.shape else 0.0
+              for a, b in zip(got, want))
+    return same, err
 
 
 def real_search(cfg, pcm, frames: int = 64) -> dict:
@@ -933,7 +1027,10 @@ KERNEL_MODULES = {"pack_fields64": "pack_cuda", "rice_codes": "rice_cuda",
                   "lpc_coeffs": "lpc_cuda",
                   "rice_cost": "rice_cost_cuda",
                   "candidate_residuals": "residuals_cuda",
-                  "select_realize": "select_cuda"}
+                  "select_realize": "select_cuda",
+                  "channel_candidates": "candidates_cuda",
+                  "window_autoc": "autoc_cuda",
+                  "assign_channels": "assign_cuda"}
 
 
 def _wrappers() -> dict:
@@ -957,20 +1054,24 @@ def _k123(c: dict) -> dict:
 
 
 def check_encode_calls(phase: str, launches: dict) -> None:
-    """Every encode program call launches K4, K5, K7, K8 and K9 once, K6
-    once where its preset has LPC, and K1 once where it takes the quad
-    layout: on each path K4 == K5 == K7 == K8 == K9 >= K1, K6, and a path
-    that launched K1 launched K4."""
+    """Every encode program call launches K4, K5, K7, K8, K9 and K10 once,
+    K6 and K11 once where its preset has LPC, K12 once where it has the
+    stereo mid-side search, and K1 once where it takes the quad layout:
+    on each path K4 == K5 == K7 == K8 == K9 == K10 >= K1, K6 == K11, K12,
+    and a path that launched K1 launched K4."""
     for path, c in launches.items():
-        k1, k4, k5, k6, k7, k8, k9 = (
+        k1, k4, k5, k6, k7, k8, k9, k10, k11, k12 = (
             c["pack_fields64"], c["assemble_fields"], c["frame_crc"],
             c["lpc_coeffs"], c["rice_cost"], c["candidate_residuals"],
-            c["select_realize"])
-        if not k4 == k5 == k7 == k8 == k9 or k4 < max(k1, k6):
+            c["select_realize"], c["channel_candidates"],
+            c["window_autoc"], c["assign_channels"])
+        if not k4 == k5 == k7 == k8 == k9 == k10 or k6 != k11 \
+                or k4 < max(k1, k6, k12):
             raise AssertionError(f"{phase}, {path}: K4 {k4}, K5 {k5}, K7 "
-                                 f"{k7}, K8 {k8}, K9 {k9}, K1 {k1}, K6 "
-                                 f"{k6}: not K4 == K5 == K7 == K8 == K9 >= "
-                                 "K1, K6")
+                                 f"{k7}, K8 {k8}, K9 {k9}, K10 {k10}, K1 "
+                                 f"{k1}, K6 {k6}, K11 {k11}, K12 {k12}: "
+                                 "not K4 == K5 == K7 == K8 == K9 == K10 >= "
+                                 "K1, K6 == K11, K12")
 
 
 def _api_extra():
@@ -1911,6 +2012,7 @@ def parallel_paths(pcm, stream: bytes, expect_quad: int) -> dict:
 GPU_TEST_FILES = ("tests/test_torch_pack_cuda.py",
                   "tests/test_torch_assemble_cuda.py",
                   "tests/test_torch_search_cuda.py",
+                  "tests/test_torch_frontend_cuda.py",
                   "tests/test_torch_rice_cuda.py",
                   "tests/test_torch_restore.py",
                   "tests/test_torch_api_cuda.py",
@@ -1955,7 +2057,7 @@ def program_info(progs) -> list:
     return out
 
 
-def call_times(fn, runs: int = 5) -> dict:
+def call_times(fn, runs: int = 5, traces: int = 3) -> dict:
     """One call of `fn` on the card, after a warm call: the medians over
     `runs` calls of its host ms (the call alone: the time to queue its
     work), its wall ms (the call and a synchronize) and its event ms (CUDA
@@ -1963,7 +2065,10 @@ def call_times(fn, runs: int = 5) -> dict:
     included); then, from torch.profiler over one call, the kernels it
     runs and their device ms summed (the card's busy time).  A call of
     thousands of kernels fills the launch queue, so they cannot be queued
-    behind a sleep kernel as queued_device_ms does."""
+    behind a sleep kernel as queued_device_ms does.  CUPTI now and then
+    drops some or all of a trace's kernel records, so the call is traced
+    `traces` times and the trace with the most kernels is kept (every
+    trace's count is returned beside it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1982,22 +2087,26 @@ def call_times(fn, runs: int = 5) -> dict:
         host.append((t1 - t0) * 1e3)
         wall.append((t2 - t0) * 1e3)
         event.append(a.elapsed_time(b))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
+    seen = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        seen.append((sum(e.count for e in device),
+                     sum(_device_us(e, True) for e in device) / 1e3))
+    kernels_, busy = max(seen)
     return {"host_ms": statistics.median(host),
             "wall_ms": statistics.median(wall),
             "event_ms": statistics.median(event),
-            "kernels": sum(e.count for e in device),
-            "device_busy_ms": sum(_device_us(e, True) for e in device)
-            / 1e3}
+            "kernels": kernels_, "device_busy_ms": busy,
+            "kernels_each_trace": [k for k, _ in seen]}
 
 
 def compiled_encode(pcm, track_keys: dict) -> dict:
     """Phase 11.  Raises AssertionError on the first check that fails.
-    Returns each path's launches of K1 and K4-K9 (K2 and K3: none),
+    Returns each path's launches of K1 and K4-K12 (K2 and K3: none),
     counted from 0 just before it and read just after."""
     import numpy as np
     import torch
@@ -2021,12 +2130,13 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
             x, encoder_mod._frame_numbers(first, x.shape[0], dev), cfg, n,
             layout, "kernel")
 
-    def hold(label, calls, graph_fn, ops_fn, lpc=True):
+    def hold(label, calls, graph_fn, ops_fn, lpc=True, mid_side=True):
         """Three calls of one key, each on its own inputs: the ops, the
         capture, a replay.  Each output must equal the ops form's on the
-        same inputs, and the counts of K1, K4-K9 must move by the graph's
-        launches on each replay (K4, K5, K7, K8 and K9 once, K6 once where
-        the preset has LPC)."""
+        same inputs, and the counts of K1, K4-K12 must move by the graph's
+        launches on each replay (K4, K5, K7, K8, K9 and K10 once, K6 and
+        K11 once where the preset has LPC, K12 once where it has the
+        mid-side search)."""
         before = set(progs.graphs)
         steps = []
         torch.cuda.synchronize()
@@ -2049,13 +2159,17 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
         held = dict.fromkeys(KERNEL_MODULES, 0)
         held.update(new[0].kernel_launches)
         once = ("assemble_fields", "frame_crc", "rice_cost",
-                "candidate_residuals", "select_realize")
+                "candidate_residuals", "select_realize",
+                "channel_candidates")
         if steps != [held] * 3 or any(held[k] != 1 for k in once) \
-                or held["lpc_coeffs"] != int(lpc):
+                or held["lpc_coeffs"] != int(lpc) \
+                or held["window_autoc"] != int(lpc) \
+                or held["assign_channels"] != int(mid_side):
             raise AssertionError(f"{label}: the kernels counted {steps}, "
                                  f"expected {held} a call (the graph's; "
-                                 "K4, K5, K7, K8 and K9 once, K6 once with "
-                                 "LPC)")
+                                 "K4, K5, K7, K8, K9 and K10 once, K6 and "
+                                 "K11 once with LPC, K12 once with the "
+                                 "mid-side search)")
         launches[label] = {name: sum(st[name] for st in steps)
                            for name in KERNEL_MODULES}
         emit({"phase": "compiled", "case": label, "identical": True,
@@ -2074,7 +2188,7 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
                  lambda x, lo, cfg=cfg: encoder_mod.encode_batch(x, lo, cfg,
                                                                  N),
                  lambda x, lo, cfg=cfg: ops(x, lo, cfg),
-                 lpc=cfg.max_lpc_order > 0)
+                 lpc=cfg.max_lpc_order > 0, mid_side=cfg.do_mid_side)
     cfg5 = cfgs[5]
     fw = encoder_mod.default_fetch_words(N, 2, 16)
     hold("-5, the trimmed 17-frame batch",
@@ -2126,14 +2240,10 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
                 raise AssertionError(f"shard {i} of the batch at {lo} "
                                      "differs from the ops")
     launches["four shard entries, 3 calls"] = c
-    if any(c[k] != 3 * SHARD_ENTRIES for k in ("pack_fields64",
-                                                  "assemble_fields",
-                                                  "frame_crc", "lpc_coeffs",
-                                                  "rice_cost",
-                                                  "candidate_residuals",
-                                                  "select_realize")):
+    if any(c[k] != 3 * SHARD_ENTRIES for k in KERNEL_MODULES
+           if k not in ("rice_codes", "restore")):
         raise AssertionError(f"four shard entries, 3 calls: {c}, expected "
-                             f"K1, K4-K9 {3 * SHARD_ENTRIES} times")
+                             f"K1, K4-K12 {3 * SHARD_ENTRIES} times")
     emit({"phase": "compiled", "case": "four shard entries of one card",
           "identical": True, "launches": c})
 
@@ -2293,7 +2403,8 @@ def main() -> int:
         from flac_tpu_torch import encoder as encoder_mod
         from flac_tpu_torch.models import subframe
         from flac_tpu_torch.ops import assemble_cuda, assemble_synth, \
-            bitpack, bitunpack, lpc_cuda, pack_cuda, residuals_cuda, \
+            assign_cuda, autoc_cuda, bitpack, bitunpack, candidates_cuda, \
+            frontend_synth, lpc_cuda, pack_cuda, residuals_cuda, \
             restore_cuda, rice_cost_cuda, rice_cuda, seal_cuda, \
             search_synth, select_cuda
     except ImportError as e:
@@ -2349,7 +2460,13 @@ def main() -> int:
                  reports["candidate_residuals"],
                  "candidate_residuals_kernel"),
              "select_realize": ptxas_usage(reports["select_realize"],
-                                           "select_realize_kernel")}
+                                           "select_realize_kernel"),
+             "channel_candidates": ptxas_usage(
+                 reports["channel_candidates"], "channel_candidates_kernel"),
+             "window_autoc": ptxas_usage(reports["window_autoc"],
+                                         "window_autoc_kernel"),
+             "assign_channels": ptxas_usage(reports["assign_channels"],
+                                            "assign_channels_kernel")}
     # K3's dynamic shared memory (its rings), by the kernel's own count and
     # by the host mirror, for each residual width, narrow and wide
     k3_lib = restore_cuda._library()
@@ -2385,6 +2502,16 @@ def main() -> int:
         return fail(f"one of K8's five forms or K9's two is missing: "
                     f"{usage['candidate_residuals']} "
                     f"{usage['select_realize']}")
+    # K10: int16 and int32 uploads x (mid-side, the 33-bit side, the
+    # channels passing through); K11: int32 and int64 signals x lag
+    # templates 8, 12, 32; K12: int32 and int64 signals
+    if len(usage["channel_candidates"]) != 6 \
+            or len(usage["window_autoc"]) != 2 * len(
+                autoc_cuda.TEMPLATE_LAGS) \
+            or len(usage["assign_channels"]) != 2:
+        return fail(f"one of K10's six forms, K11's six or K12's two is "
+                    f"missing: {usage['channel_candidates']} "
+                    f"{usage['window_autoc']} {usage['assign_channels']}")
     if any(a != b or a > 232448 for a, b in k3_smem.values()):
         return fail(f"K3's dynamic shared memory differs from the host "
                     f"mirror or passes 227 KB: {k3_smem}")
@@ -2486,10 +2613,11 @@ def main() -> int:
           "frame_bytes": int((tk // 8).sum())})
     if not chain_ok:
         return fail("the chain K4 -> K1 -> K5 differs from the plain chain")
-    # K6-K9 on the corners, then on the search inputs of real batches:
-    # -5 and -8 (64 frames of the track's recipe), the 33-bit clip (64
-    # blocks: int64 signals, RICE2) and -8 with -e -p (8 frames)
-    search_err = dict.fromkeys(SEARCH_STAGES, 0)
+    # K6-K12 on the corners, then on their inputs in the ops form of real
+    # batches: -5 and -8 (64 frames of the track's recipe), the 33-bit clip
+    # (64 blocks: int64 signals, RICE2), -8 with -e -p (8 frames) and -4
+    # (64 frames: the loose path)
+    search_err = dict.fromkeys([*SEARCH_STAGES, *FRONT_STAGES], 0)
     track = signals.make_test_signal(64 * 4096, seed=180)
     hi = hires_clip()
     real_cfgs = {
@@ -2502,7 +2630,9 @@ def main() -> int:
             bits_per_sample=32).resolve(), hi, 64),
         "-8 -e -p, 8 frames": (EncoderConfig.from_preset(
             8, blocksize=4096, do_exhaustive_model_search=True,
-            do_qlp_coeff_prec_search=True).resolve(), track, 8)}
+            do_qlp_coeff_prec_search=True).resolve(), track, 8),
+        "-4 (loose mid-side), 64 frames": (EncoderConfig.from_preset(
+            4, blocksize=4096).resolve(), track, 64)}
 
     # each stage's kernel name, its kernel id, its dispatch and its plain
     # version
@@ -2514,13 +2644,28 @@ def main() -> int:
               "k7": ("rice_cost", "K7", subframe._rice_cost,
                      subframe._rice_cost_plain),
               "k9": ("select_realize", "K9", subframe.select_and_realize,
-                     subframe.select_and_realize_plain)}
+                     subframe.select_and_realize_plain),
+              "k10": ("channel_candidates", "K10"),
+              "k11": ("window_autoc", "K11"),
+              "k12": ("assign_channels", "K12")}
 
     def search_cases():
-        """(label, "k6", "k8", "k7" or "k9", the arguments on the card,
-        the case's configuration or None), made one at a time, so that
-        no case's tensors outlive its comparison (they would count in the
-        later phases' peak memory)"""
+        """(label, "k6" to "k12", the arguments on the card, the case's
+        configuration or None), made one at a time, so that no case's
+        tensors outlive its comparison (they would count in the later
+        phases' peak memory)"""
+        for label, case in frontend_synth.candidate_cases():
+            a10 = frontend_synth.as_candidate_inputs(case, "cuda")
+            yield f"corner: {label}", "k10", a10, a10[1]
+        for label, case in frontend_synth.autoc_cases():
+            yield (f"corner: {label}", "k11",
+                   frontend_synth.as_autoc_inputs(case, "cuda"), None)
+        for label, case in frontend_synth.assign_cases():
+            yield (f"corner: {label}", "k12",
+                   (*frontend_synth.as_assign_inputs(case, "cuda"),
+                    EncoderConfig(
+                        limit_min_bitrate=case["limit_min_bitrate"]), True),
+                   None)
         for label, case in search_synth.lpc_cases():
             yield (f"corner: {label}", "k6",
                    search_synth.as_lpc_inputs(case, "cuda"), case["cfg"])
@@ -2535,14 +2680,24 @@ def main() -> int:
                    search_synth.as_select_inputs(case, "cuda"), None)
         for label, (cfg_r, src, frames) in real_cfgs.items():
             seen = real_search(cfg_r, src, frames)
-            for key in SEARCH_STAGES:
+            # the encoder takes 16-bit blocks as uploaded: int16
+            a10 = ((seen["k10"][0].to(torch.int16), *seen["k10"][1:])
+                   if cfg_r.bits_per_sample <= 16 else None)
+            for key in [*SEARCH_STAGES, *FRONT_STAGES]:
                 yield label, key, seen.pop(key), cfg_r
+            if a10 is not None:
+                yield f"{label}, int16 upload", "k10", a10, cfg_r
     for label, which, a_s, cfg_s in search_cases():
-        name, kid, kern_fn, plain_fn = stages[which]
-        ok, err = search_compare(kern_fn, plain_fn, a_s)
+        if which in FRONT_STAGES:
+            name, kid = stages[which]
+            ok, err = front_compare(which, a_s)
+        else:
+            name, kid, kern_fn, plain_fn = stages[which]
+            ok, err = search_compare(kern_fn, plain_fn, a_s)
         search_err[which] = max(search_err[which], err)
         emit({"phase": "kernels", "kernel": name, "case": label,
-              "input_shape": list(a_s[0].shape),
+              "input_shape": list(a_s[1 if which == "k12" else 0].shape),
+              "input_dtype": str(a_s[1 if which == "k12" else 0].dtype),
               "config": None if cfg_s is None else {
                   k: getattr(cfg_s, k) for k in (
                       "bits_per_sample", "max_lpc_order",
@@ -2613,6 +2768,9 @@ def main() -> int:
     k7_launches = main_counts["rice_cost"]
     k8_launches = main_counts["candidate_residuals"]
     k9_launches = main_counts["select_realize"]
+    k10_launches = main_counts["channel_candidates"]
+    k11_launches = main_counts["window_autoc"]
+    k12_launches = main_counts["assign_channels"]
     pcm_bytes = pcm.size * 2
     enc_mbps = pcm_bytes / 1e6 / wall
     emit({"phase": "main", "preset": -5, "seconds_audio": TRACK_SECONDS,
@@ -2621,7 +2779,8 @@ def main() -> int:
           "compression_ratio": len(stream) / pcm_bytes,
           "launches": {k: main_counts[k] for k in (
               "pack_fields64", "assemble_fields", "frame_crc", "lpc_coeffs",
-              "rice_cost", "candidate_residuals", "select_realize")},
+              "rice_cost", "candidate_residuals", "select_realize",
+              "channel_candidates", "window_autoc", "assign_channels")},
           "encode_program_calls": len(program_calls),
           "calls_by_program": dict(collections.Counter(
               f"{n[0]}, N={n[2]}, {n[3]}" for n in program_calls)),
@@ -2643,6 +2802,12 @@ def main() -> int:
         return fail(f"K8 and K9 launched {k8_launches} and {k9_launches} "
                     f"times on the main path, expected once per encode "
                     f"program call ({len(program_calls)})")
+    if not k10_launches == k11_launches == k12_launches \
+            == len(program_calls):
+        return fail(f"K10, K11 and K12 launched {k10_launches}, "
+                    f"{k11_launches} and {k12_launches} times on the main "
+                    f"path, expected once per encode program call "
+                    f"({len(program_calls)})")
     t0 = time.perf_counter()
     decode_stream_tpu(stream)                                # warm-up
     torch.cuda.synchronize()
@@ -3356,14 +3521,137 @@ def main() -> int:
                        "k9": K9_DESIGN}[key],
             "ptxas": usage[name]})
     k6, k7, k8, k9 = kernels_search
-    del timed_inputs, a67, choice
+
+    # K10 on the track's first 64 frames as StreamEncoder uploads them
+    # (int16), K11 and K12 on their inputs in the ops form of the -5 and -8
+    # batches: device time, the kernel and the plain version through their
+    # dispatch (plain, kernel, kernel, plain), the bound; K11 beside one
+    # grouped float32 conv1d of its windowed rows (a yardstick: other
+    # rounding, and the port never calls it)
+    import torch.nn.functional as F
+    kernels_front = []
+    for name, key, mod, launches_main in (
+            ("channel_candidates", "k10", candidates_cuda, k10_launches),
+            ("window_autoc", "k11", autoc_cuda, k11_launches),
+            ("assign_channels", "k12", assign_cuda, k12_launches)):
+        kern_fn, plain_fn = front_calls(key)
+        shapes = {}
+        for lv in ("-5",) if key == "k10" else ("-5", "-8"):
+            a = timed_inputs[lv][key]
+            if key == "k10":
+                a = (a[0].to(torch.int16), *a[1:])
+            ok, e = front_compare(key, a)
+            if not ok:
+                return fail(f"{name} differs from its plain version on the "
+                            f"{lv} batch")
+            search_err[key] = max(search_err[key], e)
+            runs = [cuda_time_ms(lambda f=f, a=a: f(*a))
+                    for f in (plain_fn, kern_fn, kern_fn, plain_fn)]
+            dev = kernel_device_ms(lambda a=a: kern_fn(*a), f"{name}_kernel")
+            library = {}
+            if key == "k10":
+                pcm10, cfg10 = a
+                B10, C10, N10 = pcm10.shape
+                loose10 = candidates_cuda.forms(C10, cfg10)[2]
+                x10 = plain_fn(*a)[0]
+                CH10 = x10.shape[1]
+                # each input read once (the uploaded samples), each output
+                # written once (the candidates, bps_eff, wasted, the loose
+                # assignment); K10_OPS_PER_SAMPLE a sample pair
+                nbytes = (pcm10.numel() * pcm10.element_size()
+                          + x10.numel() * x10.element_size()
+                          + 2 * B10 * CH10 * 4 + (B10 * 4 if loose10 else 0))
+                nops = B10 * N10 * K10_OPS_PER_SAMPLE
+                extra = {"frames": B10, "N": N10, "input_dtype":
+                         str(pcm10.dtype), "candidates": CH10,
+                         "ctas": candidates_cuda.ctas(B10, C10, cfg10),
+                         "staged": candidates_cuda.staged(C10, N10, cfg10)}
+            elif key == "k11":
+                x11, w11, c11, O11 = a
+                B11, CH11, N11 = x11.shape
+                W11, A11 = w11.shape[0], c11.shape[0]
+                rows = B11 * CH11
+                # each input read once (x, the windows, the combine), the
+                # output written once; the float32 fmas these rows need (a
+                # product a sample and lag inside the row), two
+                # operations each
+                nbytes = (x11.numel() * x11.element_size() + w11.numel() * 4
+                          + c11.numel() * 8 + rows * A11 * (O11 + 1) * 8)
+                products = rows * W11 * sum(N11 - l for l in range(O11 + 1))
+                nops = 2 * products
+                d = (x11.float()[..., None, :] * w11).reshape(
+                    1, rows * W11, N11)
+                d_in = F.pad(d, (0, O11))
+                d_w = d.reshape(rows * W11, 1, N11)
+                library = {"library_ms": cuda_time_ms(
+                    lambda: F.conv1d(d_in, d_w, groups=rows * W11)),
+                    "library_call": f"F.conv1d([1, {rows * W11}, "
+                                    f"{N11 + O11}] float32, "
+                                    f"[{rows * W11}, 1, {N11}], "
+                                    f"groups={rows * W11})"}
+                del d, d_in, d_w
+                extra = {"rows": rows, "N": N11, "windows": W11,
+                         "apodizations": A11, "lags": O11 + 1,
+                         "products": products,
+                         "template_lag": autoc_cuda.template_lag(O11)}
+            else:
+                choice12, x12, loose12 = a[:3]
+                B12, _, N12 = x12.shape
+                P12 = choice12.params.shape[-1]
+                xs = x12.element_size()
+                # the four candidates' bits (the totals) or the loose
+                # assignment read once; a chosen candidate's fields and
+                # rows read once and written once a stream channel
+                per_channel = (8 * 4 + 1 + 32 * 4 + 32 * xs + P12 * 4
+                               + N12 * 4 + N12 * xs)
+                nbytes = (B12 * 4 * 4 + (B12 * 4 if loose12 is not None
+                                         else 0)
+                          + 2 * 2 * B12 * per_channel + B12 * 4)
+                nops = B12 * 2 * 20
+                extra = {"frames": B12, "N": N12, "partitions": P12,
+                         "ctas": 2 * B12}
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
+            shapes[lv] = {"dev": dev, "kernel_ms": min(runs[1:3]),
+                          "plain_ms": min(runs[0], runs[3]),
+                          "bytes": nbytes, "operations": nops,
+                          "bound_ms": max(bytes_ms, ops_ms),
+                          "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                       else "operations"),
+                          **library, **extra}
+            emit({"phase": "times", "kernel": name, "batch": lv,
+                  "device_ms": dev["ms"], "kernel_ms_runs": runs[1:3],
+                  "plain_ms_runs": [runs[0], runs[3]], "bytes": nbytes,
+                  "operations": nops, **library, **extra})
+        main = shapes["-5"]
+        kernels_front.append({
+            "name": name, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": launches_main,
+            "max_abs_err": search_err[key], **main["dev"],
+            "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            **({"at_-8": {k: (v["ms"] if k == "dev" else v)
+                          for k, v in shapes["-8"].items()}}
+               if "-8" in shapes else {}),
+            "library_ms": main.get("library_ms"),
+            **({"library_call": main["library_call"]} if key == "k11"
+               else {"library_note": {
+                   "k10": "no single PyTorch call forms the channel "
+                          "candidates and their wasted bits",
+                   "k12": "no single PyTorch call picks the assignment "
+                          "and gathers a subframe choice"}[key]}),
+            "design": {"k10": K10_DESIGN, "k11": K11_DESIGN,
+                       "k12": K12_DESIGN}[key],
+            "ptxas": usage[name]})
+    k10, k11, k12 = kernels_front
+    del timed_inputs, a67, choice, a
 
     # ---- 7. where the time goes in a steady encode and decode ----
     short = signals.make_test_signal(10 * RATE, seed=7)
-    encode_ranges = ("flac.search", "flac.lpc_coeffs", "flac.residuals",
-                     "flac.rice", "flac.select", "flac.assign",
-                     "flac.assemble", "flac.fields", "flac.pack",
-                     "flac.seal")
+    encode_ranges = ("flac.candidates", "flac.search", "flac.lpc_coeffs",
+                     "flac.residuals", "flac.rice", "flac.select",
+                     "flac.assign", "flac.assemble", "flac.fields",
+                     "flac.pack", "flac.seal")
     encode_kernels = tuple(ENCODE_KERNEL_RANGES)
     # through the compiled programs (two warm calls: the 43-frame batch
     # and the final block are captured on their second), then op by op,
@@ -3389,7 +3677,7 @@ def main() -> int:
     api = library_api(pcm, stream, expect)
     check_encode_calls("api", api)
     emit({"phase": "api", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9):
+    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12):
         k["launches_library_api"] = {path: c[k["name"]]
                                      for path, c in api.items()}
 
@@ -3398,7 +3686,7 @@ def main() -> int:
     clis = command_lines(pcm, stream)
     check_encode_calls("cli", clis)
     emit({"phase": "cli", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9):
+    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12):
         k["launches_cli"] = {path: c[k["name"]] for path, c in clis.items()}
 
     # ---- 10. the parallel paths and the encoder's pipeline ----
@@ -3406,7 +3694,7 @@ def main() -> int:
     par = parallel_paths(pcm, stream, expect)
     check_encode_calls("parallel", par)
     emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9):
+    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12):
         k["launches_parallel"] = {path: c[k["name"]]
                                   for path, c in par.items()}
     # ---- 11. the compiled encode programs ----
@@ -3414,10 +3702,10 @@ def main() -> int:
     comp = compiled_encode(pcm, track_keys)
     check_encode_calls("compiled", comp)
     emit({"phase": "compiled", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9):
+    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12):
         k["launches_compiled_encode"] = {path: c[k["name"]]
                                          for path, c in comp.items()}
-    emit({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8, k9]})
+    emit({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": dev_info})

@@ -2,14 +2,16 @@
 
 Port of flac_tpu/encoder.py.
 
-  [B, C, N] int32 PCM blocks on the device
-      -> stereo candidates + wasted bits        (models/stereo.py)
-      -> exact candidate grid search + realize  (models/subframe.py: K6
-                                                 the LPC coefficients,
-                                                 K8 the residuals, K7
-                                                 the Rice costs, K9 the
-                                                 select and realize)
-      -> channel assignment argmin              (models/stereo.py)
+  [B, C, N] int16 or int32 PCM blocks on the device
+      -> stereo candidates + wasted bits        (models/stereo.py: K10)
+      -> exact candidate grid search + realize  (models/subframe.py: K11
+                                                 the windowed
+                                                 autocorrelation, K6 the
+                                                 LPC coefficients, K8 the
+                                                 residuals, K7 the Rice
+                                                 costs, K9 the select and
+                                                 realize)
+      -> channel assignment argmin + gathers    (models/stereo.py: K12)
       -> field lists, bit-pack, CRCs            (models/frame.py: K4, K1,
                                                  K5)
       -> [B, W] packed words + lengths
@@ -29,16 +31,18 @@ K2, then K3) and compared with its input before a byte of it is written.
 On a CUDA device encode_batch and encode_batch_trimmed run as compiled
 programs, the counterpart of the reference's jitted ones: a CUDA graph for
 each static key (configuration, shapes, dtypes, layout, packer), captured
-on the key's second call and replayed after that, with K6, K8, K7, K9,
-K4, K1 and K5 inside (_EncodePrograms).  The ops they capture read nothing back from
-the device and copy no constant from host memory on a warm call.
+on the key's second call and replayed after that, with K10, K11, K6, K8,
+K7, K9, K12, K4, K1 and K5 inside (_EncodePrograms).  The ops they
+capture read nothing back from the device and copy no constant from host
+memory on a warm call.
 
-The ops mark their stages as profiler ranges (flac.search, with
-flac.lpc_coeffs, flac.residuals, flac.rice and flac.select inside
-search_and_realize; flac.assign; flac.assemble, with flac.fields,
-flac.pack and flac.seal inside assemble_frames): a few microseconds of host time each while
-torch.profiler is not recording.  A graph replay
-records no range: its kernels show up in a trace on their own.
+The ops mark their stages as profiler ranges (flac.candidates;
+flac.search, with flac.lpc_coeffs, flac.residuals, flac.rice and
+flac.select inside search_and_realize; flac.assign; flac.assemble, with
+flac.fields, flac.pack and flac.seal inside assemble_frames): a few
+microseconds of host time each while torch.profiler is not recording.
+A graph replay records no range: its kernels show up in a trace on their
+own.
 """
 
 from __future__ import annotations
@@ -65,8 +69,9 @@ from .metadata import SeekPoint
 from .models import frame as frame_mod
 from .models import stereo as stereo_mod
 from .models import subframe as subframe_mod
-from .ops import assemble_cuda, lpc_cuda, pack_cuda, residuals_cuda, \
-    rice_cost_cuda, seal_cuda, select_cuda
+from .ops import assemble_cuda, assign_cuda, autoc_cuda, candidates_cuda, \
+    lpc_cuda, pack_cuda, residuals_cuda, rice_cost_cuda, seal_cuda, \
+    select_cuda
 from .ops import lpc as lpc_ops
 from .ref_decoder import DecodedStream, FlacDecodeError
 from .utils.bits import BitWriter
@@ -80,13 +85,16 @@ def _bank_for(cfg: EncoderConfig, blocksize: int):
 # the wrappers of the kernels an encode program launches, by kernel name:
 # each counts a launch recorded during a capture in `captured` and takes a
 # replay's launches through `count_replay`
-COUNTED_KERNELS = {"lpc_coeffs": lpc_cuda,
+COUNTED_KERNELS = {"channel_candidates": candidates_cuda,
+                   "window_autoc": autoc_cuda,
+                   "lpc_coeffs": lpc_cuda,
                    "candidate_residuals": residuals_cuda,
                    "rice_cost": rice_cost_cuda,
                    "select_realize": select_cuda,
                    "pack_fields64": pack_cuda,
                    "assemble_fields": assemble_cuda,
-                   "frame_crc": seal_cuda}
+                   "frame_crc": seal_cuda,
+                   "assign_channels": assign_cuda}
 
 
 class _CapturedProgram:
@@ -217,36 +225,19 @@ def _encode_batch_ops(pcm, frame_numbers, cfg: EncoderConfig,
     and the form that runs on the CPU.  frame_numbers: [B] int64 on pcm's
     device.  Reads nothing back from the device and copies nothing from
     host memory once its constants are on the device (device.constant)."""
-    pcm = pcm.to(torch.int32)
-    B = pcm.shape[0]
-    dev = pcm.device
+    if pcm.dtype not in (torch.int16, torch.int32):
+        pcm = pcm.to(torch.int32)      # K10 reads int16 and int32 as they are
     bank = _bank_for(cfg, blocksize)
+    with record_function("flac.candidates"):
+        x, bps_eff, wasted, *loose = stereo_mod.build_channel_candidates(
+            pcm, cfg)
     with record_function("flac.search"):
-        x, bps_eff, wasted = stereo_mod.build_channel_candidates(pcm, cfg)
         choice = subframe_mod.search_and_realize(x, bps_eff, wasted, cfg,
                                                  bank)
     with record_function("flac.assign"):
-        if pcm.shape[1] == 2 and cfg.do_mid_side:
-            if cfg.loose_mid_side:
-                assignment, ch_index = stereo_mod.loose_assignment(pcm, cfg)
-            else:
-                assignment, ch_index = stereo_mod.select_assignment(
-                    choice.bits, cfg)
-            choice = stereo_mod.gather_channels(choice, ch_index)
-            signal = stereo_mod.gather_channels(x, ch_index)
-        else:
-            assignment = torch.zeros((B,), dtype=torch.int32, device=dev)
-            signal = x
-        if cfg.limit_min_bitrate:
-            # force the last subframe of an all-constant frame to verbatim
-            # so frames never shrink to a few bytes
-            # (stream_encoder.c:3874-3879)
-            all_const = (choice.type_ == fmt.SUBFRAME_TYPE_CONSTANT).all(
-                dim=1)
-            new_type = choice.type_.clone()
-            new_type[:, -1] = torch.where(
-                all_const, fmt.SUBFRAME_TYPE_VERBATIM, choice.type_[:, -1])
-            choice = choice._replace(type_=new_type)
+        assignment, choice, signal = stereo_mod.assign_channels(
+            choice, x, loose[0] if loose else None, cfg,
+            pcm.shape[1] == 2 and cfg.do_mid_side)
     with record_function("flac.assemble"):
         return frame_mod.assemble_frames(choice, signal, assignment,
                                          frame_numbers, cfg, blocksize,
@@ -259,7 +250,8 @@ def encode_batch(pcm, first_frame_number, cfg: EncoderConfig,
     """Encode a batch of equal-size blocks into packed FLAC frames.
 
     pcm: [B, C, N] int32 tensor (N == blocksize) on the encoding device;
-        int16 is widened on the device, inside the program
+        int16 is widened on the device, inside the program (K10 reads it
+        as it is)
     first_frame_number: int, or [B] int64 tensor — frame index of pcm[0]
         (the frames are numbered first_frame_number + arange(B))
     cfg: a resolved EncoderConfig

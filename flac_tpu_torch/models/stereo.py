@@ -4,14 +4,22 @@ Port of flac_tpu/models/stereo.py (the reference's process_subframes_,
 stream_encoder.c:3747-3971): build the four channel candidates (left,
 right, mid, side), compute wasted bits per candidate, and after the
 subframe search pick the channel assignment with the smallest total.
+
+On a CUDA device the two stages are hand-written kernels: the candidates
+(build_channel_candidates: K10, ops/candidates_cuda.py) and the
+assignment with its gathers (assign_channels: K12, ops/assign_cuda.py);
+their plain versions (build_channel_candidates_plain, loose_assignment,
+assign_channels_plain) run on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import format as fmt
 from ..config import EncoderConfig
 from ..device import constant
+from ..ops import assign_cuda, candidates_cuda
 from ..ops.bitops import bit_length, or_reduce
 
 # channel-candidate indices on the CH axis
@@ -46,7 +54,26 @@ def _channel_bps(bps: int, C: int, mid_side: bool,
 
 
 def build_channel_candidates(pcm, cfg: EncoderConfig):
-    """pcm [B, C, N] int32 -> (candidate signals, per-candidate bps, wasted).
+    """pcm [B, C, N] int16 or int32 -> (candidate signals, per-candidate
+    bps, wasted), and on the loose mid-side path (stereo, do_mid_side and
+    loose_mid_side) the loose assignment [B] int32 after them (0
+    independent, 3 mid-side: loose_assignment's).
+
+    Dispatches on pcm's device: the plain versions for a CPU tensor,
+    kernel K10 (ops/candidates_cuda.py) for a CUDA tensor (it launches or
+    raises; there is no fallback).
+    """
+    if pcm.device.type == "cuda":
+        return candidates_cuda.channel_candidates(pcm, cfg)
+    out = build_channel_candidates_plain(pcm, cfg)
+    if candidates_cuda.forms(pcm.shape[1], cfg)[2]:
+        out += (loose_assignment(pcm.to(torch.int32), cfg)[0],)
+    return out
+
+
+def build_channel_candidates_plain(pcm, cfg: EncoderConfig):
+    """pcm [B, C, N] int16 or int32 -> (candidate signals, per-candidate
+    bps, wasted), op by op (K10's plain version).
 
     For stereo with mid-side search: [B, 4, N] (L, R, M, S), bps
     [bps, bps, bps, bps+1]; otherwise the channels pass through.
@@ -58,6 +85,7 @@ def build_channel_candidates(pcm, cfg: EncoderConfig):
     rewrite), and the wasted-bit count comes from the int32 wrap of each
     candidate, as the reference's does.
     """
+    pcm = pcm.to(torch.int32)
     B, C, N = pcm.shape
     bps = cfg.bits_per_sample
     if C == 2 and cfg.do_mid_side and cfg.max_subframe_bps > 32:
@@ -117,11 +145,15 @@ def select_assignment(bits, cfg: EncoderConfig):
         bits[:, M] + bits[:, S],     # mid-side
     ], dim=1)
     assignment = totals.argmin(dim=1).to(torch.int32)
-    table = constant("assignment channels", bits.device,
-                     lambda dev: torch.tensor([_ASSIGN_CH0, _ASSIGN_CH1],
-                                              dtype=torch.int32,
-                                              device=dev).T)   # [4, 2]
-    return assignment, table[assignment.long()]
+    return assignment, _assignment_table(bits.device)[assignment.long()]
+
+
+def _assignment_table(device) -> torch.Tensor:
+    """[4, 2] int32: each assignment's (ch0, ch1) candidate rows."""
+    return constant("assignment channels", device,
+                    lambda dev: torch.tensor([_ASSIGN_CH0, _ASSIGN_CH1],
+                                             dtype=torch.int32,
+                                             device=dev).T)
 
 
 def _pick(a, ch_index):
@@ -145,3 +177,66 @@ def gather_channels(choice, ch_index):
         return _pick(choice, ch_index)
     picked = [_pick(a, ch_index) for a in choice]
     return choice._make(picked) if hasattr(choice, "_make") else tuple(picked)
+
+
+def assign_channels(choice, x, loose, cfg: EncoderConfig, mid_side: bool):
+    """The channel assignment of every frame, the chosen candidates'
+    subframes and signals, and the limit_min_bitrate rule
+    (flac_tpu/encoder.py:62-80).
+
+    choice: the SubframeChoice of every channel candidate ([B, CH, ...])
+    x:      [B, CH, N] candidate signals (int32, or int64 on the 33-bit
+            side)
+    loose:  [B] int32 loose assignment (build_channel_candidates' fourth
+            output) on the loose mid-side path, else None
+    mid_side: the candidates are L, R, M, S (stereo with the mid-side
+            search), else they are the channels
+    Returns (assignment [B] int32, the SubframeChoice and the signal
+    [B, C, N] of the stream's channels).
+
+    On the stereo mid-side path it dispatches on x's device: the plain
+    version for a CPU tensor, kernel K12 (ops/assign_cuda.py) for a CUDA
+    tensor (it launches or raises; there is no fallback).  Elsewhere the
+    candidates are the channels: an assignment of zeros and the
+    limit_min_bitrate rule (_pass_channels).
+    """
+    if not mid_side:
+        return _pass_channels(choice, x, cfg)
+    if x.device.type == "cuda":
+        assignment, *fields, signal = assign_cuda.assign_channels(
+            choice, x, loose, cfg.limit_min_bitrate)
+        return assignment, choice._make(fields), signal
+    return assign_channels_plain(choice, x, loose, cfg)
+
+
+def _limit_min_bitrate(choice, cfg: EncoderConfig):
+    """Force the last subframe of an all-constant frame to verbatim so
+    that frames never shrink to a few bytes (stream_encoder.c:3874-3879)."""
+    if not cfg.limit_min_bitrate:
+        return choice
+    all_const = (choice.type_ == fmt.SUBFRAME_TYPE_CONSTANT).all(dim=1)
+    new_type = choice.type_.clone()
+    new_type[:, -1] = torch.where(
+        all_const, fmt.SUBFRAME_TYPE_VERBATIM, choice.type_[:, -1])
+    return choice._replace(type_=new_type)
+
+
+def _pass_channels(choice, x, cfg: EncoderConfig):
+    """assign_channels where there is no mid-side search."""
+    assignment = torch.zeros((x.shape[0],), dtype=torch.int32,
+                             device=x.device)
+    return assignment, _limit_min_bitrate(choice, cfg), x
+
+
+def assign_channels_plain(choice, x, loose, cfg: EncoderConfig):
+    """assign_channels on the stereo mid-side path, op by op (K12's plain
+    version): the loose assignment or select_assignment's argmin, both
+    gather_channels, the limit_min_bitrate rule."""
+    if loose is not None:
+        assignment = loose
+        ch_index = _assignment_table(x.device)[loose.long()]
+    else:
+        assignment, ch_index = select_assignment(choice.bits, cfg)
+    choice = gather_channels(choice, ch_index)
+    return assignment, _limit_min_bitrate(choice, cfg), \
+        gather_channels(x, ch_index)

@@ -8,8 +8,9 @@ computed for all of them at once, and one argmin (first index wins ties)
 picks the winner.  The reference evaluates one model at a time
 (process_subframe_, stream_encoder.c:4045-4290).
 
-On a CUDA device each stage after the autocorrelation is a hand-written
-kernel: the LPC coefficient stage (lpc_candidates: K6, ops/lpc_cuda.py),
+On a CUDA device each stage is a hand-written kernel: the windowed
+autocorrelation (lpc.window_autocorrelation: K11, ops/autoc_cuda.py), the
+LPC coefficient stage (lpc_candidates: K6, ops/lpc_cuda.py),
 the candidate residuals (candidate_residuals: K8, ops/residuals_cuda.py),
 the Rice cost table (_rice_cost: K7, ops/rice_cost_cuda.py) and the
 select and realize (select_and_realize: K9, ops/select_cuda.py); their
@@ -439,8 +440,9 @@ def search_and_realize(x, bps_eff, wasted, cfg: EncoderConfig,
     bps_eff: [B, CH] int32 — subframe bps after wasted-bit reduction
     wasted:  [B, CH] int32
 
-    Its stages are profiler ranges: flac.lpc_coeffs (windows,
-    autocorrelation, then lpc_candidates: K6), flac.residuals
+    Its stages are profiler ranges: flac.lpc_coeffs (the windowed
+    autocorrelation, window_autocorrelation: K11, then lpc_candidates:
+    K6), flac.residuals
     (candidate_residuals: K8), flac.rice (the Rice cost table,
     _rice_cost: K7) and flac.select (the argmin over every candidate and
     the realize, select_and_realize: K9).
@@ -456,10 +458,8 @@ def search_and_realize(x, bps_eff, wasted, cfg: EncoderConfig,
     if O > 0:
         with record_function("flac.lpc_coeffs"):
             windows, combine = bank.on(dev)            # [W, N], [A, W] f64
-            xw = x.to(torch.float32)[..., None, :] * windows  # [B,CH,W,N]
-            autoc_w = lpc_ops.autocorrelation(xw, O)   # [B,CH,W,O+1] f64
-            autoc = torch.einsum("aw,...wl->...al", combine,
-                                 autoc_w)              # [B,CH,A,O+1]
+            autoc = lpc_ops.window_autocorrelation(
+                x, windows, combine, O)                # [B,CH,A,O+1] f64
             qc, qshift, cand_order, prec, cand_ok = lpc_candidates(
                 autoc, bps_eff, N, cfg)
     else:

@@ -2,7 +2,9 @@
 
 Port of the encode half of flac_tpu/ops/lpc.py (the reference's
 src/libFLAC/lpc.c and window.c): the window bank is a precomputed host
-tensor; autocorrelation is a blocked Gram product; Levinson-Durbin runs all
+tensor; the encoder's windowed autocorrelation (window_autocorrelation:
+K11 on the card, autocorrelation_plain on the CPU) sums flac_tpu's blocked
+Gram product in a fixed order; Levinson-Durbin runs all
 orders as a Python loop over the order, vectorized over every subframe;
 quantization mirrors the reference's error-feedback rounding
 (lpc.c:220-314) as a 32-step loop.  Levinson's inner sum runs in the
@@ -24,6 +26,7 @@ import torch
 
 from ..device import constant
 from ..format import MAX_LPC_ORDER, SUBFRAME_LPC_QLP_SHIFT_LEN
+from . import autoc_cuda
 
 MAX_SHIFT = (1 << (SUBFRAME_LPC_QLP_SHIFT_LEN - 1)) - 1   # 15
 MIN_SHIFT = -MAX_SHIFT - 1                                 # -16
@@ -139,6 +142,114 @@ def autocorrelation_gram(windowed, max_lag: int, acc_dtype=torch.float64):
     outs = [torch.diagonal(P, offset=lag, dim1=-2, dim2=-1)
             .to(acc_dtype).sum(dim=-1) for lag in range(L + 1)]
     return torch.stack(outs, dim=-1)
+
+
+# window_autocorrelation's arithmetic, as K11 runs it (csrc/window_autoc.cu):
+# column t of AUTOC_COLUMNS sums its blocks' products, the columns meet in
+# a tree a warp of AUTOC_WARP columns at a time
+AUTOC_COLUMNS = 128
+AUTOC_WARP = 32
+
+
+def window_autocorrelation(x, windows, combine, max_lag: int):
+    """The autocorrelations of every apodization of every signal row: each
+    window's autocorrelation of the windowed row, combined by `combine`.
+
+    x:       [B, CH, N] int32 (int64 on the 33-bit side)
+    windows: [W, N] float32 (ApodizationBank.on)
+    combine: [A, W] float64
+    Returns autoc [B, CH, A, max_lag + 1] float64.
+
+    Dispatches on x's device: autocorrelation_plain for a CPU tensor,
+    kernel K11 (ops/autoc_cuda.py) for a CUDA tensor (it launches or
+    raises; there is no fallback).  Both follow autocorrelation_plain's
+    order of operations, so they agree bit for bit.
+    """
+    if x.device.type == "cuda":
+        return autoc_cuda.window_autoc(x, windows, combine, max_lag)
+    return autocorrelation_plain(x, windows, combine, max_lag)
+
+
+def _fma_float32(a, b, c):
+    """a * b + c rounded once to float32 (the fused multiply-add of a
+    float32 pipe), for float32 values held in float64 tensors: the
+    product is exact in float64, TwoSum gives the sum's rounding error e,
+    and e breaks the one case where rounding the float64 sum to float32 is
+    not rounding the exact value: a sum that lands on a midpoint between
+    two float32 values (every such midpoint is a float64 value, so the
+    exact value is on the float64 sum's side of any other)."""
+    p = a * b
+    s = p + c
+    sb = s - p
+    e = (p - (s - sb)) + (c - sb)
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    toward = torch.where(s > r64, torch.inf, -torch.inf).to(torch.float32)
+    other = torch.nextafter(r, toward)
+    tie = (r64 != s) & (s - r64 == other.to(torch.float64) - s)
+    away = tie & (e != 0) & ((e > 0) == (s > r64))
+    return torch.where(away, other, r).to(torch.float64)
+
+
+def autocorrelation_plain(x, windows, combine, max_lag: int):
+    """window_autocorrelation op by op (K11's plain version), in the order
+    K11 follows bit for bit.  It is flac_tpu's blocked Gram product
+    (autocorrelation_mxu: P[i, i + l] = the float32 sum over the blocks b
+    of d[bF + i] * d[bF + i + l], F = 128, then the diagonal summed in
+    float64) with every sum in a fixed order:
+
+    - d[w, n] = float32(x[n]) * windows[w, n], rounded to float32, zero
+      past N;
+    - column t of AUTOC_COLUMNS: p = 0, then for ascending b,
+      p = fma(d[n], d[n + l], p) rounded once to float32 with
+      n = b * AUTOC_COLUMNS + t (the float32 multiply-add of a matrix
+      product, as the BLAS and XLA sum flac_tpu's Gram product;
+      _fma_float32 emulates it exactly);
+    - autoc_w[l] = a fixed tree over the columns' float64(p): the halves
+      of each warp of AUTOC_WARP columns (pairs t, t + 16, then t + 8,
+      ...), then the halves of the warps' sums;
+    - autoc[a] = the sum over ascending w of combine[a, w] * autoc_w[w],
+      each product and sum rounded in float64.
+
+    Its error is flac_tpu's kind: float32 sums over the N / 128 blocks of
+    a column (~1e-5 of autoc[0] at most, flac_tpu's docstring).  Summing
+    in float64 instead (libFLAC's lpc.c:110-174) would be closer to the
+    exact value, but it moves the stream tests' LPC choices away from
+    flac_tpu's on their borderline frames, and so does a multiply and an
+    add each rounded to float32.
+    """
+    T, V = AUTOC_COLUMNS, AUTOC_WARP
+    lead = tuple(x.shape[:-1])
+    N = x.shape[-1]
+    W = windows.shape[0]
+    d = x.to(torch.float32)[..., None, :] * windows     # [..., W, N]
+    K = -(-N // T)
+    d = torch.nn.functional.pad(d, (0, K * T - N + max_lag)).to(
+        torch.float64)
+    lags = []
+    for lag in range(max_lag + 1):
+        a = d[..., :K * T].reshape(lead + (W, K, T))
+        b = d[..., lag:lag + K * T].reshape(lead + (W, K, T))
+        acc = torch.zeros_like(a[..., 0, :])
+        for k in range(K):
+            acc = _fma_float32(a[..., k, :], b[..., k, :], acc)
+        acc = acc.reshape(lead + (W, T // V, V))
+        h = V // 2
+        while h:
+            acc = acc[..., :h] + acc[..., h:2 * h]
+            h //= 2
+        acc = acc[..., 0]
+        h = T // V // 2
+        while h:
+            acc = acc[..., :h] + acc[..., h:2 * h]
+            h //= 2
+        lags.append(acc[..., 0])
+    autoc_w = torch.stack(lags, dim=-1)                 # [..., W, O+1]
+    out = torch.zeros(lead + (combine.shape[0], max_lag + 1),
+                      dtype=torch.float64, device=x.device)
+    for w in range(W):
+        out = out + combine[:, w, None] * autoc_w[..., None, w, :]
+    return out
 
 
 # ---------------------------------------------------------------------------

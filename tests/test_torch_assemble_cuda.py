@@ -166,9 +166,10 @@ def test_a_replay_adds_the_kernels_launches(cuda, monkeypatch, layout):
             layout, "kernel")
         assert _same(got, want), f"call {call}"
     k1 = 1 if layout == "auto" else 0
-    expect = {"lpc_coeffs": 1, "candidate_residuals": 1, "rice_cost": 1,
+    expect = {"channel_candidates": 1, "window_autoc": 1, "lpc_coeffs": 1,
+              "candidate_residuals": 1, "rice_cost": 1,
               "select_realize": 1, "pack_fields64": k1,
-              "assemble_fields": 1, "frame_crc": 1}
+              "assemble_fields": 1, "frame_crc": 1, "assign_channels": 1}
     # the ops launch; the capture records and replays; replays
     for k, n in expect.items():
         assert [s[k] for s in steps] == [(n, 0), (n, n), (n, 0), (n, 0)], k

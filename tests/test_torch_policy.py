@@ -180,19 +180,21 @@ def test_import_builds_no_native_library_or_kernel():
         "                               'flac_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from flac_tpu_torch import kernels, native\n"
-        "from flac_tpu_torch.ops import (assemble_cuda, lpc_cuda,\n"
-        "    pack_cuda, residuals_cuda, restore_cuda, rice_cost_cuda,\n"
-        "    rice_cuda, seal_cuda, select_cuda)\n"
+        "from flac_tpu_torch.ops import (assemble_cuda, assign_cuda,\n"
+        "    autoc_cuda, candidates_cuda, lpc_cuda, pack_cuda,\n"
+        "    residuals_cuda, restore_cuda, rice_cost_cuda, rice_cuda,\n"
+        "    seal_cuda, select_cuda)\n"
         "print(native._lib is None, kernels.LOADED == {},\n"
         "      pack_cuda._lib is None, rice_cuda._lib is None,\n"
         "      restore_cuda._lib is None, assemble_cuda._lib is None,\n"
         "      seal_cuda._lib is None, lpc_cuda._lib is None,\n"
         "      rice_cost_cuda._lib is None, residuals_cuda._lib is None,\n"
-        "      select_cuda._lib is None)\n")
+        "      select_cuda._lib is None, candidates_cuda._lib is None,\n"
+        "      autoc_cuda._lib is None, assign_cuda._lib is None)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["True"] * 11
+    assert out.stdout.split() == ["True"] * 14
 
 
 def test_tf32_is_off():
