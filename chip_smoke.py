@@ -121,7 +121,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             frames as uploaded (int16), K11 and K12 on their inputs in the
             ops form of the -5 and -8 batches (`ms` at -5, -8 beside it),
             each beside its bound (K10, K12: bytes; K11: the larger of its
-            bytes and its float32 fmas); K11
+            bytes and the float32 fmas of the blocks whose windowed
+            samples are not all zero, `products_nonzero`, with every
+            lag of every sample, `products`, beside it); K11
             beside one grouped float32 conv1d of the windowed rows
             (`library_ms`, a yardstick the port never calls).
 7. profile: torch.profiler over a 10 s encode (through the graphs,
@@ -338,14 +340,20 @@ K8_OPS_PER_LPC_SAMPLE = 5
 # candidate
 K9_OPS_PER_SAMPLE = 2
 K9_OPS_PER_CANDIDATE = 30
-K10_DESIGN = ("a CTA of 512 threads a frame: the rows read once in their "
-              "uploaded type and kept in shared memory, each candidate's OR "
-              "a warp __reduce_or_sync then the warps', __ffs; the shifted "
-              "candidates written with 16-byte stores")
-K11_DESIGN = ("a CTA of 128 threads a row, a thread a Gram column: the "
-              "row staged once in shared memory with 16-byte loads, each "
-              "window's samples formed beside it, each column's float32 "
-              "fmas over its blocks in registers, a float64 shuffle tree, "
+K10_DESIGN = ("a cluster of 2 CTAs of 256 threads a frame, a share of "
+              "the samples a rank: a lane reads 4 samples of each row in "
+              "its uploaded type with one vector load and writes their "
+              "candidates as they are with 16-byte stores, each "
+              "candidate's OR a warp __reduce_or_sync then the warps', "
+              "the shares' ORs into every rank by st.shared::cluster and "
+              "one cluster barrier, __ffs; a candidate whose wasted bits "
+              "are not 0 written again, shifted")
+K11_DESIGN = ("a CTA of 384 threads two rows: the (row, window) pairs' "
+              "windowed samples staged in shared memory (the windows by "
+              "cp.async, every copy in flight at once), a block flagged "
+              "where not all zero; a warp a (row, window, lag part), lane "
+              "j the columns 4j..4j+3, 16-byte shared loads, only the "
+              "flagged blocks; a float64 reduce-scatter tree of shuffles, "
               "the combine in ascending window order")
 K12_DESIGN = ("a CTA of 256 threads a (frame, output channel): the "
               "first-index argmin of the four totals (or the loose "
@@ -366,6 +374,23 @@ ENCODE_KERNEL_RANGES = {"channel_candidates_kernel": "flac.candidates",
                         "assemble_fields_kernel": "flac.fields",
                         "pack_fields64_kernel": "flac.pack",
                         "frame_crc_kernel": "flac.seal"}
+
+
+def k11_products_nonzero(x, windows, O: int) -> int:
+    """K11's products that an exact implementation must compute: for each
+    (row, window), every product d[n] * d[n + l] (n + l < N) whose first
+    factor lies in a block of 128 windowed samples d = float32(x) * w that
+    are not all zero."""
+    import torch
+    import torch.nn.functional as F
+    N = x.shape[-1]
+    K = -(-N // 128)
+    d = x.float()[..., None, :] * windows                # [B, CH, W, N]
+    live = F.pad(d, (0, K * 128 - N)).reshape(d.shape[:-1] + (K, 128)) \
+        .ne(0).any(dim=-1)                              # [B, CH, W, K]
+    n = torch.arange(K * 128, device=x.device).reshape(K, 128)
+    per_block = sum(((n + l) < N).sum(dim=-1) for l in range(O + 1))
+    return int((live.to(torch.int64) * per_block).sum())
 
 
 def k6_chain_ops_before(O: int, cfg) -> int:
@@ -2504,7 +2529,8 @@ def main() -> int:
                     f"{usage['select_realize']}")
     # K10: int16 and int32 uploads x (mid-side, the 33-bit side, the
     # channels passing through); K11: int32 and int64 signals x lag
-    # templates 8, 12, 32; K12: int32 and int64 signals
+    # templates 8 and 12 (a warp every lag) and 32 (parts of 12 lags);
+    # K12: int32 and int64 signals
     if len(usage["channel_candidates"]) != 6 \
             or len(usage["window_autoc"]) != 2 * len(
                 autoc_cuda.TEMPLATE_LAGS) \
@@ -3564,21 +3590,24 @@ def main() -> int:
                 nops = B10 * N10 * K10_OPS_PER_SAMPLE
                 extra = {"frames": B10, "N": N10, "input_dtype":
                          str(pcm10.dtype), "candidates": CH10,
-                         "ctas": candidates_cuda.ctas(B10, C10, cfg10),
-                         "staged": candidates_cuda.staged(C10, N10, cfg10)}
+                         "ctas": candidates_cuda.ctas(B10, C10, cfg10)}
             elif key == "k11":
                 x11, w11, c11, O11 = a
                 B11, CH11, N11 = x11.shape
                 W11, A11 = w11.shape[0], c11.shape[0]
                 rows = B11 * CH11
                 # each input read once (x, the windows, the combine), the
-                # output written once; the float32 fmas these rows need (a
-                # product a sample and lag inside the row), two
-                # operations each
+                # output written once; the float32 fmas these rows need,
+                # two operations each: every product whose first factor
+                # lies in a block of 128 windowed samples that are not all
+                # zero (a block of zeros adds exact zeros, which no exact
+                # implementation must compute); every lag of every
+                # sample beside it
                 nbytes = (x11.numel() * x11.element_size() + w11.numel() * 4
                           + c11.numel() * 8 + rows * A11 * (O11 + 1) * 8)
                 products = rows * W11 * sum(N11 - l for l in range(O11 + 1))
-                nops = 2 * products
+                products_nonzero = k11_products_nonzero(x11, w11, O11)
+                nops = 2 * products_nonzero
                 d = (x11.float()[..., None, :] * w11).reshape(
                     1, rows * W11, N11)
                 d_in = F.pad(d, (0, O11))
@@ -3593,7 +3622,11 @@ def main() -> int:
                 extra = {"rows": rows, "N": N11, "windows": W11,
                          "apodizations": A11, "lags": O11 + 1,
                          "products": products,
-                         "template_lag": autoc_cuda.template_lag(O11)}
+                         "products_nonzero": products_nonzero,
+                         "fma_bound_ms_all_products":
+                             2 * products / NON_TENSOR_OPS_PER_S * 1e3,
+                         "template_lag": autoc_cuda.template_lag(O11),
+                         "plan": autoc_cuda.plan(rows, N11, W11, O11)}
             else:
                 choice12, x12, loose12 = a[:3]
                 B12, _, N12 = x12.shape

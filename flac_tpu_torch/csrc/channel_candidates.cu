@@ -20,16 +20,25 @@
 // first differences in wrapping int32 and the sums in int64 (the plain
 // version's float64 sums are exact integers below 2^53).
 //
-// Design (Hopper): a CTA of 512 threads a frame on the mid-side path (a
-// (frame, channel) otherwise).  The CTA reads the frame's rows once in
-// their uploaded type and keeps them in shared memory as int32 (2 x 4096
-// x 4 B = 32 KB at -5; a frame past STAGE_BYTES reads its rows again
-// instead), forming the candidates as it goes: each candidate's OR is a
-// warp __reduce_or_sync, then the warps' in shared memory; the wasted bits
-// an __ffs.  Then it writes every candidate's shifted samples with 16-byte
-// stores (4 int32 or 2 int64 a store).  The bound is bytes: the batch read
-// once (2.1 MB of int16 at -5) and the candidates written (4.2 MB): ~1.9
-// us at 3.35 TB/s.
+// Design (Hopper): a thread block cluster of CLUSTER CTAs of THREADS
+// threads a frame on the mid-side path (a (frame, channel) otherwise),
+// launched by cudaLaunchKernelEx: rank r takes the r-th share of the
+// samples (a multiple of 8).  A lane takes 4 consecutive samples of each
+// row at a time (one 8-byte load of int16, or a 16-byte load of int32),
+// forms their candidates, ORs them into its own and writes them as they
+// are with 16-byte stores (4 int32 or 2 int64 a store), a warp's stores
+// contiguous, without waiting for the wasted bits, which are 0 in most
+// rows.  The ORs meet by a warp __reduce_or_sync, then the warps'; each
+// rank stores its ORs and nonzero bits into every rank's shared memory
+// (mapa / st.shared::cluster), and on the loose path its int64 sums of
+// first differences into rank 0's (the difference at a share's first
+// sample reads the sample before the share); after one cluster barrier
+// every rank finds the wasted bits (__ffs) from all the shares, rank 0
+// writes them with bps_eff and the loose assignment, and a rank writes
+// its share of a candidate again, shifted, where that candidate's wasted
+// bits are not 0 (the samples read again).  The bound is bytes: the batch
+// read once (1.0 MB of int16 at -5) and the candidates written (4.2 MB):
+// ~1.6 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,12 +46,12 @@
 
 namespace {
 
-constexpr int THREADS = 512;            // threads a CTA
+constexpr int THREADS = 256;            // threads a CTA
 constexpr int WARPS = THREADS / 32;
-// the staged rows' largest size, so that the dynamic and the static
-// shared memory stay within the 48 KB a launch takes without an opt-in
-constexpr int STAGE_BYTES = 40 * 1024;
+constexpr int CLUSTER = 2;              // CTAs a frame: each a share
 constexpr unsigned FULL = 0xFFFFFFFFu;
+
+#include "cluster.cuh"
 
 struct Args {
     const void* pcm;                    // [B, C, N] int16 or int32
@@ -51,8 +60,9 @@ struct Args {
     int* wasted;                        // [B, CH]
     int* loose;                         // [B] or null
     int C, N, bps;
-    int staged;                         // the rows fit in shared memory
-    int vec;                            // 16-byte stores (N and x aligned)
+    int share;                          // samples a rank (a multiple of 8)
+    int vec;                            // vector loads and 16-byte stores
+                                        // (N % 4 == 0, pcm and x aligned)
 };
 
 // the four candidates of one sample pair, as the plain version forms them
@@ -77,50 +87,107 @@ template <typename T> struct Vec;
 template <> struct Vec<int> { using type = int4; };
 template <> struct Vec<long long> { using type = longlong2; };
 
-// MS: the stereo mid-side candidates (a CTA a frame, CH = 4); else a
-// channel passes through (a CTA a (frame, channel), CH = C).  X64: the
-// 33-bit side (int64 candidates, wasted bits over the int32 wrap).
+// samples n..n+3 of a row (8 bytes of int16, or 16 bytes of int32)
+__device__ __forceinline__ void load4(int (&v)[4], const int16_t* p) {
+    const int2 q = __ldg(reinterpret_cast<const int2*>(p));
+    v[0] = (int)(int16_t)(q.x & 0xFFFF);
+    v[1] = q.x >> 16;
+    v[2] = (int)(int16_t)(q.y & 0xFFFF);
+    v[3] = q.y >> 16;
+}
+__device__ __forceinline__ void load4(int (&v)[4], const int* p) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+struct Smem {
+    unsigned warp_or[WARPS][4], warp_nz[WARPS];
+    long long warp_sum[WARPS][2];
+    unsigned rank_or[CLUSTER][4];       // every rank's ORs and nonzero bits
+    unsigned rank_nz[CLUSTER];
+    unsigned rank_sum[CLUSTER][4];      // in rank 0: every rank's sums
+};
+
+// MS: the stereo mid-side candidates (a cluster a frame, CH = 4); else a
+// channel passes through (a cluster a (frame, channel), CH = C).  X64:
+// the 33-bit side (int64 candidates, wasted bits over the int32 wrap).
 template <typename In, bool MS, bool X64>
 __global__ void __launch_bounds__(THREADS)
 channel_candidates_kernel(const Args a) {
     using Out = typename Cand<X64>::T;
-    constexpr int CAND = MS ? 4 : 1;    // candidates a CTA
+    constexpr int CAND = MS ? 4 : 1;    // candidates a cluster
+    constexpr int ROWS = MS ? 2 : 1;    // input rows a cluster
     constexpr int V = 16 / sizeof(Out); // samples a 16-byte store
-    extern __shared__ int s_rows[];     // [2 or 1][N] when staged
-    __shared__ unsigned s_or[WARPS][CAND], s_nz[WARPS];
-    __shared__ long long s_sum[WARPS][2];
-    __shared__ int s_w[CAND];
+    __shared__ Smem sh;
+    cluster_arrive_relaxed();
+    const int rank = cluster_rank(), nc = cluster_size();
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const int N = a.N;
-    const int frame = MS ? blockIdx.x : blockIdx.x / a.C;
-    const int ch = MS ? 0 : blockIdx.x % a.C;        // the first row's
+    const int N = a.N, S = a.share;
+    const int unit = blockIdx.x / nc;
+    const int frame = MS ? unit : unit / a.C;
+    const int ch = MS ? 0 : unit % a.C;              // the first row's
     const int CH = MS ? 4 : a.C;
     const In* src = static_cast<const In*>(a.pcm)
         + ((size_t)frame * a.C + ch) * N;
-    const bool staged = a.staged;
-    // sample n of input row k, from shared memory once staged
-    auto row = [&](int k, int n) -> int {
-        return staged ? s_rows[k * N + n] : (int)src[(size_t)k * N + n];
-    };
+    const int n0 = min(N, rank * S), n1 = min(N, n0 + S);
+    auto row = [&](int k, int n) -> int { return src[(size_t)k * N + n]; };
 
-    // the rows once: stage them, and OR each candidate's samples
+    // the share once: each candidate's OR, and the candidates written as
+    // they are (the wasted bits are 0 in most rows: a candidate whose bits
+    // are not is written again, shifted, below)
+    Out* dst = static_cast<Out*>(a.x) + ((size_t)frame * CH + ch) * N;
     unsigned o[CAND], nz = 0;
 #pragma unroll
     for (int k = 0; k < CAND; ++k) o[k] = 0;
-    for (int n = t; n < N; n += THREADS) {
-        const int l = src[n];
+    auto take = [&](const int (&v)[ROWS], Out (&c)[CAND]) {
         if (MS) {
-            const int r = src[N + n];
-            if (staged) { s_rows[n] = l; s_rows[N + n] = r; }
-            const Cand<X64> c(l, r);
+            const Cand<X64> cd(v[0], v[ROWS - 1]);
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-                o[k] |= (unsigned)c.v[k];
-                nz |= (unsigned)(c.v[k] != 0) << k;
+            for (int k = 0; k < CAND; ++k) {
+                c[k] = cd.v[k];
+                o[k] |= (unsigned)cd.v[k];
+                nz |= (unsigned)(cd.v[k] != 0) << k;
             }
         } else {
-            if (staged) s_rows[n] = l;
-            o[0] |= (unsigned)l;
+            c[0] = v[0];
+            o[0] |= (unsigned)v[0];
+        }
+    };
+    if (a.vec) {                        // n0 and n1 are multiples of 4
+        using VecT = typename Vec<Out>::type;
+        for (int n = n0 + 4 * t; n < n1; n += 4 * THREADS) {
+            int v[ROWS][4];
+#pragma unroll
+            for (int k = 0; k < ROWS; ++k)
+                load4(v[k], src + (size_t)k * N + n);
+            Out c[4][CAND];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                int s[ROWS];
+#pragma unroll
+                for (int k = 0; k < ROWS; ++k) s[k] = v[k][e];
+                take(s, c[e]);
+            }
+#pragma unroll
+            for (int k = 0; k < CAND; ++k)
+#pragma unroll
+                for (int j = 0; j < 4; j += V) {
+                    VecT q;
+#pragma unroll
+                    for (int e = 0; e < V; ++e)
+                        reinterpret_cast<Out*>(&q)[e] = c[j + e][k];
+                    *reinterpret_cast<VecT*>(dst + (size_t)k * N + n + j) = q;
+                }
+        }
+    } else {
+        for (int n = n0 + t; n < n1; n += THREADS) {
+            int v[ROWS];
+#pragma unroll
+            for (int k = 0; k < ROWS; ++k) v[k] = row(k, n);
+            Out c[CAND];
+            take(v, c);
+#pragma unroll
+            for (int k = 0; k < CAND; ++k) dst[(size_t)k * N + n] = c[k];
         }
     }
 #pragma unroll
@@ -128,26 +195,17 @@ channel_candidates_kernel(const Args a) {
     nz = __reduce_or_sync(FULL, nz);
     if (lane == 0) {
 #pragma unroll
-        for (int k = 0; k < CAND; ++k) s_or[warp][k] = o[k];
-        s_nz[warp] = nz;
+        for (int k = 0; k < CAND; ++k) sh.warp_or[warp][k] = o[k];
+        sh.warp_nz[warp] = nz;
     }
-    __syncthreads();
-    if (t < CAND) {
-        unsigned acc = 0, any = 0;
-        for (int j = 0; j < WARPS; ++j) { acc |= s_or[j][t]; any |= s_nz[j]; }
-        // the trailing zeros of the OR; on the 33-bit side a row whose low
-        // 32 bits are all zero but which is not all zero has 32
-        const int w = acc ? __ffs(acc) - 1 : (X64 && (any >> t & 1)) ? 32 : 0;
-        s_w[t] = w;
-        const size_t at = (size_t)frame * CH + ch + t;
-        a.wasted[at] = w;
-        a.bps_eff[at] = a.bps + (MS && t == 3) - w;
-    }
+    __syncthreads();                    // the warps' ORs
 
-    // the loose mid-side sums of first differences, from n = 1
-    if (MS && a.loose != nullptr) {
+    // the loose mid-side sums of first differences over the share, from
+    // n = 1 (at the share's first sample, the sample before the share)
+    const bool with_loose = MS && a.loose != nullptr;
+    if (with_loose) {
         long long lr = 0, ms = 0;
-        for (int n = t + 1; n < N; n += THREADS) {
+        for (int n = max(n0, 1) + t; n < n1; n += THREADS) {
             const long long dl = (int)((unsigned)row(0, n)
                                        - (unsigned)row(0, n - 1));
             const long long dr = (int)((unsigned)row(1, n)
@@ -160,51 +218,102 @@ channel_candidates_kernel(const Args a) {
             lr += __shfl_down_sync(FULL, lr, h);
             ms += __shfl_down_sync(FULL, ms, h);
         }
-        if (lane == 0) { s_sum[warp][0] = lr; s_sum[warp][1] = ms; }
+        if (lane == 0) {
+            sh.warp_sum[warp][0] = lr;
+            sh.warp_sum[warp][1] = ms;
+        }
+        __syncthreads();
     }
-    __syncthreads();
-    if (MS && a.loose != nullptr && t == 0) {
+
+    // the share's ORs and nonzero bits into every rank, its sums into
+    // rank 0; one cluster barrier
+    cluster_wait();                     // every CTA of the cluster runs
+    if (t < CAND + 1) {
+        unsigned acc = 0;
+        for (int j = 0; j < WARPS; ++j)
+            acc |= t < CAND ? sh.warp_or[j][t] : sh.warp_nz[j];
+        unsigned* dst = t < CAND ? &sh.rank_or[rank][t] : &sh.rank_nz[rank];
+        for (int q = 0; q < nc; ++q) store_remote(dst, q, acc);
+    }
+    if (with_loose && t == 0) {
         long long lr = 0, ms = 0;
         for (int j = 0; j < WARPS; ++j) {
-            lr += s_sum[j][0];
-            ms += s_sum[j][1];
+            lr += sh.warp_sum[j][0];
+            ms += sh.warp_sum[j][1];
+        }
+        const unsigned long long u[2] = {(unsigned long long)lr,
+                                         (unsigned long long)ms};
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            store_remote(&sh.rank_sum[rank][2 * k], 0, (unsigned)u[k]);
+            store_remote(&sh.rank_sum[rank][2 * k + 1], 0,
+                         (unsigned)(u[k] >> 32));
+        }
+    }
+    cluster_barrier();
+
+    // the wasted bits from every share, in every rank
+    int w[CAND];
+    unsigned any = 0;
+    for (int q = 0; q < nc; ++q) any |= sh.rank_nz[q];
+#pragma unroll
+    for (int k = 0; k < CAND; ++k) {
+        unsigned acc = 0;
+        for (int q = 0; q < nc; ++q) acc |= sh.rank_or[q][k];
+        // the trailing zeros of the OR; on the 33-bit side a row whose low
+        // 32 bits are all zero but which is not all zero has 32
+        w[k] = acc ? __ffs(acc) - 1 : (X64 && (any >> k & 1)) ? 32 : 0;
+    }
+    if (rank == 0 && t < CAND) {
+        const size_t at = (size_t)frame * CH + ch + t;
+        a.wasted[at] = w[t];
+        a.bps_eff[at] = a.bps + (MS && t == 3) - w[t];
+    }
+    if (with_loose && rank == 0 && t == 0) {
+        long long lr = 0, ms = 0;
+        for (int q = 0; q < nc; ++q) {
+            lr += (long long)(((unsigned long long)sh.rank_sum[q][1] << 32)
+                              | sh.rank_sum[q][0]);
+            ms += (long long)(((unsigned long long)sh.rank_sum[q][3] << 32)
+                              | sh.rank_sum[q][2]);
         }
         a.loose[frame] = lr < ms ? 0 : 3;
     }
 
-    // every candidate's shifted samples
-    int w[CAND];
+    // the share's candidates again, shifted, where the wasted bits are
+    // not 0 (after the barrier above, so after this CTA's first writes)
+    bool shift = false;
 #pragma unroll
-    for (int k = 0; k < CAND; ++k) w[k] = s_w[k];
-    Out* dst = static_cast<Out*>(a.x) + ((size_t)frame * CH + ch) * N;
-    if (a.vec) {
+    for (int k = 0; k < CAND; ++k) shift |= w[k] != 0;
+    if (!shift) return;
+    if (a.vec) {                        // n0 and n1 are multiples of V
         using VecT = typename Vec<Out>::type;
-        for (int i = t; i < N / V; i += THREADS) {
+        for (int n = n0 + V * t; n < n1; n += V * THREADS) {
             VecT out[CAND];
 #pragma unroll
             for (int j = 0; j < V; ++j) {
-                const int n = i * V + j;
                 if (MS) {
-                    const Cand<X64> c(row(0, n), row(1, n));
+                    const Cand<X64> c(row(0, n + j), row(1, n + j));
 #pragma unroll
                     for (int k = 0; k < 4; ++k)
                         reinterpret_cast<Out*>(&out[k])[j] = c.v[k] >> w[k];
                 } else {
                     reinterpret_cast<Out*>(&out[0])[j] =
-                        (Out)row(0, n) >> w[0];
+                        (Out)row(0, n + j) >> w[0];
                 }
             }
 #pragma unroll
             for (int k = 0; k < CAND; ++k)
-                reinterpret_cast<VecT*>(dst + (size_t)k * N)[i] = out[k];
+                if (w[k] != 0)
+                    *reinterpret_cast<VecT*>(dst + (size_t)k * N + n) = out[k];
         }
     } else {
-        for (int n = t; n < N; n += THREADS) {
+        for (int n = n0 + t; n < n1; n += THREADS) {
             if (MS) {
                 const Cand<X64> c(row(0, n), row(1, n));
 #pragma unroll
                 for (int k = 0; k < 4; ++k)
-                    dst[(size_t)k * N + n] = c.v[k] >> w[k];
+                    if (w[k] != 0) dst[(size_t)k * N + n] = c.v[k] >> w[k];
             } else {
                 dst[n] = (Out)row(0, n) >> w[0];
             }
@@ -212,17 +321,30 @@ channel_candidates_kernel(const Args a) {
     }
 }
 
+template <typename In, bool MS, bool X64>
+cudaError_t launch_with(const Args& a, int units, cudaStream_t s) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(units * CLUSTER, 1, 1);
+    cfg.blockDim = dim3(THREADS, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, channel_candidates_kernel<In, MS, X64>,
+                              a);
+}
+
 template <typename In>
 int launch(const Args& a, int B, int ms, int x64, cudaStream_t s) {
-    const size_t smem =
-        a.staged ? (size_t)(ms ? 2 : 1) * a.N * sizeof(int) : 0;
-    if (ms && x64)
-        channel_candidates_kernel<In, true, true><<<B, THREADS, smem, s>>>(a);
-    else if (ms)
-        channel_candidates_kernel<In, true, false><<<B, THREADS, smem, s>>>(a);
-    else
-        channel_candidates_kernel<In, false, false>
-            <<<B * a.C, THREADS, smem, s>>>(a);
+    const cudaError_t e = ms && x64 ? launch_with<In, true, true>(a, B, s)
+        : ms ? launch_with<In, true, false>(a, B, s)
+        : launch_with<In, false, false>(a, B * a.C, s);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
@@ -242,11 +364,11 @@ int flac_channel_candidates(const void* pcm, void* x, void* bps_eff,
     if (B <= 0 || C <= 0) return 0;
     if (N < 1 || (ms && C != 2) || (x64 && !ms) || (loose && !ms))
         return (int)cudaErrorInvalidValue;
-    const int out_size = x64 ? 8 : 4;
-    const int staged = (ms ? 2 : 1) * (long long)N * 4 <= STAGE_BYTES;
-    const int vec = N % (16 / out_size) == 0 && ((uintptr_t)x & 15) == 0;
+    const int share = ((N + CLUSTER - 1) / CLUSTER + 7) & ~7;
+    const int vec = N % 4 == 0 && ((uintptr_t)pcm & (in16 ? 7 : 15)) == 0
+        && ((uintptr_t)x & 15) == 0;
     const Args a{pcm, x, (int*)bps_eff, (int*)wasted, (int*)loose, C, N, bps,
-                 staged, vec};
+                 share, vec};
     const cudaStream_t s = (cudaStream_t)stream;
     return in16 ? launch<int16_t>(a, B, ms, x64, s)
                 : launch<int>(a, B, ms, x64, s);

@@ -14,48 +14,76 @@
 // Exactness: the plain version's order of operations is flac_tpu's
 // blocked Gram product (autocorrelation_mxu, F = 128) with each sum in a
 // fixed order.  Each windowed sample is float32(x) * w rounded to float32
-// (__int2float_rn or __ll2float_rn, then __fmul_rn).  Column t of 128 (a
-// thread) sums its blocks' products in ascending order, each step
+// (__int2float_rn or __ll2float_rn, then __fmul_rn).  Column t of 128
+// sums its blocks' products in ascending order, each step
 // p = __fmaf_rn(d[n], d[n + l], p), rounded once to float32 (the plain
 // version emulates that fused rounding exactly in float64: _fma_float32).
-// A product past N is an exact zero, which leaves p as it is.  The 128
-// columns meet in a fixed float64 tree: the halves of each warp (lane
-// j + 16, j + 8, ... by __shfl_down_sync), then the halves of the 4 warp
-// sums.  The combine adds combine[a, w] * autoc_w (__dmul_rn,
-// then __dadd_rn, never contracted) in ascending w, from 0.
+// A block whose first factors d[n] are all +-0 is skipped: each of its
+// steps adds an exact +-0, and p, which starts at +0, is never -0, so the
+// skip gives the same bits; past N every factor is 0.  The 128 columns
+// meet in a fixed float64 tree: within each group of 32 columns c + c+16,
+// then c+8, c+4, c+2, c+1, then the halves of the 4 group sums (float64
+// addition commutes, so which operand comes first does not matter).  The
+// combine adds combine[a, w] * autoc_w (__dmul_rn, then __dadd_rn, never
+// contracted) in ascending w, from 0.
 //
-// Design (Hopper): a CTA of 128 threads (a thread a Gram column) a row.
-// The row is staged in shared memory as float32 a tile of TILE samples
-// and an O-sample halo at a time, with 16-byte loads (once for the main
-// path's 4096-sample frames, whatever the windows); each window's samples
-// are formed beside it, from the window's row read with 16-byte loads;
-// thread t's accumulators, one a lag up to a template bound (8, 12 or 32:
-// -5, -8, the rest), stay in registers, a float32 fma a step.  A window's
-// lags are reduced, then its combine rows are added into the output in
-// device memory by the thread of that lag.  The bound at -8 is the fmas
-// (82 M a 64-frame call: ~2.4 us at the H100's 67 TFLOP/s of float32
-// outside the tensor cores), at -5 the bytes (x read once, 4.2 MB: ~1.3
-// us at 3.35 TB/s).
+// Design (Hopper): a CTA of 384 threads takes two rows (the windows are
+// read once for both) and a pass of up to WPASS windows; each (row,
+// window) pair's windowed samples are staged in dynamic shared memory a
+// tile of 4096 samples and a 32-sample halo at a time: the windows by
+// cp.async, every copy of the stage in flight at once, the rows' samples
+// by 16-byte loads into registers meanwhile, then the products in place;
+// each block of 128 is flagged when its first factors are not all zero
+// (a warp ballot).  Then a warp a (row, window, lag part): lane j holds
+// the four consecutive columns 4j..4j+3 for each lag of its part
+// (part_lags), so a block is one warp; it reads its factors with 16-byte
+// shared loads (4 for 52 fmas at -8) and walks only the flagged blocks,
+// with no branch between a block's fmas.  The tree is a reduce-scatter of
+// shuffles that follows the fixed order (8 float64 shuffles a lag), every
+// lag's side by side.  Then the combine, a thread an output.  The bound
+// at -8 is the fmas that the nonzero blocks need (at the H100's 67 TFLOP/s
+// of float32 outside the tensor cores) or the bytes, at -5 the bytes (x
+// read once, 4.2 MB: ~1.3 us at 3.35 TB/s).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;            // a thread a Gram column
-constexpr int WARPS = THREADS / 32;
+constexpr int COLS = 4;                 // consecutive Gram columns a lane
+constexpr int LANES = 32;
+constexpr int BLOCK = COLS * LANES;     // samples a Gram block: one warp
 constexpr int TILE = 4096;              // samples a staged tile
 constexpr int HALO = 32;                // the largest lag
-constexpr int BLOCKS = TILE / THREADS;  // Gram blocks a tile
+constexpr int TILE_BLOCKS = TILE / BLOCK;
+constexpr int THREADS = 384;            // threads a CTA
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_ROWS = 2;             // rows a CTA
+constexpr int WPASS = 6;                // windows a pass, at most
+constexpr int PAIRS = MAX_ROWS * WPASS;
+constexpr int UNITS = (TILE_BLOCKS + WARPS) / WARPS;  // stage units a warp
+constexpr int PAD = 16;                 // floats past the last region
+constexpr int MAX_APOD = 32;            // apodizations (combine rows)
 constexpr unsigned FULL = 0xFFFFFFFFu;
+
+// the lags a warp takes under the template of largest lag `maxlag`: all of
+// them up to 12 (-5's 9, -8's 13), else parts of 12 (a multiple of 4:
+// aligned loads)
+__host__ __device__ constexpr int part_lags(int maxlag) {
+    return maxlag <= 12 ? maxlag + 1 : 12;
+}
 
 struct Args {
     const void* x;                      // [R, N] int32 or int64
     const float* windows;               // [W, N]
     const double* combine;              // [A, W]
     double* out;                        // [R, A, O + 1]
-    int N, W, A, O;
+    int R, N, W, A, O;
     int vec;                            // 16-byte loads (N % 4 == 0, aligned)
+    int rows;                           // rows a CTA
+    int wpass;                          // windows a pass
+    int parts;                          // lag parts a window
+    int region;                         // floats a (row, window) pair
 };
 
 __device__ __forceinline__ float to_float(int v) { return __int2float_rn(v); }
@@ -63,133 +91,284 @@ __device__ __forceinline__ float to_float(long long v) {
     return __ll2float_rn(v);
 }
 
-// four samples of x from p (16-byte aligned), as float32
-__device__ __forceinline__ float4 load4(const int* p) {
-    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
-    return make_float4(to_float(q.x), to_float(q.y), to_float(q.z),
-                       to_float(q.w));
-}
-__device__ __forceinline__ float4 load4(const long long* p) {
-    const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(p));
-    const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(p) + 1);
-    return make_float4(to_float(a.x), to_float(a.y), to_float(b.x),
-                       to_float(b.y));
-}
-
-// s[i] = float32(x[base + i]) for i < span, zero to TILE + HALO
-template <typename X>
-__device__ __forceinline__ void stage_row(float* s, const X* x, int base,
-                                          int span, bool vec, int t) {
-    if (vec) {                          // span and base are multiples of 4
-#pragma unroll
-        for (int i = 4 * t; i < TILE + HALO; i += 4 * THREADS)
-            *reinterpret_cast<float4*>(s + i) = i < span
-                ? load4(x + base + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-        for (int i = t; i < TILE + HALO; i += THREADS)
-            s[i] = i < span ? to_float(x[base + i]) : 0.0f;
-    }
-}
-
-// d[i] = s[i] * win[base + i] rounded to float32 for i < span, zero past
-__device__ __forceinline__ void stage_window(float* d, const float* s,
-                                             const float* win, int base,
-                                             int span, bool vec, int t) {
+// samples n..n+3 of a row as float32, zero past N
+__device__ __forceinline__ float4 load_x(const int* p, int n, int N,
+                                         bool vec) {
     if (vec) {
-#pragma unroll
-        for (int i = 4 * t; i < TILE + HALO; i += 4 * THREADS) {
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (i < span) {
-                const float4 xv = *reinterpret_cast<const float4*>(s + i);
-                const float4 wv = __ldg(reinterpret_cast<const float4*>(
-                    win + base + i));
-                v = make_float4(__fmul_rn(xv.x, wv.x), __fmul_rn(xv.y, wv.y),
-                                __fmul_rn(xv.z, wv.z), __fmul_rn(xv.w, wv.w));
-            }
-            *reinterpret_cast<float4*>(d + i) = v;
-        }
-    } else {
-        for (int i = t; i < TILE + HALO; i += THREADS)
-            d[i] = i < span ? __fmul_rn(s[i], win[base + i]) : 0.0f;
+        if (n >= N) return make_float4(0.f, 0.f, 0.f, 0.f);
+        const int4 q = __ldg(reinterpret_cast<const int4*>(p + n));
+        return make_float4(to_float(q.x), to_float(q.y), to_float(q.z),
+                           to_float(q.w));
     }
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = n + e < N ? to_float(p[n + e]) : 0.f;
+    return make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ float4 load_x(const long long* p, int n, int N,
+                                         bool vec) {
+    if (vec) {
+        if (n >= N) return make_float4(0.f, 0.f, 0.f, 0.f);
+        const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(p + n));
+        const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(p + n)
+                                  + 1);
+        return make_float4(to_float(a.x), to_float(a.y), to_float(b.x),
+                           to_float(b.y));
+    }
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = n + e < N ? to_float(p[n + e]) : 0.f;
+    return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// ---- PTX helpers ----
+// copy 16 (or 4) bytes from device memory into shared memory without
+// registers, zero-filled past `bytes` (cp.async; cp_async_wait_all waits
+// for this thread's copies)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                    "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                    "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// ---- end of PTX helpers ----
+
+// a lane's factors of block k: the first factors f(c) (columns 4j..4j+3)
+// and the second factors s[i] = d[k * BLOCK + 4j + l0 + i], loaded as far
+// as the part's nl lags need them.  ONE: every lag in one part (l0 = 0),
+// so the first factors are s[0..3] and take no registers of their own.
+template <int LP, bool ONE>
+struct Factors {
+    static constexpr int Q = (LP + 6) / 4;       // 16-byte loads of s
+    float s[4 * Q];
+    float g[ONE ? 1 : COLS];                     // f where l0 > 0
+    __device__ __forceinline__ float f(int c) const {
+        if constexpr (ONE) return s[c];
+        else return g[c];
+    }
+    __device__ __forceinline__ void load(const float* d, int k, int lane,
+                                         int l0, int nl) {
+        const float* p = d + k * BLOCK + COLS * lane;
+#pragma unroll
+        for (int m = 0; m < Q; ++m) {
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (4 * m <= nl + 2)
+                v = *reinterpret_cast<const float4*>(p + l0 + 4 * m);
+            s[4 * m] = v.x; s[4 * m + 1] = v.y;
+            s[4 * m + 2] = v.z; s[4 * m + 3] = v.w;
+        }
+        if constexpr (!ONE) {
+            const float4 v = l0 == 0
+                ? make_float4(s[0], s[1], s[2], s[3])
+                : *reinterpret_cast<const float4*>(p);
+            g[0] = v.x; g[1] = v.y; g[2] = v.z; g[3] = v.w;
+        }
+    }
+};
+
+// one lag's 128 column sums (lane j's four in v0..v3) through the fixed
+// tree; every lane returns the total
+__device__ __forceinline__ double tree(double v0, double v1, double v2,
+                                       double v3, int lane) {
+    // c + c+16 (lanes j and j ^ 4 of an 8-lane group): the lower keeps
+    // columns 4j, 4j+1, the upper 4j+2, 4j+3
+    const bool up4 = lane & 4;
+    const double r0 = __shfl_xor_sync(FULL, up4 ? v0 : v2, 4);
+    const double r1 = __shfl_xor_sync(FULL, up4 ? v1 : v3, 4);
+    const double a0 = (up4 ? v2 : v0) + r0;
+    const double a1 = (up4 ? v3 : v1) + r1;
+    // c + c+8 (lanes j ^ 2): the lower keeps a0, the upper a1
+    const bool up2 = lane & 2;
+    const double b = (up2 ? a1 : a0)
+        + __shfl_xor_sync(FULL, up2 ? a0 : a1, 2);
+    // c + c+4 (j ^ 1), c + c+2 (j ^ 4), c + c+1 (j ^ 2): every lane of the
+    // group ends with its sum
+    const double c4 = b + __shfl_xor_sync(FULL, b, 1);
+    const double c2 = c4 + __shfl_xor_sync(FULL, c4, 4);
+    const double c1 = c2 + __shfl_xor_sync(FULL, c2, 2);
+    // the groups' halves: g + g+2 (lane ^ 16), then the two (lane ^ 8)
+    const double g2 = c1 + __shfl_xor_sync(FULL, c1, 16);
+    return g2 + __shfl_xor_sync(FULL, g2, 8);
 }
 
 // MAXLAG: the template's largest lag (O <= MAXLAG)
 template <typename X, int MAXLAG>
 __global__ void __launch_bounds__(THREADS)
 window_autoc_kernel(const Args a) {
-    __shared__ __align__(16) float s_x[TILE + HALO];    // the row's tile
-    __shared__ __align__(16) float s_d[TILE + HALO];    // a window's samples
-    __shared__ double s_warp[WARPS][MAXLAG + 1];
+    constexpr int LP = part_lags(MAXLAG);
+    extern __shared__ __align__(16) float s_d[];    // [pair][region]
+    __shared__ int s_flag[PAIRS][TILE_BLOCKS];       // a block not all zero
+    __shared__ double s_lag[PAIRS][HALO + 1];        // a pass's reduced lags
+    __shared__ double s_comb[MAX_APOD * WPASS];      // a pass's combine
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const int r = blockIdx.x;
-    const int N = a.N, O = a.O, L1 = O + 1;
+    const int N = a.N, O = a.O, L1 = O + 1, W = a.W, A = a.A;
+    const int RG = a.rows, WB = a.wpass, P = a.parts, region = a.region;
     const bool vec = a.vec;
-    const X* x = static_cast<const X*>(a.x) + (size_t)r * N;
+    const int row0 = blockIdx.x * RG;
+    const int nrows = min(RG, a.R - row0);
+    const X* x = static_cast<const X*>(a.x) + (size_t)row0 * N;
     const int tiles = (N + TILE - 1) / TILE;
-    double* out = a.out + (size_t)r * a.A * L1;
+    // this warp's (row, window slot, lag part)
+    const int r = warp / (WB * P), wb = warp / P % WB, p = warp % P;
+    const int pair = r * WB + wb;
+    const int l0 = p * LP, nl = min(LP, L1 - l0);
+    const bool computes = warp < RG * WB * P && r < nrows;
 
-    // one tile holds the row: staged once for every window
-    if (tiles == 1) stage_row(s_x, x, 0, N, vec, t);
-    for (int w = 0; w < a.W; ++w) {
-        const float* win = a.windows + (size_t)w * N;
-        float acc[MAXLAG + 1];
+    for (int w0 = 0; w0 < W; w0 += WB) {
+        const int nw = min(WB, W - w0);
+        const bool active = computes && wb < nw;
+        float acc[COLS][LP];
 #pragma unroll
-        for (int l = 0; l <= MAXLAG; ++l) acc[l] = 0.0f;
+        for (int c = 0; c < COLS; ++c)
+#pragma unroll
+            for (int l = 0; l < LP; ++l) acc[c][l] = 0.0f;
         for (int tile = 0; tile < tiles; ++tile) {
             const int base = tile * TILE;
-            const int span = min(TILE + O, N - base);   // samples < N
+            const int nblk = (min(TILE, N - base) + BLOCK - 1) / BLOCK;
             __syncthreads();                  // the last tile's reads done
-            if (tiles > 1) {
-                stage_row(s_x, x, base, span, vec, t);
-                __syncthreads();
-            }
-            stage_window(s_d, s_x, win, base, span, vec, t);
-            __syncthreads();
-            for (int k = 0; k < BLOCKS; ++k) {
-                const int i = k * THREADS + t;
-                if (base + i >= N) break;
-                const float d0 = s_d[i];
+            // the stage: the windows into row 0's regions by cp.async,
+            // every copy in flight at once, and meanwhile the rows' quads
+            // of this thread's units (unit b: block b's 32 quads; b ==
+            // nblk: the halo's 8) into registers
+            const int nq = nblk * LANES + HALO / 4;
+            for (int e = t; e < nw * nq; e += THREADS) {
+                const int ww = e / nq, q = e - ww * nq, n = base + 4 * q;
+                float* dst = s_d + ww * region + 4 * q;
+                const float* src = a.windows + (size_t)(w0 + ww) * N;
+                if (vec) {
+                    cp_async16(dst, src + min(n, N - 4), n < N ? 16 : 0);
+                } else {
 #pragma unroll
-                for (int l = 0; l <= MAXLAG; ++l)
-                    if (l <= O) acc[l] = __fmaf_rn(d0, s_d[i + l], acc[l]);
+                    for (int k = 0; k < 4; ++k)
+                        cp_async4(dst + k, src + min(n + k, N - 1),
+                                  n + k < N ? 4 : 0);
+                }
+            }
+            float4 xv[UNITS][MAX_ROWS];
+#pragma unroll
+            for (int u = 0; u < UNITS; ++u) {
+                const int b = warp + u * WARPS, i = b * BLOCK + 4 * lane;
+                const bool in = b < nblk || (b == nblk && 4 * lane < HALO);
+#pragma unroll
+                for (int rr = 0; rr < MAX_ROWS; ++rr)
+                    xv[u][rr] = rr < nrows && in
+                        ? load_x(x + (size_t)rr * N, base + i, N, vec)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+            if (tile == 0 && t < A * nw)      // the pass's combine columns
+                s_comb[t] = a.combine[(size_t)(t / nw) * W + w0 + t % nw];
+            cp_async_wait_all();
+            __syncthreads();
+            // each pair's windowed samples, in place over the window in
+            // row 0's regions; a block flagged where they are not all zero
+#pragma unroll
+            for (int u = 0; u < UNITS; ++u) {
+                const int b = warp + u * WARPS, i = b * BLOCK + 4 * lane;
+                if (b > nblk) break;
+                const bool in = b < nblk || 4 * lane < HALO;
+#pragma unroll
+                for (int ww = 0; ww < WPASS; ++ww) {
+                    if (ww >= nw) break;
+                    const float4 wv = in
+                        ? *reinterpret_cast<const float4*>(s_d + ww * region
+                                                           + i)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+                    for (int rr = 0; rr < MAX_ROWS; ++rr) {
+                        if (rr >= nrows) break;
+                        const float4 d = make_float4(
+                            __fmul_rn(xv[u][rr].x, wv.x),
+                            __fmul_rn(xv[u][rr].y, wv.y),
+                            __fmul_rn(xv[u][rr].z, wv.z),
+                            __fmul_rn(xv[u][rr].w, wv.w));
+                        const int q = rr * WB + ww;
+                        if (in)
+                            *reinterpret_cast<float4*>(s_d + q * region + i)
+                                = d;
+                        if (b < nblk) {
+                            const unsigned any = __ballot_sync(
+                                FULL, d.x != 0.f || d.y != 0.f
+                                || d.z != 0.f || d.w != 0.f);
+                            if (lane == 0) s_flag[q][b] = any != 0u;
+                        }
+                    }
+                }
+            }
+            __syncthreads();
+            if (!active) continue;
+            // the flagged blocks in ascending order
+            const float* d = s_d + pair * region;
+            unsigned mask = __ballot_sync(FULL, lane < nblk
+                                          && s_flag[pair][lane]);
+            while (mask != 0u) {
+                Factors<LP, (LP > MAXLAG)> cur;
+                cur.load(d, __ffs(mask) - 1, lane, l0, nl);
+                mask &= mask - 1;
+#pragma unroll
+                for (int c = 0; c < COLS; ++c)
+#pragma unroll
+                    for (int l = 0; l < LP; ++l)   // lags past nl unused
+                        acc[c][l] = __fmaf_rn(cur.f(c), cur.s[c + l],
+                                              acc[c][l]);
             }
         }
-        // the tree: each warp's halves, then the warps' halves
+        // the trees of every lag side by side (float32 to float64 is
+        // exact)
+        if (active) {
 #pragma unroll
-        for (int l = 0; l <= MAXLAG; ++l) {
-            if (l > O) break;
-            double v = acc[l];                 // the tree in float64
-#pragma unroll
-            for (int h = 16; h > 0; h >>= 1) v += __shfl_down_sync(FULL, v, h);
-            if (lane == 0) s_warp[warp][l] = v;
+            for (int l = 0; l < LP; ++l) {
+                const double v = tree(acc[0][l], acc[1][l], acc[2][l],
+                                      acc[3][l], lane);
+                if (lane == 0 && l < nl) s_lag[pair][l0 + l] = v;
+            }
         }
         __syncthreads();
-        if (t < L1) {
-            double p[WARPS];
-#pragma unroll
-            for (int j = 0; j < WARPS; ++j) p[j] = s_warp[j][t];
-#pragma unroll
-            for (int h = WARPS / 2; h > 0; h >>= 1)
-#pragma unroll
-                for (int j = 0; j < h; ++j) p[j] = p[j] + p[j + h];
-            // the combine, in ascending w: out[a] = out[a] + c[a, w] * p
-            for (int ai = 0; ai < a.A; ++ai) {
-                double* o = out + (size_t)ai * L1 + t;
-                const double prev = w == 0 ? 0.0 : *o;
-                *o = __dadd_rn(prev, __dmul_rn(a.combine[(size_t)ai * a.W + w],
-                                               p[0]));
-            }
+        // the combine, in ascending w: out[a] = out[a] + c[a, w] * autoc_w
+        for (int o = t; o < nrows * A * L1; o += THREADS) {
+            const int rr = o / (A * L1), ai = o / L1 % A, l = o % L1;
+            double* dst = a.out + ((size_t)(row0 + rr) * A + ai) * L1 + l;
+            double s = w0 == 0 ? 0.0 : *dst;
+            for (int ww = 0; ww < nw; ++ww)
+                s = __dadd_rn(s, __dmul_rn(s_comb[ai * nw + ww],
+                                           s_lag[rr * WB + ww][l]));
+            *dst = s;
         }
     }
 }
 
-template <typename X>
-int launch(const Args& a, cudaStream_t s, int R) {
-    if (a.O <= 8) window_autoc_kernel<X, 8><<<R, THREADS, 0, s>>>(a);
-    else if (a.O <= 12) window_autoc_kernel<X, 12><<<R, THREADS, 0, s>>>(a);
-    else window_autoc_kernel<X, 32><<<R, THREADS, 0, s>>>(a);
+// the dynamic shared memory a launch asks for
+size_t smem_bytes(const Args& a) {
+    return ((size_t)a.rows * a.wpass * a.region + PAD) * sizeof(float);
+}
+
+template <typename X, int MAXLAG>
+int launch_with(const Args& a, cudaStream_t s) {
+    // the largest dynamic shared memory any launch takes, set once (the
+    // first launch of a template is never captured into a graph)
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        window_autoc_kernel<X, MAXLAG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(((size_t)PAIRS * (TILE + HALO) + PAD) * sizeof(float)));
+    if (opt_in != cudaSuccess) return (int)opt_in;
+    const int ctas = (a.R + a.rows - 1) / a.rows;
+    window_autoc_kernel<X, MAXLAG><<<ctas, THREADS, smem_bytes(a), s>>>(a);
     return (int)cudaGetLastError();
+}
+
+template <typename X>
+int launch(const Args& a, cudaStream_t s) {
+    if (a.O <= 8) return launch_with<X, 8>(a, s);
+    else if (a.O <= 12) return launch_with<X, 12>(a, s);
+    else return launch_with<X, 32>(a, s);
 }
 
 }  // namespace
@@ -204,14 +383,25 @@ int flac_window_autoc(const void* x, const void* windows, const void* combine,
                       void* out, int R, int N, int W, int A, int O, int x64,
                       void* stream) {
     if (R <= 0 || A <= 0) return 0;
-    if (N < 2 || W < 1 || O < 1 || O > HALO || O >= N)
+    if (N < 2 || W < 1 || O < 1 || O > HALO || O >= N || A > MAX_APOD)
         return (int)cudaErrorInvalidValue;
+    const int lp = part_lags(O <= 8 ? 8 : O <= 12 ? 12 : 32);
+    const int parts = (O + lp) / lp;                 // ceil((O + 1) / lp)
+    if (parts > WARPS) return (int)cudaErrorInvalidValue;
+    int rows = MAX_ROWS;
+    if (rows * parts > WARPS) rows = 1;
+    int wpass = W < WPASS ? W : WPASS;
+    while (rows * wpass * parts > WARPS) --wpass;
+    const int blocks = (N + BLOCK - 1) / BLOCK;
+    const int region = (blocks < TILE_BLOCKS ? blocks : TILE_BLOCKS) * BLOCK
+        + HALO;
     const Args a{x, (const float*)windows, (const double*)combine,
-                 (double*)out, N, W, A, O,
+                 (double*)out, R, N, W, A, O,
                  (int)(N % 4 == 0 && ((uintptr_t)x & 15) == 0
-                       && ((uintptr_t)windows & 15) == 0)};
+                       && ((uintptr_t)windows & 15) == 0),
+                 rows, wpass, parts, region};
     const cudaStream_t s = (cudaStream_t)stream;
-    return x64 ? launch<long long>(a, s, R) : launch<int>(a, s, R);
+    return x64 ? launch<long long>(a, s) : launch<int>(a, s);
 }
 
 }  // extern "C"

@@ -8,12 +8,18 @@ rows float32(x) * windows, flac_tpu/ops/lpc.py:64 autocorrelation and
 XLA fuses into the jitted encode_batch and the port ran op by op: a Gram
 matmul, then a diagonal, a cast and a sum a lag (some thirty-five small
 kernels a -5 batch, fifty at -8).  The source is csrc/window_autoc.cu: a
-CTA of 128 threads a (frame, channel candidate) row, a thread a column of
-flac_tpu's Gram product (autocorrelation_mxu, blocks of 128 samples);
-the row is staged once in shared memory as float32 (a tile of 4096
-samples and an O-sample halo, with 16-byte loads), each window's samples
-are formed beside it, and a thread's accumulators, one a lag, stay in
-registers.  Its arithmetic is ops/lpc.py
+CTA of 384 threads takes two (frame, channel candidate) rows (the
+windows are read once for both) and a pass of up to 6 windows; each
+(row, window) pair's windowed samples are staged in shared memory a tile
+of 4096 samples and a 32-sample halo at a time (the windows by cp.async,
+every copy in flight at once, the rows by 16-byte loads meanwhile), each
+block of 128 flagged when its first factors are not all zero.  A warp then
+takes a (row, window, lag part): lane j the four consecutive columns
+4j..4j+3 of flac_tpu's Gram product (autocorrelation_mxu, blocks of 128)
+for each lag of its part, so one warp covers a block; 16-byte shared
+loads, only the flagged blocks (a skipped block adds an exact zero), a
+float64 reduce-scatter of shuffles in the plain version's tree order, the
+combine in ascending window order.  Its arithmetic is ops/lpc.py
 autocorrelation_plain's, the plain version, operation for operation
 (float32 windowed samples, each column's float32 fused multiply-adds over
 its blocks in ascending order, which the plain version emulates exactly,
@@ -23,7 +29,9 @@ order), so the two agree bit for bit.
 Bound: at -5 a batch reads x ([64, 4, 4096] int32, 4.2 MB) once: ~1.3 us
 at 3.35 TB/s (the NVIDIA H100 SXM data sheet's rate); at -8 its fmas
 bound it (6 windows and 13 lags: 82 M float32 fmas, ~2.4 us at the data
-sheet's 67 TFLOP/s of float32 outside the tensor cores).  chip_smoke.py
+sheet's 67 TFLOP/s of float32 outside the tensor cores; about half of
+them fall in blocks whose windowed samples are all zero, which no exact
+implementation needs to compute).  chip_smoke.py
 measures it.
 
 `lpc.window_autocorrelation` dispatches on x's device: the plain version
@@ -46,9 +54,13 @@ from .. import kernels
 SOURCE = "flac_tpu_torch/csrc/window_autoc.cu"
 REPLACES = "flac_tpu/ops/lpc.py:64"    # autocorrelation, with the windows
 _LIB_NAME = "window_autoc"
-THREADS = 128            # threads a CTA (THREADS in the source)
+COLUMNS_A_LANE = 4       # consecutive Gram columns a lane (COLS)
+LANES = 32               # lanes a warp: a warp covers a Gram block
+THREADS = 384            # threads a CTA (THREADS in the source)
 TILE = 4096              # samples a staged tile (TILE in the source)
 MAX_LAG = 32             # the largest lag (HALO in the source)
+MAX_ROWS = 2             # rows a CTA (MAX_ROWS in the source)
+WPASS = 6                # windows a pass, at most (WPASS in the source)
 TEMPLATE_LAGS = (8, 12, 32)
 
 launches = 0          # kernel launches of K11 in this process
@@ -71,6 +83,33 @@ def _library() -> ctypes.CDLL:
 def template_lag(max_lag: int) -> int:
     """The kernel's template bound that a call with max_lag takes."""
     return next(t for t in TEMPLATE_LAGS if max_lag <= t)
+
+
+def part_lags(max_lag: int) -> int:
+    """The lags a warp takes under the template that max_lag takes
+    (part_lags in the source): all of them up to 13, else parts of 12."""
+    t = template_lag(max_lag)
+    return t + 1 if t <= 12 else 12
+
+
+def plan(R: int, N: int, W: int, max_lag: int) -> dict:
+    """The launch's layout, as flac_window_autoc derives it: rows a CTA,
+    windows a pass, lag parts a window, the CTAs, the warps that compute,
+    the floats a (row, window) pair stages and the dynamic shared
+    memory."""
+    lp = part_lags(max_lag)
+    parts = -(-(max_lag + 1) // lp)
+    rows = MAX_ROWS if MAX_ROWS * parts <= THREADS // 32 else 1
+    wpass = min(W, WPASS)
+    while rows * wpass * parts > THREADS // 32:
+        wpass -= 1
+    blocks = -(-N // (COLUMNS_A_LANE * LANES))
+    region = min(blocks, TILE // (COLUMNS_A_LANE * LANES)) \
+        * COLUMNS_A_LANE * LANES + MAX_LAG
+    return {"rows": rows, "wpass": wpass, "parts": parts,
+            "ctas": -(-R // rows), "compute_warps": rows * wpass * parts,
+            "region": region,
+            "smem": (rows * wpass * region + 16) * 4}
 
 
 def check_arguments(x, windows, combine, max_lag: int) -> None:

@@ -19,15 +19,24 @@ samples, so the rule that gives it 32 is held by the code alone); the
 loose path at -1 and -4 (near-mono and independent frames, both
 assignments) and at 32 bits (first differences that wrap int32); the
 channels passing through (mono 24-bit, 6 channels at 20 bits, -0);
-N of 1, 33, 200, 1153, 4048, 4095, 4096 and past the staged size (8192
-stereo, 16384 mono: the rows read again).
+N of 1, 33, 200, 1153, 4048, 4095, 4096, 8192 stereo and 16384 mono
+(several steps a lane); for the cluster's shares, a
+frame whose only odd sample (of L; of R a sample 2 mod 4) opens a rank's
+share, so that the wasted bits come from one rank alone, and loose frames
+whose one large first difference straddles a share boundary (it decides
+the assignment).
 
 K11 (`autoc_cases`): the -5 bank (one window, lags to 8) and the -8 bank
 (subdivide_tukey(3): 6 windows, 9 apodizations, lags to 12) at N = 4096;
 N = 4048 and N = 200 (no multiple of 128); the largest lag N - 1 (N = 9
 with 8 lags, N = 33 with 32); N = 4097 and 8192 (a second tile, the halo
 across it, of 12 lags and of 9); silence and a constant row; 16-bit,
-24-bit and full-scale 32-bit rows and the 33-bit side's int64 rows.
+24-bit and full-scale 32-bit rows and the 33-bit side's int64 rows; for
+the skipped zero blocks, a -8 row silent over its first half (but three
+lone samples, none a lane's first of four), a bank with
+punchout_tukey windows (a zero hole inside the row) and the -8 bank at
+N = 1000 (partial windows that start and end inside a block of 128); and
+order 32 at N = 4096 (-l 32: the template of 32 at full width).
 
 K12 (`assign_cases`): random subframe choices of the four candidates
 with small bit counts (many exact ties: all four totals equal, L + S
@@ -149,6 +158,25 @@ def candidate_cases() -> list:
     add("mono 16-bit, N=16384 (rows read again)",
         candidate_batch(15, B=2, C=1, N=16384, bps=16),
         _config(5, 16384, channels=1), np.int16)
+    # the cluster's shares (a quarter of N, a multiple of 8, a rank): L's
+    # only odd sample and R's only sample 2 mod 4 each open a share
+    rng = np.random.default_rng(16)
+    po = np.stack([2 * rng.integers(-8000, 8000, (2, 4096)),
+                   4 * rng.integers(-4000, 4000, (2, 4096))], axis=1)
+    po[0, 0, 1024] += 1
+    po[0, 1, 3072] += 2
+    po[1, 0, 2048] += 1
+    add("-5, wasted bits from one rank's share, N=4096", po,
+        _config(5, 4096), np.int16)
+    # loose frames whose one nonzero first difference is at a share's
+    # first sample: dL alone makes the frame independent, 0 without it
+    pb = np.zeros((3, 2, 1152), np.int64)
+    pb[0, 0, 288:] = 1000
+    pb[1, 1, 576:] = -700
+    pb[2, 0, 864:] = 30000
+    pb[2, 1, 864:] = -30000
+    add("-4 loose, a first difference across a share boundary, N=1152", pb,
+        _config(4, 1152), np.int16)
     return out
 
 
@@ -212,6 +240,19 @@ def autoc_cases() -> list:
     add("-8, 33-bit side (int64), N=1152",
         autoc_batch(30, B=2, CH=4, N=1152, bps=33, x64=True), 8, 1152,
         bps=32)
+    # the blocks whose windowed samples are all zero (skipped)
+    xh = autoc_batch(32, B=1, CH=2, N=4096, bps=17)
+    xh[0, 1, :2048] = 0
+    xh[0, 1, [131, 518, 1027]] = [5000, -7000, 3]    # lone samples
+    add("-8, a row silent over its first half, N=4096", xh, 8, 4096)
+    add("-5, punchout_tukey(3) (a zero hole), N=4096",
+        autoc_batch(33, B=1, CH=2, N=4096, bps=17), 5, 4096,
+        apodizations=("tukey(5e-1)", "punchout_tukey(3)"))
+    add("-8, N=1000 (partial windows inside a block)",
+        autoc_batch(34, B=1, CH=2, N=1000, bps=17), 8, 1000)
+    add("-8 -l 32, N=4096 (the template of 32)",
+        autoc_batch(35, B=1, CH=2, N=4096, bps=17), 8, 4096,
+        max_lpc_order=32)
     return out
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of kernels K1-K7 goes, on one NVIDIA GPU.
+"""Where the time of kernels K1-K7, K10 and K11 goes, on one NVIDIA GPU.
 
     python3 kernel_variants.py            # every variant of every kernel
-    python3 kernel_variants.py --k1       # K1's only (or --k2 ... --k7;
-                                          # several may be given)
+    python3 kernel_variants.py --k1       # K1's only (or --k2 ... --k7,
+                                          # --k10, --k11; several may be
+                                          # given)
     python3 kernel_variants.py --other "old=DIR"  # and DIR/*.cu as they are
 
 Each variant is the kernel's source with one change (a constant, a part of
@@ -18,7 +19,11 @@ track's first 64 frames at -5 and of its first 256 (the sharded form's
 batch), K5 on the packed words of the same 64 and 256 frames (each launch
 on a fresh copy: it seals in place), K6 and K7 on the search inputs of the
 track's first 64 frames at -5 (K6: 256 problems of order 8; K7: 1536 rows)
-and at -8 (2304 problems of order 12; 3584 rows).  Before K3's variants,
+and at -8 (2304 problems of order 12; 3584 rows), K10 and K11 on the
+same frames' front of the search as chip_smoke.py phase 6 takes it (K10:
+the -5 batch uploaded as int16; K11: the -5 and -8 rows, windows and
+combine), each variant's output held against the plain version
+(`same_as_plain`) before it is timed.  Before K3's variants,
 a one-thread
 probe times the recursion's chain (cycles a sample, generic and folded,
 and the SM clock); each K3 line carries the chain floor it gives,
@@ -532,6 +537,87 @@ K6_VARIANTS = [
                        "            s = __dadd_rn(s, __shfl_sync(FULL, prod, j % G, G));\n")]),
 ]
 
+# K10: clock64 at 1 the share read, ORed in each warp and its candidates
+# stored as they are, 2 the cluster barrier passed (the shares' ORs in
+# every rank), 7 the last warp's wasted bits known (the end where no
+# candidate is shifted)
+K10_VARIANTS = [
+    ("base", []),
+    ("phases", [
+        ("namespace {\n", "namespace {\n" + PHASE_DEFS),
+        ("    cluster_arrive_relaxed();\n    const int rank",
+         "    PHSTART();\n    cluster_arrive_relaxed();\n    const int rank"),
+        ("    __syncthreads();                    // the warps' ORs\n",
+         "    __syncthreads();\n    PH(1);\n"),
+        ("    cluster_barrier();\n\n    // the wasted bits",
+         "    cluster_barrier();\n    PH(2);\n\n    // the wasted bits"),
+        ("    if (!shift) return;\n",
+         "    PHMAX(7);\n    if (!shift) return;\n"),
+        ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
+    ("a cluster of 4 of 128 threads", [
+        ("constexpr int CLUSTER = 2;", "constexpr int CLUSTER = 4;"),
+        ("constexpr int THREADS = 256;", "constexpr int THREADS = 128;")]),
+    ("a cluster of 4", [("constexpr int CLUSTER = 2;",
+                         "constexpr int CLUSTER = 4;")]),
+    ("a cluster of 2 of 512 threads", [
+        ("constexpr int THREADS = 256;", "constexpr int THREADS = 512;")]),
+    # the parent's shape: one CTA of 512 threads a frame
+    ("one CTA of 512 threads", [
+        ("constexpr int CLUSTER = 2;", "constexpr int CLUSTER = 1;"),
+        ("constexpr int THREADS = 256;", "constexpr int THREADS = 512;")]),
+    # every candidate written once, shifted, after the cluster barrier
+    ("writes after the barrier", [
+        ("                    *reinterpret_cast<VecT*>(dst + (size_t)k * N "
+         "+ n + j) = q;", "                    (void)q;"),
+        ("            for (int k = 0; k < CAND; ++k) dst[(size_t)k * N + n] "
+         "= c[k];", "            (void)c;"),
+        ("    if (!shift) return;", "    shift = true;"),
+        ("                if (w[k] != 0)\n"
+         "                    *reinterpret_cast", "                *reinterpret_cast"),
+        ("if (w[k] != 0) dst[(size_t)k * N + n] = c.v[k] >> w[k];",
+         "dst[(size_t)k * N + n] = c.v[k] >> w[k];")]),
+]
+
+# K11: clock64 (warp 0: the first (row, window) pair's warp) at 4 the
+# stage's copies landed, 1 the windowed samples and flags in shared memory
+# (the rows' loads used), 2 its fmas done, 3 its tree done, 7 the end (the
+# last warp past the combine)
+K11_VARIANTS = [
+    ("base", []),
+    ("phases", [
+        ("namespace {\n", "namespace {\n" + PHASE_DEFS),
+        ("    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;\n"
+         "    const int N = a.N,",
+         "    PHSTART();\n"
+         "    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;\n"
+         "    const int N = a.N,"),
+        ("            cp_async_wait_all();\n            __syncthreads();\n",
+         "            cp_async_wait_all();\n            __syncthreads();\n"
+         "            PH(4);\n"),
+        ("            __syncthreads();\n            if (!active) continue;\n",
+         "            __syncthreads();\n            PH(1);\n"
+         "            if (!active) continue;\n"),
+        ("        // the trees of every lag side by side",
+         "        PH(2);\n        // the trees of every lag side by side"),
+        ("        __syncthreads();\n        // the combine",
+         "        PH(3);\n        __syncthreads();\n        // the combine"),
+        ("            *dst = s;\n        }\n    }\n}\n",
+         "            *dst = s;\n        }\n    }\n    PHMAX(7);\n}\n"),
+        ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
+    # every block walked (the same sums: a skipped block adds zeros)
+    ("no skip", [("if (lane == 0) s_flag[q][b] = any != 0u;",
+                  "if (lane == 0) s_flag[q][b] = 1;")]),
+    # a window's lags over warps: -5's in parts of 4 (4, 4, 1), -8's of 8
+    # (8, 5)
+    ("lag parts", [("return maxlag <= 12 ? maxlag + 1 : 12;",
+                    "return maxlag <= 8 ? 4 : maxlag <= 12 ? 8 : 12;")]),
+    ("a row a CTA", [("    int rows = MAX_ROWS;\n",
+                      "    int rows = 1;\n")]),
+    # the stage alone (a wrong result: no fmas, trees of zeros)
+    ("stage only", [("            if (!active) continue;\n",
+                     "            if (true) continue;\n")]),
+]
+
 # One thread's chain of dependent samples, as the recursion runs it: the
 # generic form (x = (int)(P >> sh) + r; P = q * x + c by mad.wide) and the
 # folded one (x = the low word of P >> sh by one funnel shift; P = q * x + c
@@ -1035,6 +1121,100 @@ def time_k7(libs: dict, inputs: dict) -> None:
                               "ptxas": regs}), flush=True)
 
 
+def front_inputs() -> dict:
+    """The arguments of K10 and K11 on the track's first 64 frames at -5
+    and at -8 in the ops form (chip_smoke.py phase 6's inputs; K10 on the
+    int16 upload): {label: {"k10": (pcm, cfg), "k11": (x, windows,
+    combine, O)}}."""
+    import torch
+    out = {}
+    for label, seen in search_inputs().items():
+        pcm, cfg = seen["k10"]
+        out[label] = {"k10": (pcm.to(torch.int16).contiguous(), cfg),
+                      "k11": tuple(a.contiguous() if isinstance(
+                          a, torch.Tensor) else a for a in seen["k11"])}
+    return out
+
+
+def time_k10(libs: dict, inputs: dict) -> None:
+    """Time each built K10 library on each input's K10 arguments, in turns
+    with "base"; each output held against the plain version."""
+    import torch
+
+    from chip_smoke import front_calls
+    from flac_tpu_torch.ops import candidates_cuda
+    stream = torch.cuda.current_stream().cuda_stream
+    p, i = ctypes.c_void_p, ctypes.c_int
+    _, plain = front_calls("k10")
+    for label, seen in inputs.items():
+        pcm, cfg = seen["k10"]
+        want = plain(pcm, cfg)
+        outs = {name: candidates_cuda.launch_arguments(pcm, cfg)
+                for name in libs}
+        for name, (lib, regs) in libs.items():
+            lib.flac_channel_candidates.argtypes = [p] * 5 + [i] * 7 + [p]
+
+            def call(lib_, args):
+                code = lib_.flac_channel_candidates(*args, stream)
+                if code:
+                    raise SystemExit(f"K10 {name!r}: CUDA error {code}")
+            run = lambda lib=lib, n=name: call(lib, outs[n][1])  # noqa: E731
+            run()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(outs[name][0], want))
+            ms = device_ms(run, "channel_candidates_kernel")
+            base = device_ms(lambda: call(libs["base"][0], outs["base"][1]),
+                             "channel_candidates_kernel")
+            extra = (phases(lib, run, candidates_cuda.ctas(
+                pcm.shape[0], pcm.shape[1], cfg))
+                if name == "phases" else {})
+            print(json.dumps({"kernel": "K10", "variant": name,
+                              "input": label, "B": pcm.shape[0],
+                              "N": pcm.shape[2], "dtype": str(pcm.dtype),
+                              "ms": ms, "base_ms": base,
+                              "same_as_plain": same, **extra,
+                              "ptxas": regs}), flush=True)
+
+
+def time_k11(libs: dict, inputs: dict) -> None:
+    """Time each built K11 library on each input's K11 arguments, in turns
+    with "base"; each output held against the plain version."""
+    import torch
+
+    from flac_tpu_torch.ops import autoc_cuda, lpc
+    stream = torch.cuda.current_stream().cuda_stream
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for label, seen in inputs.items():
+        x, w, c, O = seen["k11"]
+        want = lpc.autocorrelation_plain(x, w, c, O)
+        outs = {name: autoc_cuda.launch_arguments(x, w, c, O)
+                for name in libs}
+        plan = autoc_cuda.plan(x.shape[0] * x.shape[1], x.shape[2],
+                               w.shape[0], O)
+        for name, (lib, regs) in libs.items():
+            lib.flac_window_autoc.argtypes = [p] * 4 + [i] * 6 + [p]
+
+            def call(lib_, args):
+                code = lib_.flac_window_autoc(*args, stream)
+                if code:
+                    raise SystemExit(f"K11 {name!r}: CUDA error {code}")
+            run = lambda lib=lib, n=name: call(lib, outs[n][1])  # noqa: E731
+            run()
+            torch.cuda.synchronize()
+            same = torch.equal(outs[name][0], want)
+            ms = device_ms(run, "window_autoc_kernel")
+            base = device_ms(lambda: call(libs["base"][0], outs["base"][1]),
+                             "window_autoc_kernel")
+            extra = (phases(lib, run, plan["ctas"])
+                     if name == "phases" else {})
+            print(json.dumps({"kernel": "K11", "variant": name,
+                              "input": label, "rows": x.shape[0] * x.shape[1],
+                              "windows": w.shape[0], "lags": O + 1,
+                              "ms": ms, "base_ms": base,
+                              "same_as_plain": same, **extra,
+                              "ptxas": regs}), flush=True)
+
+
 def build_chain_probe() -> ctypes.CDLL:
     """nvcc the chain probe (CHAIN_PROBE) into a library of its own."""
     from flac_tpu_torch import kernels
@@ -1148,6 +1328,8 @@ def main() -> int:
     ap.add_argument("--k5", action="store_true")
     ap.add_argument("--k6", action="store_true")
     ap.add_argument("--k7", action="store_true")
+    ap.add_argument("--k10", action="store_true")
+    ap.add_argument("--k11", action="store_true")
     ap.add_argument("--sass", metavar="DIR",
                     help="write cuobjdump's SASS of the K3 variants' "
                          "narrow order-8 kernel (the main path's) to "
@@ -1156,7 +1338,8 @@ def main() -> int:
                     metavar="LABEL=DIR",
                     help="also time DIR's pack_fields64.cu, rice_codes.cu, "
                          "restore.cu, assemble_fields.cu, frame_crc.cu, "
-                         "lpc_coeffs.cu and rice_cost.cu")
+                         "lpc_coeffs.cu, rice_cost.cu, "
+                         "channel_candidates.cu and window_autoc.cu")
     args = ap.parse_args()
     others = dict(o.split("=", 1) for o in args.other)
     import torch
@@ -1169,18 +1352,19 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     every = not (args.k1 or args.k2 or args.k3 or args.k4 or args.k5
-                 or args.k6 or args.k7)
-    do_k1, do_k2, do_k3, do_k4, do_k5, do_k6, do_k7 = (
+                 or args.k6 or args.k7 or args.k10 or args.k11)
+    do_k1, do_k2, do_k3, do_k4, do_k5, do_k6, do_k7, do_k10, do_k11 = (
         every or args.k1, every or args.k2, every or args.k3,
         every or args.k4, every or args.k5, every or args.k6,
-        every or args.k7)
+        every or args.k7, every or args.k10, every or args.k11)
     with ThreadPoolExecutor(8) as pool:
         # the package's own kernels, which the inputs of K4-K7 (an encode
         # batch's ops form) launch, build beside the variants
         from chip_smoke import KERNEL_MODULES
         from flac_tpu_torch import kernels as package_kernels
         fp = pool.submit(package_kernels.load_all, list(KERNEL_MODULES)) \
-            if do_k4 or do_k5 or do_k6 or do_k7 else None
+            if do_k4 or do_k5 or do_k6 or do_k7 or do_k10 or do_k11 \
+            else None
         f1 = pool.submit(build, "pack_fields64", K1_VARIANTS, others) \
             if do_k1 else None
         f2 = pool.submit(build, "rice_codes", K2_VARIANTS, others) \
@@ -1195,6 +1379,10 @@ def main() -> int:
             if do_k6 else None
         f7 = pool.submit(build, "rice_cost", K7_VARIANTS, others) \
             if do_k7 else None
+        f10 = pool.submit(build, "channel_candidates", K10_VARIANTS,
+                          others) if do_k10 else None
+        f11 = pool.submit(build, "window_autoc", K11_VARIANTS, others) \
+            if do_k11 else None
         libs1 = f1.result() if f1 else {}
         libs2 = f2.result() if f2 else {}
         libs3 = f3.result() if f3 else {}
@@ -1202,6 +1390,8 @@ def main() -> int:
         libs5 = f5.result() if f5 else {}
         libs6 = f6.result() if f6 else {}
         libs7 = f7.result() if f7 else {}
+        libs10 = f10.result() if f10 else {}
+        libs11 = f11.result() if f11 else {}
         if fp:
             fp.result()
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
@@ -1269,6 +1459,11 @@ def main() -> int:
         time_k6(libs6, search)
     if do_k7:
         time_k7(libs7, {lv: seen["k7"] for lv, seen in search.items()})
+    front = front_inputs() if do_k10 or do_k11 else {}
+    if do_k10:
+        time_k10(libs10, {"-5": front["-5"]})
+    if do_k11:
+        time_k11(libs11, front)
     print(smi, flush=True)
     return 0
 

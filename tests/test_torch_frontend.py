@@ -317,19 +317,35 @@ def test_constants_mirror_the_sources():
     csrc = REPO / "flac_tpu_torch" / "csrc"
     k10 = (csrc / "channel_candidates.cu").read_text()
     assert f"constexpr int THREADS = {candidates_cuda.THREADS};" in k10
-    assert (f"constexpr int STAGE_BYTES = "
-            f"{candidates_cuda.STAGE_BYTES // 1024} * 1024;") in k10
+    assert f"constexpr int CLUSTER = {candidates_cuda.CLUSTER};" in k10
+    assert "const int share = ((N + CLUSTER - 1) / CLUSTER + 7) & ~7;" \
+        in k10
+    assert [candidates_cuda.share(n) for n in (1, 33, 1152, 4096)] \
+        == [8, 24, 576, 2048]
     k11 = (csrc / "window_autoc.cu").read_text()
-    for name, value in (("THREADS", autoc_cuda.THREADS),
+    for name, value in (("COLS", autoc_cuda.COLUMNS_A_LANE),
+                        ("LANES", autoc_cuda.LANES),
+                        ("THREADS", autoc_cuda.THREADS),
                         ("TILE", autoc_cuda.TILE),
-                        ("HALO", autoc_cuda.MAX_LAG)):
+                        ("HALO", autoc_cuda.MAX_LAG),
+                        ("MAX_ROWS", autoc_cuda.MAX_ROWS),
+                        ("WPASS", autoc_cuda.WPASS)):
         assert f"constexpr int {name} = {value};" in k11, name
-    assert autoc_cuda.THREADS == tlpc.AUTOC_COLUMNS
+    # a lane's columns times a warp's lanes: one block of the Gram product
+    assert autoc_cuda.COLUMNS_A_LANE * autoc_cuda.LANES \
+        == tlpc.AUTOC_COLUMNS
+    assert "return maxlag <= 12 ? maxlag + 1 : 12;" in k11
     for t in autoc_cuda.TEMPLATE_LAGS[:-1]:
-        assert f"if (a.O <= {t}) window_autoc_kernel<X, {t}>" in k11 \
-            or f"else if (a.O <= {t}) window_autoc_kernel<X, {t}>" in k11
+        assert f"if (a.O <= {t}) return launch_with<X, {t}>" in k11
     assert [autoc_cuda.template_lag(O) for O in (1, 8, 9, 12, 13, 32)] \
         == [8, 8, 12, 12, 32, 32]
+    assert [autoc_cuda.part_lags(O) for O in (8, 12, 32)] == [9, 13, 12]
+    # two rows a CTA: -5 (one window) 2 warps computing, -8 (six) 12
+    assert [(p["rows"], p["wpass"], p["parts"], p["ctas"])
+            for p in (autoc_cuda.plan(256, 4096, 1, 8),
+                      autoc_cuda.plan(256, 4096, 6, 12),
+                      autoc_cuda.plan(3, 4096, 2, 32))] \
+        == [(2, 1, 1, 128), (2, 6, 1, 128), (2, 2, 3, 2)]
     k12 = (csrc / "assign_channels.cu").read_text()
     assert f"constexpr int THREADS = {assign_cuda.THREADS};" in k12
     assert "__constant__ int CH0[4] = {%s};" % ", ".join(
@@ -337,11 +353,9 @@ def test_constants_mirror_the_sources():
     assert "__constant__ int CH1[4] = {%s};" % ", ".join(
         map(str, stereo._ASSIGN_CH1)) in k12
     cfg5 = EncoderConfig.from_preset(5).resolve()
-    assert candidates_cuda.staged(2, 4096, cfg5)
-    assert not candidates_cuda.staged(2, 8192, cfg5)
-    assert candidates_cuda.ctas(64, 2, cfg5) == 64
+    assert candidates_cuda.ctas(64, 2, cfg5) == 64 * candidates_cuda.CLUSTER
     assert candidates_cuda.ctas(64, 2, EncoderConfig.from_preset(
-        0).resolve()) == 128
+        0).resolve()) == 128 * candidates_cuda.CLUSTER
 
 
 def test_encode_ranges():
