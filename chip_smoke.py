@@ -340,21 +340,24 @@ K8_OPS_PER_LPC_SAMPLE = 5
 # candidate
 K9_OPS_PER_SAMPLE = 2
 K9_OPS_PER_CANDIDATE = 30
-K10_DESIGN = ("a cluster of 2 CTAs of 256 threads a frame, a share of "
-              "the samples a rank: a lane reads 4 samples of each row in "
-              "its uploaded type with one vector load and writes their "
-              "candidates as they are with 16-byte stores, each "
-              "candidate's OR a warp __reduce_or_sync then the warps', "
-              "the shares' ORs into every rank by st.shared::cluster and "
-              "one cluster barrier, __ffs; a candidate whose wasted bits "
-              "are not 0 written again, shifted")
-K11_DESIGN = ("a CTA of 384 threads two rows: the (row, window) pairs' "
-              "windowed samples staged in shared memory (the windows by "
-              "cp.async, every copy in flight at once), a block flagged "
-              "where not all zero; a warp a (row, window, lag part), lane "
-              "j the columns 4j..4j+3, 16-byte shared loads, only the "
-              "flagged blocks; a float64 reduce-scatter tree of shuffles, "
-              "the combine in ascending window order")
+K10_DESIGN = ("two CTAs of 512 threads a frame, each writing a part of "
+              "the samples: each reads the frame's rows in full in their "
+              "uploaded type, 4 samples of a row a load, each candidate's "
+              "OR a warp __reduce_or_sync then the warps', its part of "
+              "the rows kept in shared memory, __ffs; its part of the "
+              "shifted candidates written with 16-byte stores; no CTA "
+              "waits on another")
+K11_DESIGN = ("one window: a CTA of 128 threads a row, a thread a Gram "
+              "column, the row and the window loaded at once and their "
+              "products in shared memory, each column's float32 fmas over "
+              "its blocks, a warp's shuffle tree then the warps' halves; "
+              "several windows: a CTA of 384 threads two rows, the (row, "
+              "window) pairs' windowed samples staged in shared memory "
+              "(the windows by cp.async, every copy in flight at once), a "
+              "block flagged where not all zero, a warp a (row, window, "
+              "lag part), lane j the columns 4j..4j+3, 16-byte shared "
+              "loads, only the flagged blocks, a float64 reduce-scatter "
+              "tree of shuffles; the combine in ascending window order")
 K12_DESIGN = ("a CTA of 256 threads a (frame, output channel): the "
               "first-index argmin of the four totals (or the loose "
               "assignment) in every thread, the chosen candidate's fields "
@@ -2528,14 +2531,14 @@ def main() -> int:
                     f"{usage['candidate_residuals']} "
                     f"{usage['select_realize']}")
     # K10: int16 and int32 uploads x (mid-side, the 33-bit side, the
-    # channels passing through); K11: int32 and int64 signals x lag
-    # templates 8 and 12 (a warp every lag) and 32 (parts of 12 lags);
-    # K12: int32 and int64 signals
+    # channels passing through); K11: one window and several x int32 and
+    # int64 signals x lag templates 8, 12 and 32; K12: int32 and int64
+    # signals
     if len(usage["channel_candidates"]) != 6 \
-            or len(usage["window_autoc"]) != 2 * len(
+            or len(usage["window_autoc"]) != 4 * len(
                 autoc_cuda.TEMPLATE_LAGS) \
             or len(usage["assign_channels"]) != 2:
-        return fail(f"one of K10's six forms, K11's six or K12's two is "
+        return fail(f"one of K10's six forms, K11's twelve or K12's two is "
                     f"missing: {usage['channel_candidates']} "
                     f"{usage['window_autoc']} {usage['assign_channels']}")
     if any(a != b or a > 232448 for a, b in k3_smem.values()):
@@ -3556,6 +3559,7 @@ def main() -> int:
     # rounding, and the port never calls it)
     import torch.nn.functional as F
     kernels_front = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, key, mod, launches_main in (
             ("channel_candidates", "k10", candidates_cuda, k10_launches),
             ("window_autoc", "k11", autoc_cuda, k11_launches),
@@ -3590,7 +3594,12 @@ def main() -> int:
                 nops = B10 * N10 * K10_OPS_PER_SAMPLE
                 extra = {"frames": B10, "N": N10, "input_dtype":
                          str(pcm10.dtype), "candidates": CH10,
-                         "ctas": candidates_cuda.ctas(B10, C10, cfg10)}
+                         "ctas": candidates_cuda.ctas(B10, C10, cfg10,
+                                                      sms),
+                         "staged": candidates_cuda.staged(
+                             C10, N10, cfg10, candidates_cuda.split(
+                                 candidates_cuda.units(B10, C10, cfg10),
+                                 sms))}
             elif key == "k11":
                 x11, w11, c11, O11 = a
                 B11, CH11, N11 = x11.shape
@@ -3626,7 +3635,7 @@ def main() -> int:
                          "fma_bound_ms_all_products":
                              2 * products / NON_TENSOR_OPS_PER_S * 1e3,
                          "template_lag": autoc_cuda.template_lag(O11),
-                         "plan": autoc_cuda.plan(rows, N11, W11, O11)}
+                         "plan": autoc_cuda.plan(rows, W11, O11)}
             else:
                 choice12, x12, loose12 = a[:3]
                 B12, _, N12 = x12.shape

@@ -20,25 +20,22 @@
 // first differences in wrapping int32 and the sums in int64 (the plain
 // version's float64 sums are exact integers below 2^53).
 //
-// Design (Hopper): a thread block cluster of CLUSTER CTAs of THREADS
-// threads a frame on the mid-side path (a (frame, channel) otherwise),
-// launched by cudaLaunchKernelEx: rank r takes the r-th share of the
-// samples (a multiple of 8).  A lane takes 4 consecutive samples of each
-// row at a time (one 8-byte load of int16, or a 16-byte load of int32),
-// forms their candidates, ORs them into its own and writes them as they
-// are with 16-byte stores (4 int32 or 2 int64 a store), a warp's stores
-// contiguous, without waiting for the wasted bits, which are 0 in most
-// rows.  The ORs meet by a warp __reduce_or_sync, then the warps'; each
-// rank stores its ORs and nonzero bits into every rank's shared memory
-// (mapa / st.shared::cluster), and on the loose path its int64 sums of
-// first differences into rank 0's (the difference at a share's first
-// sample reads the sample before the share); after one cluster barrier
-// every rank finds the wasted bits (__ffs) from all the shares, rank 0
-// writes them with bps_eff and the loose assignment, and a rank writes
-// its share of a candidate again, shifted, where that candidate's wasted
-// bits are not 0 (the samples read again).  The bound is bytes: the batch
-// read once (1.0 MB of int16 at -5) and the candidates written (4.2 MB):
-// ~1.6 us at 3.35 TB/s.
+// Design (Hopper): a CTA of THREADS threads a frame on the mid-side path
+// (a (frame, channel) otherwise), and SPLIT of them where fewer frames
+// than SMs would leave SMs idle (-5's 64 frames; not the sharded form's
+// 256); CTA p writes the p-th part of the samples (share, a multiple of
+// 8) and no CTA waits on another.  Each reads the frame's rows in full,
+// 4 samples of a row a load (8 bytes of int16, or 16 of int32), and ORs
+// each candidate's samples (a warp __reduce_or_sync, then the warps'):
+// the other parts' reads cost bytes from L2, not a wait on another CTA.
+// It keeps its own part of the
+// rows in shared memory as int32 (a part past STAGE_BYTES reads its rows
+// again instead), takes the wasted bits with __ffs and writes its part of
+// every candidate's shifted samples with 16-byte stores (4 int32 or 2
+// int64 a store).  Part 0 writes the wasted bits and bps_eff, and on the
+// loose path sums the frame's first differences in int64.  The bound is
+// bytes: the batch read once (1.0 MB of int16 at -5) and the candidates
+// written (4.2 MB): ~1.6 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,12 +43,13 @@
 
 namespace {
 
-constexpr int THREADS = 256;            // threads a CTA
+constexpr int THREADS = 512;            // threads a CTA
 constexpr int WARPS = THREADS / 32;
-constexpr int CLUSTER = 2;              // CTAs a frame: each a share
+constexpr int SPLIT = 2;                // CTAs a frame with few frames
+// a part's staged rows at most, so that the dynamic and the static shared
+// memory stay within the 48 KB a launch takes without an opt-in
+constexpr int STAGE_BYTES = 40 * 1024;
 constexpr unsigned FULL = 0xFFFFFFFFu;
-
-#include "cluster.cuh"
 
 struct Args {
     const void* pcm;                    // [B, C, N] int16 or int32
@@ -60,7 +58,9 @@ struct Args {
     int* wasted;                        // [B, CH]
     int* loose;                         // [B] or null
     int C, N, bps;
-    int share;                          // samples a rank (a multiple of 8)
+    int split;                          // CTAs a frame: SPLIT or 1
+    int share;                          // samples a part (a multiple of 8)
+    int staged;                         // a part's rows in shared memory
     int vec;                            // vector loads and 16-byte stores
                                         // (N % 4 == 0, pcm and x aligned)
 };
@@ -100,94 +100,74 @@ __device__ __forceinline__ void load4(int (&v)[4], const int* p) {
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
-struct Smem {
-    unsigned warp_or[WARPS][4], warp_nz[WARPS];
-    long long warp_sum[WARPS][2];
-    unsigned rank_or[CLUSTER][4];       // every rank's ORs and nonzero bits
-    unsigned rank_nz[CLUSTER];
-    unsigned rank_sum[CLUSTER][4];      // in rank 0: every rank's sums
-};
-
-// MS: the stereo mid-side candidates (a cluster a frame, CH = 4); else a
-// channel passes through (a cluster a (frame, channel), CH = C).  X64:
+// MS: the stereo mid-side candidates (split CTAs a frame, CH = 4); else a
+// channel passes through (split CTAs a (frame, channel), CH = C).  X64:
 // the 33-bit side (int64 candidates, wasted bits over the int32 wrap).
 template <typename In, bool MS, bool X64>
 __global__ void __launch_bounds__(THREADS)
 channel_candidates_kernel(const Args a) {
     using Out = typename Cand<X64>::T;
-    constexpr int CAND = MS ? 4 : 1;    // candidates a cluster
-    constexpr int ROWS = MS ? 2 : 1;    // input rows a cluster
+    constexpr int CAND = MS ? 4 : 1;    // candidates a CTA
+    constexpr int ROWS = MS ? 2 : 1;    // input rows a CTA
     constexpr int V = 16 / sizeof(Out); // samples a 16-byte store
-    __shared__ Smem sh;
-    cluster_arrive_relaxed();
-    const int rank = cluster_rank(), nc = cluster_size();
+    extern __shared__ __align__(16) int s_rows[];    // [ROWS][share]
+    __shared__ unsigned s_or[WARPS][CAND], s_nz[WARPS];
+    __shared__ long long s_sum[WARPS][2];
+    __shared__ int s_w[CAND];
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     const int N = a.N, S = a.share;
-    const int unit = blockIdx.x / nc;
+    const int part = blockIdx.x % a.split, unit = blockIdx.x / a.split;
     const int frame = MS ? unit : unit / a.C;
     const int ch = MS ? 0 : unit % a.C;              // the first row's
     const int CH = MS ? 4 : a.C;
     const In* src = static_cast<const In*>(a.pcm)
         + ((size_t)frame * a.C + ch) * N;
-    const int n0 = min(N, rank * S), n1 = min(N, n0 + S);
-    auto row = [&](int k, int n) -> int { return src[(size_t)k * N + n]; };
+    const int p0 = min(N, part * S), p1 = min(N, p0 + S);
+    const bool staged = a.staged;
+    // sample n of input row k; n in this CTA's part once staged
+    auto row = [&](int k, int n) -> int {
+        return staged ? s_rows[k * S + n - p0] : (int)src[(size_t)k * N + n];
+    };
 
-    // the share once: each candidate's OR, and the candidates written as
-    // they are (the wasted bits are 0 in most rows: a candidate whose bits
-    // are not is written again, shifted, below)
-    Out* dst = static_cast<Out*>(a.x) + ((size_t)frame * CH + ch) * N;
+    // the frame's rows: each candidate's OR, and this part staged
     unsigned o[CAND], nz = 0;
 #pragma unroll
     for (int k = 0; k < CAND; ++k) o[k] = 0;
-    auto take = [&](const int (&v)[ROWS], Out (&c)[CAND]) {
+    auto take = [&](int l, int r) {
         if (MS) {
-            const Cand<X64> cd(v[0], v[ROWS - 1]);
+            const Cand<X64> c(l, r);
 #pragma unroll
-            for (int k = 0; k < CAND; ++k) {
-                c[k] = cd.v[k];
-                o[k] |= (unsigned)cd.v[k];
-                nz |= (unsigned)(cd.v[k] != 0) << k;
+            for (int k = 0; k < 4; ++k) {
+                o[k] |= (unsigned)c.v[k];
+                nz |= (unsigned)(c.v[k] != 0) << k;
             }
         } else {
-            c[0] = v[0];
-            o[0] |= (unsigned)v[0];
+            o[0] |= (unsigned)l;
         }
     };
-    if (a.vec) {                        // n0 and n1 are multiples of 4
-        using VecT = typename Vec<Out>::type;
-        for (int n = n0 + 4 * t; n < n1; n += 4 * THREADS) {
+    if (a.vec) {                        // N, p0 and p1 are multiples of 4
+        for (int n = 4 * t; n < N; n += 4 * THREADS) {
             int v[ROWS][4];
 #pragma unroll
             for (int k = 0; k < ROWS; ++k)
                 load4(v[k], src + (size_t)k * N + n);
-            Out c[4][CAND];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                int s[ROWS];
+            for (int e = 0; e < 4; ++e) take(v[0][e], v[ROWS - 1][e]);
+            if (staged && n >= p0 && n < p1) {
 #pragma unroll
-                for (int k = 0; k < ROWS; ++k) s[k] = v[k][e];
-                take(s, c[e]);
+                for (int k = 0; k < ROWS; ++k)
+                    *reinterpret_cast<int4*>(s_rows + k * S + n - p0) =
+                        make_int4(v[k][0], v[k][1], v[k][2], v[k][3]);
             }
-#pragma unroll
-            for (int k = 0; k < CAND; ++k)
-#pragma unroll
-                for (int j = 0; j < 4; j += V) {
-                    VecT q;
-#pragma unroll
-                    for (int e = 0; e < V; ++e)
-                        reinterpret_cast<Out*>(&q)[e] = c[j + e][k];
-                    *reinterpret_cast<VecT*>(dst + (size_t)k * N + n + j) = q;
-                }
         }
     } else {
-        for (int n = n0 + t; n < n1; n += THREADS) {
-            int v[ROWS];
-#pragma unroll
-            for (int k = 0; k < ROWS; ++k) v[k] = row(k, n);
-            Out c[CAND];
-            take(v, c);
-#pragma unroll
-            for (int k = 0; k < CAND; ++k) dst[(size_t)k * N + n] = c[k];
+        for (int n = t; n < N; n += THREADS) {
+            const int l = src[n], r = MS ? (int)src[N + n] : l;
+            take(l, r);
+            if (staged && n >= p0 && n < p1) {
+                s_rows[n - p0] = l;
+                if (MS) s_rows[S + n - p0] = r;
+            }
         }
     }
 #pragma unroll
@@ -195,21 +175,34 @@ channel_candidates_kernel(const Args a) {
     nz = __reduce_or_sync(FULL, nz);
     if (lane == 0) {
 #pragma unroll
-        for (int k = 0; k < CAND; ++k) sh.warp_or[warp][k] = o[k];
-        sh.warp_nz[warp] = nz;
+        for (int k = 0; k < CAND; ++k) s_or[warp][k] = o[k];
+        s_nz[warp] = nz;
     }
-    __syncthreads();                    // the warps' ORs
+    __syncthreads();
+    if (t < CAND) {
+        unsigned acc = 0, any = 0;
+        for (int j = 0; j < WARPS; ++j) { acc |= s_or[j][t]; any |= s_nz[j]; }
+        // the trailing zeros of the OR; on the 33-bit side a row whose low
+        // 32 bits are all zero but which is not all zero has 32
+        const int w = acc ? __ffs(acc) - 1 : (X64 && (any >> t & 1)) ? 32 : 0;
+        s_w[t] = w;
+        if (part == 0) {
+            const size_t at = (size_t)frame * CH + ch + t;
+            a.wasted[at] = w;
+            a.bps_eff[at] = a.bps + (MS && t == 3) - w;
+        }
+    }
 
-    // the loose mid-side sums of first differences over the share, from
-    // n = 1 (at the share's first sample, the sample before the share)
-    const bool with_loose = MS && a.loose != nullptr;
+    // the loose mid-side sums of the frame's first differences, from
+    // n = 1, in part 0
+    const bool with_loose = MS && a.loose != nullptr && part == 0;
     if (with_loose) {
         long long lr = 0, ms = 0;
-        for (int n = max(n0, 1) + t; n < n1; n += THREADS) {
-            const long long dl = (int)((unsigned)row(0, n)
-                                       - (unsigned)row(0, n - 1));
-            const long long dr = (int)((unsigned)row(1, n)
-                                       - (unsigned)row(1, n - 1));
+        for (int n = t + 1; n < N; n += THREADS) {
+            const long long dl = (int)((unsigned)src[n]
+                                       - (unsigned)src[n - 1]);
+            const long long dr = (int)((unsigned)src[N + n]
+                                       - (unsigned)src[N + n - 1]);
             lr += llabs(dl) + llabs(dr);
             ms += llabs((dl + dr) >> 1) + llabs(dl - dr);
         }
@@ -218,102 +211,51 @@ channel_candidates_kernel(const Args a) {
             lr += __shfl_down_sync(FULL, lr, h);
             ms += __shfl_down_sync(FULL, ms, h);
         }
-        if (lane == 0) {
-            sh.warp_sum[warp][0] = lr;
-            sh.warp_sum[warp][1] = ms;
-        }
-        __syncthreads();
+        if (lane == 0) { s_sum[warp][0] = lr; s_sum[warp][1] = ms; }
     }
-
-    // the share's ORs and nonzero bits into every rank, its sums into
-    // rank 0; one cluster barrier
-    cluster_wait();                     // every CTA of the cluster runs
-    if (t < CAND + 1) {
-        unsigned acc = 0;
-        for (int j = 0; j < WARPS; ++j)
-            acc |= t < CAND ? sh.warp_or[j][t] : sh.warp_nz[j];
-        unsigned* dst = t < CAND ? &sh.rank_or[rank][t] : &sh.rank_nz[rank];
-        for (int q = 0; q < nc; ++q) store_remote(dst, q, acc);
-    }
+    __syncthreads();
     if (with_loose && t == 0) {
         long long lr = 0, ms = 0;
         for (int j = 0; j < WARPS; ++j) {
-            lr += sh.warp_sum[j][0];
-            ms += sh.warp_sum[j][1];
-        }
-        const unsigned long long u[2] = {(unsigned long long)lr,
-                                         (unsigned long long)ms};
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-            store_remote(&sh.rank_sum[rank][2 * k], 0, (unsigned)u[k]);
-            store_remote(&sh.rank_sum[rank][2 * k + 1], 0,
-                         (unsigned)(u[k] >> 32));
-        }
-    }
-    cluster_barrier();
-
-    // the wasted bits from every share, in every rank
-    int w[CAND];
-    unsigned any = 0;
-    for (int q = 0; q < nc; ++q) any |= sh.rank_nz[q];
-#pragma unroll
-    for (int k = 0; k < CAND; ++k) {
-        unsigned acc = 0;
-        for (int q = 0; q < nc; ++q) acc |= sh.rank_or[q][k];
-        // the trailing zeros of the OR; on the 33-bit side a row whose low
-        // 32 bits are all zero but which is not all zero has 32
-        w[k] = acc ? __ffs(acc) - 1 : (X64 && (any >> k & 1)) ? 32 : 0;
-    }
-    if (rank == 0 && t < CAND) {
-        const size_t at = (size_t)frame * CH + ch + t;
-        a.wasted[at] = w[t];
-        a.bps_eff[at] = a.bps + (MS && t == 3) - w[t];
-    }
-    if (with_loose && rank == 0 && t == 0) {
-        long long lr = 0, ms = 0;
-        for (int q = 0; q < nc; ++q) {
-            lr += (long long)(((unsigned long long)sh.rank_sum[q][1] << 32)
-                              | sh.rank_sum[q][0]);
-            ms += (long long)(((unsigned long long)sh.rank_sum[q][3] << 32)
-                              | sh.rank_sum[q][2]);
+            lr += s_sum[j][0];
+            ms += s_sum[j][1];
         }
         a.loose[frame] = lr < ms ? 0 : 3;
     }
 
-    // the share's candidates again, shifted, where the wasted bits are
-    // not 0 (after the barrier above, so after this CTA's first writes)
-    bool shift = false;
+    // this part of every candidate's shifted samples
+    int w[CAND];
 #pragma unroll
-    for (int k = 0; k < CAND; ++k) shift |= w[k] != 0;
-    if (!shift) return;
-    if (a.vec) {                        // n0 and n1 are multiples of V
+    for (int k = 0; k < CAND; ++k) w[k] = s_w[k];
+    Out* dst = static_cast<Out*>(a.x) + ((size_t)frame * CH + ch) * N;
+    if (a.vec) {                        // p0 and p1 are multiples of V
         using VecT = typename Vec<Out>::type;
-        for (int n = n0 + V * t; n < n1; n += V * THREADS) {
+        for (int i = p0 / V + t; i < p1 / V; i += THREADS) {
             VecT out[CAND];
 #pragma unroll
             for (int j = 0; j < V; ++j) {
+                const int n = i * V + j;
                 if (MS) {
-                    const Cand<X64> c(row(0, n + j), row(1, n + j));
+                    const Cand<X64> c(row(0, n), row(1, n));
 #pragma unroll
                     for (int k = 0; k < 4; ++k)
                         reinterpret_cast<Out*>(&out[k])[j] = c.v[k] >> w[k];
                 } else {
                     reinterpret_cast<Out*>(&out[0])[j] =
-                        (Out)row(0, n + j) >> w[0];
+                        (Out)row(0, n) >> w[0];
                 }
             }
 #pragma unroll
             for (int k = 0; k < CAND; ++k)
-                if (w[k] != 0)
-                    *reinterpret_cast<VecT*>(dst + (size_t)k * N + n) = out[k];
+                reinterpret_cast<VecT*>(dst + (size_t)k * N)[i] = out[k];
         }
     } else {
-        for (int n = n0 + t; n < n1; n += THREADS) {
+        for (int n = p0 + t; n < p1; n += THREADS) {
             if (MS) {
                 const Cand<X64> c(row(0, n), row(1, n));
 #pragma unroll
                 for (int k = 0; k < 4; ++k)
-                    if (w[k] != 0) dst[(size_t)k * N + n] = c.v[k] >> w[k];
+                    dst[(size_t)k * N + n] = c.v[k] >> w[k];
             } else {
                 dst[n] = (Out)row(0, n) >> w[0];
             }
@@ -321,30 +263,20 @@ channel_candidates_kernel(const Args a) {
     }
 }
 
-template <typename In, bool MS, bool X64>
-cudaError_t launch_with(const Args& a, int units, cudaStream_t s) {
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CLUSTER;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(units * CLUSTER, 1, 1);
-    cfg.blockDim = dim3(THREADS, 1, 1);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = s;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, channel_candidates_kernel<In, MS, X64>,
-                              a);
-}
-
 template <typename In>
-int launch(const Args& a, int B, int ms, int x64, cudaStream_t s) {
-    const cudaError_t e = ms && x64 ? launch_with<In, true, true>(a, B, s)
-        : ms ? launch_with<In, true, false>(a, B, s)
-        : launch_with<In, false, false>(a, B * a.C, s);
-    if (e != cudaSuccess) return (int)e;
+int launch(const Args& a, int units, int ms, int x64, cudaStream_t s) {
+    const size_t smem =
+        a.staged ? (size_t)(ms ? 2 : 1) * a.share * sizeof(int) : 0;
+    const int ctas = units * a.split;
+    if (ms && x64)
+        channel_candidates_kernel<In, true, true>
+            <<<ctas, THREADS, smem, s>>>(a);
+    else if (ms)
+        channel_candidates_kernel<In, true, false>
+            <<<ctas, THREADS, smem, s>>>(a);
+    else
+        channel_candidates_kernel<In, false, false>
+            <<<ctas, THREADS, smem, s>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -364,14 +296,23 @@ int flac_channel_candidates(const void* pcm, void* x, void* bps_eff,
     if (B <= 0 || C <= 0) return 0;
     if (N < 1 || (ms && C != 2) || (x64 && !ms) || (loose && !ms))
         return (int)cudaErrorInvalidValue;
-    const int share = ((N + CLUSTER - 1) / CLUSTER + 7) & ~7;
+    // SPLIT CTAs a unit where one a unit would leave SMs idle
+    const int units = ms ? B : B * C;
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const int split = units < sms ? SPLIT : 1;
+    const int share = ((N + split - 1) / split + 7) & ~7;
+    const int staged = (ms ? 2 : 1) * (long long)share * 4 <= STAGE_BYTES;
     const int vec = N % 4 == 0 && ((uintptr_t)pcm & (in16 ? 7 : 15)) == 0
         && ((uintptr_t)x & 15) == 0;
     const Args a{pcm, x, (int*)bps_eff, (int*)wasted, (int*)loose, C, N, bps,
-                 share, vec};
+                 split, share, staged, vec};
     const cudaStream_t s = (cudaStream_t)stream;
-    return in16 ? launch<int16_t>(a, B, ms, x64, s)
-                : launch<int>(a, B, ms, x64, s);
+    return in16 ? launch<int16_t>(a, units, ms, x64, s)
+                : launch<int>(a, units, ms, x64, s);
 }
 
 }  // extern "C"

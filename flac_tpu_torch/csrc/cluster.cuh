@@ -1,10 +1,9 @@
 // Thread block cluster helpers shared by the kernels that launch clusters
-// (csrc/assemble_fields.cu, csrc/frame_crc.cu, csrc/channel_candidates.cu):
-// the CTA's rank and the cluster's size, the cluster barrier in its split
-// and whole forms, and a store into another CTA's shared memory (mapa /
-// st.shared::cluster).  Included inside each source's anonymous namespace.
-// kernels.py's build hash covers csrc/*.cuh, so an edit here rebuilds
-// every source that includes it.
+// (csrc/assemble_fields.cu, csrc/frame_crc.cu): the CTA's rank and the
+// cluster's size, the cluster barrier in its split and whole forms, and a
+// store into another CTA's shared memory (mapa / st.shared::cluster).
+// Included inside each source's anonymous namespace.  kernels.py's build
+// hash covers csrc/*.cuh, so an edit here rebuilds both.
 
 #pragma once
 

@@ -19,16 +19,19 @@
 // p = __fmaf_rn(d[n], d[n + l], p), rounded once to float32 (the plain
 // version emulates that fused rounding exactly in float64: _fma_float32).
 // A block whose first factors d[n] are all +-0 is skipped: each of its
-// steps adds an exact +-0, and p, which starts at +0, is never -0, so the
-// skip gives the same bits; past N every factor is 0.  The 128 columns
+// steps adds an exact +-0, which leaves a nonzero p as it is, so the skip
+// gives the same sums up to the sign of a zero one (p is -0 only where a
+// product underflowed to -0, which the plain version's next +0 would turn
+// into +0; the two compare equal); past N every factor is 0.  The 128 columns
 // meet in a fixed float64 tree: within each group of 32 columns c + c+16,
 // then c+8, c+4, c+2, c+1, then the halves of the 4 group sums (float64
 // addition commutes, so which operand comes first does not matter).  The
 // combine adds combine[a, w] * autoc_w (__dmul_rn, then __dadd_rn, never
 // contracted) in ascending w, from 0.
 //
-// Design (Hopper): a CTA of 384 threads takes two rows (the windows are
-// read once for both) and a pass of up to WPASS windows; each (row,
+// Design (Hopper), several windows (-6 to -8): a CTA of 384 threads takes
+// two rows (the windows are read once for both) and a pass of up to WPASS
+// windows; each (row,
 // window) pair's windowed samples are staged in dynamic shared memory a
 // tile of 4096 samples and a 32-sample halo at a time: the windows by
 // cp.async, every copy of the stage in flight at once, the rows' samples
@@ -40,10 +43,20 @@
 // shared loads (4 for 52 fmas at -8) and walks only the flagged blocks,
 // with no branch between a block's fmas.  The tree is a reduce-scatter of
 // shuffles that follows the fixed order (8 float64 shuffles a lag), every
-// lag's side by side.  Then the combine, a thread an output.  The bound
-// at -8 is the fmas that the nonzero blocks need (at the H100's 67 TFLOP/s
-// of float32 outside the tensor cores) or the bytes, at -5 the bytes (x
-// read once, 4.2 MB: ~1.3 us at 3.35 TB/s).
+// lag's side by side.  Then the combine, a thread an output.
+//
+// One window (-3 to -5): that layout leaves one computing warp a row, and
+// a lone warp issues its fmas at a fraction of the SM's rate, so a CTA of
+// 128 threads takes one row, a thread a column (4 warps a block): every
+// load of the row and the window in flight at once, their products into
+// shared memory, then thread t walks its column's blocks with 4-byte
+// shared loads (a tile whose windowed samples are all zero skipped); the
+// tree is a warp's shuffles, every lag side by side, then the 4 warps'
+// halves.
+//
+// The bound at -8 is the fmas that the nonzero blocks need (at the H100's
+// 67 TFLOP/s of float32 outside the tensor cores) or the bytes, at -5 the
+// bytes (x read once, 4.2 MB: ~1.3 us at 3.35 TB/s).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +74,9 @@ constexpr int WARPS = THREADS / 32;
 constexpr int MAX_ROWS = 2;             // rows a CTA
 constexpr int WPASS = 6;                // windows a pass, at most
 constexpr int PAIRS = MAX_ROWS * WPASS;
+constexpr int ONE_THREADS = 128;        // one window: a thread a column
+constexpr int ONE_QUADS =               // one window: staged quads a thread
+    ((TILE + HALO) / 4 + ONE_THREADS - 1) / ONE_THREADS;
 constexpr int UNITS = (TILE_BLOCKS + WARPS) / WARPS;  // stage units a warp
 constexpr int PAD = 16;                 // floats past the last region
 constexpr int MAX_APOD = 32;            // apodizations (combine rows)
@@ -72,6 +88,9 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 __host__ __device__ constexpr int part_lags(int maxlag) {
     return maxlag <= 12 ? maxlag + 1 : 12;
 }
+// a lag template's parts, two rows' worth, fit the CTA's warps
+static_assert(MAX_ROWS * ((HALO + part_lags(HALO)) / part_lags(HALO))
+              <= WARPS, "the lag parts of two rows fit a CTA");
 
 struct Args {
     const void* x;                      // [R, N] int32 or int64
@@ -80,7 +99,6 @@ struct Args {
     double* out;                        // [R, A, O + 1]
     int R, N, W, A, O;
     int vec;                            // 16-byte loads (N % 4 == 0, aligned)
-    int rows;                           // rows a CTA
     int wpass;                          // windows a pass
     int parts;                          // lag parts a window
     int region;                         // floats a (row, window) pair
@@ -211,17 +229,17 @@ window_autoc_kernel(const Args a) {
     __shared__ double s_comb[MAX_APOD * WPASS];      // a pass's combine
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     const int N = a.N, O = a.O, L1 = O + 1, W = a.W, A = a.A;
-    const int RG = a.rows, WB = a.wpass, P = a.parts, region = a.region;
+    const int WB = a.wpass, P = a.parts, region = a.region;
     const bool vec = a.vec;
-    const int row0 = blockIdx.x * RG;
-    const int nrows = min(RG, a.R - row0);
+    const int row0 = blockIdx.x * MAX_ROWS;
+    const int nrows = min(MAX_ROWS, a.R - row0);
     const X* x = static_cast<const X*>(a.x) + (size_t)row0 * N;
     const int tiles = (N + TILE - 1) / TILE;
     // this warp's (row, window slot, lag part)
     const int r = warp / (WB * P), wb = warp / P % WB, p = warp % P;
     const int pair = r * WB + wb;
     const int l0 = p * LP, nl = min(LP, L1 - l0);
-    const bool computes = warp < RG * WB * P && r < nrows;
+    const bool computes = warp < MAX_ROWS * WB * P && r < nrows;
 
     for (int w0 = 0; w0 < W; w0 += WB) {
         const int nw = min(WB, W - w0);
@@ -345,9 +363,88 @@ window_autoc_kernel(const Args a) {
     }
 }
 
+// One window (W == 1): a CTA a row, a thread a column.  Same sums, same
+// trees and the same combine as window_autoc_kernel.
+template <typename X, int MAXLAG>
+__global__ void __launch_bounds__(ONE_THREADS)
+window_autoc_kernel_one_window(const Args a) {
+    static_assert(ONE_THREADS == BLOCK, "a thread a column of a block");
+    __shared__ __align__(16) float s_d[ONE_QUADS * 4 * ONE_THREADS];
+    __shared__ double s_warp[ONE_THREADS / 32][MAXLAG + 1];
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int N = a.N, O = a.O, L1 = O + 1;
+    const bool vec = a.vec;
+    const X* x = static_cast<const X*>(a.x) + (size_t)blockIdx.x * N;
+    const float* win = a.windows;
+    float acc[MAXLAG + 1];
+#pragma unroll
+    for (int l = 0; l <= MAXLAG; ++l) acc[l] = 0.0f;
+    for (int base = 0; base < N; base += TILE) {
+        __syncthreads();                      // the last tile's reads done
+        // the tile and its halo: every load in flight, then the products
+        float4 xv[ONE_QUADS], wv[ONE_QUADS];
+#pragma unroll
+        for (int q = 0; q < ONE_QUADS; ++q) {
+            const int n = base + 4 * (t + q * ONE_THREADS);
+            xv[q] = load_x(x, n, N, vec);
+            if (vec) {
+                wv[q] = n < N ? __ldg(reinterpret_cast<const float4*>(win + n))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+            } else {
+                float v[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    v[e] = n + e < N ? win[n + e] : 0.f;
+                wv[q] = make_float4(v[0], v[1], v[2], v[3]);
+            }
+        }
+        bool nonzero = false;
+#pragma unroll
+        for (int q = 0; q < ONE_QUADS; ++q) {
+            const float4 d = make_float4(__fmul_rn(xv[q].x, wv[q].x),
+                                         __fmul_rn(xv[q].y, wv[q].y),
+                                         __fmul_rn(xv[q].z, wv[q].z),
+                                         __fmul_rn(xv[q].w, wv[q].w));
+            *reinterpret_cast<float4*>(s_d + 4 * (t + q * ONE_THREADS)) = d;
+            nonzero |= d.x != 0.f || d.y != 0.f || d.z != 0.f || d.w != 0.f;
+        }
+        // a tile whose windowed samples are all zero adds zeros: skipped
+        // (a test a block would cost the loop its pipelined loads)
+        const bool live = __syncthreads_or(nonzero);
+        // column t of each block of this tile, in ascending order
+        const int nblk = live
+            ? (min(TILE, N - base) + ONE_THREADS - 1) / ONE_THREADS : 0;
+        for (int k = 0; k < nblk; ++k) {
+            const int i = k * ONE_THREADS + t;
+            const float d0 = s_d[i];
+#pragma unroll
+            for (int l = 0; l <= MAXLAG; ++l)
+                if (l <= O) acc[l] = __fmaf_rn(d0, s_d[i + l], acc[l]);
+        }
+    }
+    // the tree: a warp's columns c + c+16, c+8, c+4, c+2, c+1, then the
+    // 4 groups' halves (float32 to float64 is exact); every lag of the
+    // template side by side (past O the sums are 0, and unused)
+#pragma unroll
+    for (int l = 0; l <= MAXLAG; ++l) {
+        double v = acc[l];
+#pragma unroll
+        for (int h = 16; h > 0; h >>= 1) v += __shfl_down_sync(FULL, v, h);
+        if (lane == 0) s_warp[warp][l] = v;
+    }
+    __syncthreads();
+    if (t < L1) {
+        const double v = (s_warp[0][t] + s_warp[2][t])
+            + (s_warp[1][t] + s_warp[3][t]);
+        double* out = a.out + (size_t)blockIdx.x * a.A * L1 + t;
+        for (int ai = 0; ai < a.A; ++ai)      // out[a] = 0 + c[a, 0] * v
+            out[(size_t)ai * L1] = __dadd_rn(0.0, __dmul_rn(a.combine[ai], v));
+    }
+}
+
 // the dynamic shared memory a launch asks for
 size_t smem_bytes(const Args& a) {
-    return ((size_t)a.rows * a.wpass * a.region + PAD) * sizeof(float);
+    return ((size_t)MAX_ROWS * a.wpass * a.region + PAD) * sizeof(float);
 }
 
 template <typename X, int MAXLAG>
@@ -359,13 +456,24 @@ int launch_with(const Args& a, cudaStream_t s) {
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)(((size_t)PAIRS * (TILE + HALO) + PAD) * sizeof(float)));
     if (opt_in != cudaSuccess) return (int)opt_in;
-    const int ctas = (a.R + a.rows - 1) / a.rows;
+    const int ctas = (a.R + MAX_ROWS - 1) / MAX_ROWS;
     window_autoc_kernel<X, MAXLAG><<<ctas, THREADS, smem_bytes(a), s>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <typename X, int MAXLAG>
+int launch_one_window(const Args& a, cudaStream_t s) {
+    window_autoc_kernel_one_window<X, MAXLAG><<<a.R, ONE_THREADS, 0, s>>>(a);
     return (int)cudaGetLastError();
 }
 
 template <typename X>
 int launch(const Args& a, cudaStream_t s) {
+    if (a.W == 1) {
+        if (a.O <= 8) return launch_one_window<X, 8>(a, s);
+        else if (a.O <= 12) return launch_one_window<X, 12>(a, s);
+        else return launch_one_window<X, 32>(a, s);
+    }
     if (a.O <= 8) return launch_with<X, 8>(a, s);
     else if (a.O <= 12) return launch_with<X, 12>(a, s);
     else return launch_with<X, 32>(a, s);
@@ -387,11 +495,8 @@ int flac_window_autoc(const void* x, const void* windows, const void* combine,
         return (int)cudaErrorInvalidValue;
     const int lp = part_lags(O <= 8 ? 8 : O <= 12 ? 12 : 32);
     const int parts = (O + lp) / lp;                 // ceil((O + 1) / lp)
-    if (parts > WARPS) return (int)cudaErrorInvalidValue;
-    int rows = MAX_ROWS;
-    if (rows * parts > WARPS) rows = 1;
     int wpass = W < WPASS ? W : WPASS;
-    while (rows * wpass * parts > WARPS) --wpass;
+    while (MAX_ROWS * wpass * parts > WARPS) --wpass;
     const int blocks = (N + BLOCK - 1) / BLOCK;
     const int region = (blocks < TILE_BLOCKS ? blocks : TILE_BLOCKS) * BLOCK
         + HALO;
@@ -399,7 +504,7 @@ int flac_window_autoc(const void* x, const void* windows, const void* combine,
                  (double*)out, R, N, W, A, O,
                  (int)(N % 4 == 0 && ((uintptr_t)x & 15) == 0
                        && ((uintptr_t)windows & 15) == 0),
-                 rows, wpass, parts, region};
+                 wpass, parts, region};
     const cudaStream_t s = (cudaStream_t)stream;
     return x64 ? launch<long long>(a, s) : launch<int>(a, s);
 }

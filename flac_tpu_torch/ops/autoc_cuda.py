@@ -7,9 +7,10 @@ rows float32(x) * windows, flac_tpu/ops/lpc.py:64 autocorrelation and
 :109 autocorrelation_mxu, the einsum by the [A, W] combine matrix), which
 XLA fuses into the jitted encode_batch and the port ran op by op: a Gram
 matmul, then a diagonal, a cast and a sum a lag (some thirty-five small
-kernels a -5 batch, fifty at -8).  The source is csrc/window_autoc.cu: a
-CTA of 384 threads takes two (frame, channel candidate) rows (the
-windows are read once for both) and a pass of up to 6 windows; each
+kernels a -5 batch, fifty at -8).  The source is csrc/window_autoc.cu.
+With several windows (-6 to -8) a CTA of 384 threads takes two (frame,
+channel candidate) rows (the windows are read once for both) and a pass
+of up to 6 windows; each
 (row, window) pair's windowed samples are staged in shared memory a tile
 of 4096 samples and a 32-sample halo at a time (the windows by cp.async,
 every copy in flight at once, the rows by 16-byte loads meanwhile), each
@@ -19,12 +20,17 @@ takes a (row, window, lag part): lane j the four consecutive columns
 for each lag of its part, so one warp covers a block; 16-byte shared
 loads, only the flagged blocks (a skipped block adds an exact zero), a
 float64 reduce-scatter of shuffles in the plain version's tree order, the
-combine in ascending window order.  Its arithmetic is ops/lpc.py
+combine in ascending window order.  With one window (-3 to -5) that
+layout leaves a lone computing warp a row, so a CTA of 128 threads takes
+one row, a thread a column: the row and the window loaded at once, their
+products into shared memory, 4-byte shared loads (a tile whose windowed
+samples are all zero skipped).  Its arithmetic is ops/lpc.py
 autocorrelation_plain's, the plain version, operation for operation
 (float32 windowed samples, each column's float32 fused multiply-adds over
 its blocks in ascending order, which the plain version emulates exactly,
 a fixed float64 tree over the columns, the combine in ascending window
-order), so the two agree bit for bit.
+order), so the two agree bit for bit (a skipped block's zeros aside,
+which can change only the sign of a column sum that is zero).
 
 Bound: at -5 a batch reads x ([64, 4, 4096] int32, 4.2 MB) once: ~1.3 us
 at 3.35 TB/s (the NVIDIA H100 SXM data sheet's rate); at -8 its fmas
@@ -57,6 +63,7 @@ _LIB_NAME = "window_autoc"
 COLUMNS_A_LANE = 4       # consecutive Gram columns a lane (COLS)
 LANES = 32               # lanes a warp: a warp covers a Gram block
 THREADS = 384            # threads a CTA (THREADS in the source)
+ONE_THREADS = 128        # threads a CTA with one window (ONE_THREADS)
 TILE = 4096              # samples a staged tile (TILE in the source)
 MAX_LAG = 32             # the largest lag (HALO in the source)
 MAX_ROWS = 2             # rows a CTA (MAX_ROWS in the source)
@@ -92,24 +99,20 @@ def part_lags(max_lag: int) -> int:
     return t + 1 if t <= 12 else 12
 
 
-def plan(R: int, N: int, W: int, max_lag: int) -> dict:
-    """The launch's layout, as flac_window_autoc derives it: rows a CTA,
-    windows a pass, lag parts a window, the CTAs, the warps that compute,
-    the floats a (row, window) pair stages and the dynamic shared
-    memory."""
+def plan(R: int, W: int, max_lag: int) -> dict:
+    """The launch's layout, as flac_window_autoc chooses it: threads and
+    rows a CTA, windows a pass, lag parts a window and the CTAs (one
+    window: a CTA of ONE_THREADS a row)."""
+    if W == 1:
+        return {"threads": ONE_THREADS, "rows": 1, "wpass": 1, "parts": 1,
+                "ctas": R}
     lp = part_lags(max_lag)
     parts = -(-(max_lag + 1) // lp)
-    rows = MAX_ROWS if MAX_ROWS * parts <= THREADS // 32 else 1
     wpass = min(W, WPASS)
-    while rows * wpass * parts > THREADS // 32:
+    while MAX_ROWS * wpass * parts > THREADS // 32:
         wpass -= 1
-    blocks = -(-N // (COLUMNS_A_LANE * LANES))
-    region = min(blocks, TILE // (COLUMNS_A_LANE * LANES)) \
-        * COLUMNS_A_LANE * LANES + MAX_LAG
-    return {"rows": rows, "wpass": wpass, "parts": parts,
-            "ctas": -(-R // rows), "compute_warps": rows * wpass * parts,
-            "region": region,
-            "smem": (rows * wpass * region + 16) * 4}
+    return {"threads": THREADS, "rows": MAX_ROWS, "wpass": wpass,
+            "parts": parts, "ctas": -(-R // MAX_ROWS)}
 
 
 def check_arguments(x, windows, combine, max_lag: int) -> None:

@@ -7,18 +7,16 @@ int32 (flac_tpu/encoder.py:147), and on the loose mid-side path
 loose_assignment's sums (stereo.py:93-106), which XLA fuses into the
 jitted encode_batch and the port ran op by op: some fifteen small kernels
 a batch (the cast, the stack, a tree of ORs, the bit length, the shift).
-The source is csrc/channel_candidates.cu: a thread block cluster of 2
-CTAs of 256 threads a frame (a (frame, channel) where the channels pass
-through), rank r the r-th share of the samples; a lane reads 4 samples of
-each row at a time in the uploaded type (int16 or int32) with one vector
-load, writes their candidates as they are with 16-byte stores (the
-wasted bits are 0 in most rows) and ORs them (a warp reduction, then the
-warps'); each rank stores its ORs into every rank's shared memory
-(st.shared::cluster), and after one cluster barrier every rank takes the
-wasted bits with __ffs from all the shares and writes its share of a
-candidate again, shifted, where they are not 0; on the loose path each
-rank sums its share's first differences in int64 and rank 0 adds the
-shares.
+The source is csrc/channel_candidates.cu: a CTA of 512 threads a frame
+(a (frame, channel) where the channels pass through), and two where fewer
+frames than SMs would leave SMs idle (-5's 64 frames, not the sharded
+form's 256: `split`); each reads the frame's rows in full in the uploaded
+type (int16 or int32), 4 samples of a row a load, and ORs each
+candidate's samples (a warp reduction, then the warps'), keeps its own
+part of the rows (share(N) samples) in shared memory, takes the wasted
+bits with __ffs and writes its part of each candidate's shifted samples
+with 16-byte stores; no CTA waits on another.  On the loose path the
+first CTA of a frame also sums the first differences in int64.
 Every quantity is an integer, so the kernel
 equals its plain versions (models/stereo.py build_channel_candidates_plain
 and loose_assignment) bit for bit.
@@ -47,8 +45,9 @@ from .. import kernels
 SOURCE = "flac_tpu_torch/csrc/channel_candidates.cu"
 REPLACES = "flac_tpu/models/stereo.py:41"   # build_channel_candidates, :29-90
 _LIB_NAME = "channel_candidates"
-THREADS = 256            # threads a CTA (THREADS in the source)
-CLUSTER = 2              # CTAs a frame, each a share (the source's)
+THREADS = 512            # threads a CTA (THREADS in the source)
+SPLIT = 2                # CTAs a frame with few frames (the source's)
+STAGE_BYTES = 40 * 1024  # a part's staged rows at most (the source's)
 
 launches = 0          # kernel launches of K10 in this process
 captured = 0          # K10 launches recorded into CUDA graphs (not run)
@@ -75,15 +74,35 @@ def forms(C: int, cfg) -> tuple:
     return ms, ms and cfg.max_subframe_bps > 32, ms and cfg.loose_mid_side
 
 
-def share(N: int) -> int:
-    """The samples a rank of the cluster takes (a multiple of 8)."""
-    return (-(-N // CLUSTER) + 7) // 8 * 8
+def units(B: int, C: int, cfg) -> int:
+    """A launch's units: frames on the mid-side path, else (frame,
+    channel)s."""
+    return B if forms(C, cfg)[0] else B * C
 
 
-def ctas(B: int, C: int, cfg) -> int:
-    """The launch's grid: a cluster of CLUSTER CTAs a frame on the
-    mid-side path, else a cluster a (frame, channel)."""
-    return (B if forms(C, cfg)[0] else B * C) * CLUSTER
+def split(n_units: int, sms: int) -> int:
+    """CTAs a unit on a card of `sms` SMs: SPLIT where one CTA a unit would
+    leave SMs idle, else 1 (the source's rule)."""
+    return SPLIT if n_units < sms else 1
+
+
+def share(N: int, parts: int) -> int:
+    """The samples of a CTA's part when a unit takes `parts` CTAs (a
+    multiple of 8)."""
+    return (-(-N // parts) + 7) // 8 * 8
+
+
+def staged(C: int, N: int, cfg, parts: int) -> bool:
+    """Whether a CTA keeps its part of the rows in shared memory (else it
+    reads them again for the writes)."""
+    return (2 if forms(C, cfg)[0] else 1) * share(N, parts) * 4 \
+        <= STAGE_BYTES
+
+
+def ctas(B: int, C: int, cfg, sms: int) -> int:
+    """The launch's grid on a card of `sms` SMs."""
+    n = units(B, C, cfg)
+    return n * split(n, sms)
 
 
 def check_arguments(pcm) -> None:

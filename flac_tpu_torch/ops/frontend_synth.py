@@ -20,11 +20,13 @@ loose path at -1 and -4 (near-mono and independent frames, both
 assignments) and at 32 bits (first differences that wrap int32); the
 channels passing through (mono 24-bit, 6 channels at 20 bits, -0);
 N of 1, 33, 200, 1153, 4048, 4095, 4096, 8192 stereo and 16384 mono
-(several steps a lane); for the cluster's shares, a
-frame whose only odd sample (of L; of R a sample 2 mod 4) opens a rank's
-share, so that the wasted bits come from one rank alone, and loose frames
-whose one large first difference straddles a share boundary (it decides
-the assignment).
+(several steps a lane) and 32768 mono (a part of the frame too large to
+keep in shared memory); for the two CTAs' parts of a frame
+(candidates_cuda.share), frames whose only odd sample (of L; of R a
+sample 2 mod 4) opens or closes a part, so that the wasted bits of both
+parts come from one part alone, and loose frames whose one large first
+difference is the first of a part, across its boundary (it decides the
+assignment).
 
 K11 (`autoc_cases`): the -5 bank (one window, lags to 8) and the -8 bank
 (subdivide_tukey(3): 6 windows, 9 apodizations, lags to 12) at N = 4096;
@@ -36,7 +38,10 @@ the skipped zero blocks, a -8 row silent over its first half (but three
 lone samples, none a lane's first of four), a bank with
 punchout_tukey windows (a zero hole inside the row) and the -8 bank at
 N = 1000 (partial windows that start and end inside a block of 128); and
-order 32 at N = 4096 (-l 32: the template of 32 at full width).
+order 32 at N = 4096 (-l 32: the template of 32 at full width).  One
+window takes a kernel of its own (a CTA a row), so the -5 bank also has
+a row silent over its first half, the 33-bit side's int64 rows and order
+32 at N = 4096.
 
 K12 (`assign_cases`): random subframe choices of the four candidates
 with small bit counts (many exact ties: all four totals equal, L + S
@@ -59,6 +64,7 @@ import torch
 from .. import format as fmt
 from ..config import EncoderConfig
 from ..models.subframe import SubframeChoice
+from . import candidates_cuda
 from . import lpc as lpc_ops
 
 
@@ -158,23 +164,38 @@ def candidate_cases() -> list:
     add("mono 16-bit, N=16384 (rows read again)",
         candidate_batch(15, B=2, C=1, N=16384, bps=16),
         _config(5, 16384, channels=1), np.int16)
-    # the cluster's shares (a quarter of N, a multiple of 8, a rank): L's
-    # only odd sample and R's only sample 2 mod 4 each open a share
+    # a part past STAGE_BYTES (candidates_cuda.staged): its rows read again
+    add("mono 16-bit, N=32768 (a part's rows read again)",
+        candidate_batch(17, B=1, C=1, N=32768, bps=16),
+        _config(5, 32768, channels=1), np.int16)
+    # as many frames as an H100 has SMs and more: one CTA a frame
+    # (candidates_cuda.split)
+    add("-5, 140 frames of 64 (one CTA a frame)",
+        candidate_batch(18, B=140, C=2, N=64, bps=16), _config(5, 64),
+        np.int16)
+    # the CTAs' parts of a frame (candidates_cuda.share: the second starts
+    # at s; a "rank's share" is a part): L's only odd sample and R's only
+    # sample 2 mod 4 open a part (s, 0) or close one (s - 1, N - 1), so
+    # that the other CTA's writes hang on a sample of this part
     rng = np.random.default_rng(16)
     po = np.stack([2 * rng.integers(-8000, 8000, (2, 4096)),
                    4 * rng.integers(-4000, 4000, (2, 4096))], axis=1)
-    po[0, 0, 1024] += 1
-    po[0, 1, 3072] += 2
-    po[1, 0, 2048] += 1
+    s = candidates_cuda.share(4096, candidates_cuda.SPLIT)
+    po[0, 0, s] += 1
+    po[0, 1, 0] += 2
+    po[1, 0, s - 1] += 1
+    po[1, 1, 4095] += 2
     add("-5, wasted bits from one rank's share, N=4096", po,
         _config(5, 4096), np.int16)
-    # loose frames whose one nonzero first difference is at a share's
-    # first sample: dL alone makes the frame independent, 0 without it
+    # loose frames whose one nonzero first difference is at the second
+    # part's first sample (it reads the first part's last): it alone
+    # decides the frame
     pb = np.zeros((3, 2, 1152), np.int64)
-    pb[0, 0, 288:] = 1000
-    pb[1, 1, 576:] = -700
-    pb[2, 0, 864:] = 30000
-    pb[2, 1, 864:] = -30000
+    s = candidates_cuda.share(1152, candidates_cuda.SPLIT)
+    pb[0, 0, s:] = 1000
+    pb[1, 1, s:] = -700
+    pb[2, 0, s:] = 30000
+    pb[2, 1, s:] = -30000
     add("-4 loose, a first difference across a share boundary, N=1152", pb,
         _config(4, 1152), np.int16)
     return out
@@ -252,6 +273,15 @@ def autoc_cases() -> list:
         autoc_batch(34, B=1, CH=2, N=1000, bps=17), 8, 1000)
     add("-8 -l 32, N=4096 (the template of 32)",
         autoc_batch(35, B=1, CH=2, N=4096, bps=17), 8, 4096,
+        max_lpc_order=32)
+    # one window (a CTA a row): zero blocks in a live tile (summed), the
+    # 33-bit side's int64 rows, the template of 32
+    add("-5, a row silent over its first half, N=4096", xh, 5, 4096)
+    add("-5, 33-bit side (int64), N=1152",
+        autoc_batch(36, B=2, CH=4, N=1152, bps=33, x64=True), 5, 1152,
+        bps=32)
+    add("-5 -l 32, N=4096 (one window, the template of 32)",
+        autoc_batch(37, B=1, CH=2, N=4096, bps=17), 5, 4096,
         max_lpc_order=32)
     return out
 

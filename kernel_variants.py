@@ -6,6 +6,9 @@
                                           # --k10, --k11; several may be
                                           # given)
     python3 kernel_variants.py --other "old=DIR"  # and DIR/*.cu as they are
+    python3 kernel_variants.py --k11 --other "old=DIR" --pairs 10
+                                          # and K10/K11 against DIR's in
+                                          # 10 alternating pairs
 
 Each variant is the kernel's source with one change (a constant, a part of
 the work cut out or moved, or timestamps), built by nvcc into a library of
@@ -22,8 +25,9 @@ track's first 64 frames at -5 (K6: 256 problems of order 8; K7: 1536 rows)
 and at -8 (2304 problems of order 12; 3584 rows), K10 and K11 on the
 same frames' front of the search as chip_smoke.py phase 6 takes it (K10:
 the -5 batch uploaded as int16; K11: the -5 and -8 rows, windows and
-combine), each variant's output held against the plain version
-(`same_as_plain`) before it is timed.  Before K3's variants,
+combine) and on the -5 batch four times over (256 frames, the sharded
+form's batch; K10 on int32), each variant's output held against the
+plain version (`same_as_plain`) before it is timed.  Before K3's variants,
 a one-thread
 probe times the recursion's chain (cycles a sample, generic and folded,
 and the SM clock); each K3 line carries the chain floor it gives,
@@ -537,60 +541,49 @@ K6_VARIANTS = [
                        "            s = __dadd_rn(s, __shfl_sync(FULL, prod, j % G, G));\n")]),
 ]
 
-# K10: clock64 at 1 the share read, ORed in each warp and its candidates
-# stored as they are, 2 the cluster barrier passed (the shares' ORs in
-# every rank), 7 the last warp's wasted bits known (the end where no
-# candidate is shifted)
+# K10: clock64 at 1 the frame read and ORed (the warps' ORs met), 2 the
+# wasted bits known, 7 the end (the last warp past its stores)
 K10_VARIANTS = [
     ("base", []),
     ("phases", [
         ("namespace {\n", "namespace {\n" + PHASE_DEFS),
-        ("    cluster_arrive_relaxed();\n    const int rank",
-         "    PHSTART();\n    cluster_arrive_relaxed();\n    const int rank"),
-        ("    __syncthreads();                    // the warps' ORs\n",
-         "    __syncthreads();\n    PH(1);\n"),
-        ("    cluster_barrier();\n\n    // the wasted bits",
-         "    cluster_barrier();\n    PH(2);\n\n    // the wasted bits"),
-        ("    if (!shift) return;\n",
-         "    PHMAX(7);\n    if (!shift) return;\n"),
+        ("    const int N = a.N, S = a.share;\n",
+         "    PHSTART();\n    const int N = a.N, S = a.share;\n"),
+        ("        s_nz[warp] = nz;\n    }\n    __syncthreads();\n",
+         "        s_nz[warp] = nz;\n    }\n    __syncthreads();\n"
+         "    PH(1);\n"),
+        ("    // this part of every candidate's shifted samples\n",
+         "    PH(2);\n    // this part of every candidate's shifted samples\n"),
+        ("    }\n}\n\ntemplate <typename In>\nint launch(",
+         "    }\n    PHMAX(7);\n}\n\ntemplate <typename In>\nint launch("),
         ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
-    ("a cluster of 4 of 128 threads", [
-        ("constexpr int CLUSTER = 2;", "constexpr int CLUSTER = 4;"),
-        ("constexpr int THREADS = 256;", "constexpr int THREADS = 128;")]),
-    ("a cluster of 4", [("constexpr int CLUSTER = 2;",
-                         "constexpr int CLUSTER = 4;")]),
-    ("a cluster of 2 of 512 threads", [
-        ("constexpr int THREADS = 256;", "constexpr int THREADS = 512;")]),
-    # the parent's shape: one CTA of 512 threads a frame
-    ("one CTA of 512 threads", [
-        ("constexpr int CLUSTER = 2;", "constexpr int CLUSTER = 1;"),
-        ("constexpr int THREADS = 256;", "constexpr int THREADS = 512;")]),
-    # every candidate written once, shifted, after the cluster barrier
-    ("writes after the barrier", [
-        ("                    *reinterpret_cast<VecT*>(dst + (size_t)k * N "
-         "+ n + j) = q;", "                    (void)q;"),
-        ("            for (int k = 0; k < CAND; ++k) dst[(size_t)k * N + n] "
-         "= c[k];", "            (void)c;"),
-        ("    if (!shift) return;", "    shift = true;"),
-        ("                if (w[k] != 0)\n"
-         "                    *reinterpret_cast", "                *reinterpret_cast"),
-        ("if (w[k] != 0) dst[(size_t)k * N + n] = c.v[k] >> w[k];",
-         "dst[(size_t)k * N + n] = c.v[k] >> w[k];")]),
+    # one CTA a frame at every size, which writes every sample
+    ("one CTA a frame", [("constexpr int SPLIT = 2;",
+                          "constexpr int SPLIT = 1;")]),
+    ("four CTAs a frame", [("constexpr int SPLIT = 2;",
+                            "constexpr int SPLIT = 4;")]),
+    ("two CTAs of 256 threads", [("constexpr int THREADS = 512;",
+                                  "constexpr int THREADS = 256;")]),
+    # two steps' loads in flight together
+    ("unroll 2", [("        for (int n = 4 * t; n < N; n += 4 * THREADS) {",
+                   "#pragma unroll 2\n"
+                   "        for (int n = 4 * t; n < N; n += 4 * THREADS) {")]),
 ]
 
-# K11: clock64 (warp 0: the first (row, window) pair's warp) at 4 the
-# stage's copies landed, 1 the windowed samples and flags in shared memory
-# (the rows' loads used), 2 its fmas done, 3 its tree done, 7 the end (the
-# last warp past the combine)
+# K11: clock64 (thread 0) at 4 the stage's copies landed (several
+# windows), 1 the windowed samples (and flags) in shared memory (the rows'
+# loads used), 2 its fmas done, 3 its tree done, 7 the end (the last warp
+# past the combine); with one window the CTA of a row, else the first
+# (row, window) pair's warp
 K11_VARIANTS = [
     ("base", []),
     ("phases", [
         ("namespace {\n", "namespace {\n" + PHASE_DEFS),
         ("    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;\n"
-         "    const int N = a.N,",
+         "    const int N = a.N, O = a.O, L1 = O + 1, W",
          "    PHSTART();\n"
          "    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;\n"
-         "    const int N = a.N,"),
+         "    const int N = a.N, O = a.O, L1 = O + 1, W"),
         ("            cp_async_wait_all();\n            __syncthreads();\n",
          "            cp_async_wait_all();\n            __syncthreads();\n"
          "            PH(4);\n"),
@@ -603,19 +596,47 @@ K11_VARIANTS = [
          "        PH(3);\n        __syncthreads();\n        // the combine"),
         ("            *dst = s;\n        }\n    }\n}\n",
          "            *dst = s;\n        }\n    }\n    PHMAX(7);\n}\n"),
+        # one window
+        ("    static_assert(ONE_THREADS == BLOCK,",
+         "    PHSTART();\n    static_assert(ONE_THREADS == BLOCK,"),
+        ("        const bool live = __syncthreads_or(nonzero);\n",
+         "        const bool live = __syncthreads_or(nonzero);\n"
+         "        PH(1);\n"),
+        ("    // the tree: a warp's columns",
+         "    PH(2);\n    // the tree: a warp's columns"),
+        ("    __syncthreads();\n    if (t < L1) {\n",
+         "    PH(3);\n    __syncthreads();\n    if (t < L1) {\n"),
+        ("__dmul_rn(a.combine[ai], v));\n    }\n}\n",
+         "__dmul_rn(a.combine[ai], v));\n    }\n    PHMAX(7);\n}\n"),
         ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
     # every block walked (the same sums: a skipped block adds zeros)
     ("no skip", [("if (lane == 0) s_flag[q][b] = any != 0u;",
-                  "if (lane == 0) s_flag[q][b] = 1;")]),
-    # a window's lags over warps: -5's in parts of 4 (4, 4, 1), -8's of 8
+                  "if (lane == 0) s_flag[q][b] = 1;"),
+                 ("        const int nblk = live\n",
+                  "        const int nblk = true\n")]),
+    # one window: a warp skips a block whose 32 first factors are all zero
+    ("one window, a warp's skip", [
+        ("            const float d0 = s_d[i];\n#pragma unroll",
+         "            const float d0 = s_d[i];\n"
+         "            if (!__any_sync(FULL, d0 != 0.f)) continue;\n"
+         "#pragma unroll")]),
+    # one window through the layout of several (a CTA of 384 threads two
+    # rows, a warp a row computing)
+    ("one window as several", [("    if (a.W == 1) {\n",
+                                "    if (false) {\n")]),
+    # several windows: a window's lags over warps, -8's in parts of 8
     # (8, 5)
     ("lag parts", [("return maxlag <= 12 ? maxlag + 1 : 12;",
                     "return maxlag <= 8 ? 4 : maxlag <= 12 ? 8 : 12;")]),
-    ("a row a CTA", [("    int rows = MAX_ROWS;\n",
-                      "    int rows = 1;\n")]),
+    ("a row a CTA", [("constexpr int MAX_ROWS = 2;",
+                      "constexpr int MAX_ROWS = 1;")]),
     # the stage alone (a wrong result: no fmas, trees of zeros)
     ("stage only", [("            if (!active) continue;\n",
-                     "            if (true) continue;\n")]),
+                     "            if (true) continue;\n"),
+                    ("        for (int k = 0; k < nblk; ++k) {\n"
+                     "            const int i = k * ONE_THREADS + t;",
+                     "        for (int k = 0; k < 0 * nblk; ++k) {\n"
+                     "            const int i = k * ONE_THREADS + t;")]),
 ]
 
 # One thread's chain of dependent samples, as the recursion runs it: the
@@ -768,6 +789,36 @@ def device_ms(fn, kernel: str, runs: int = 50) -> float:
         if n == runs:
             return sum(_device_us(e, True) for e in ev) / n / 1e3
     return queued_device_ms(fn, runs)
+
+
+def poison(outputs) -> None:
+    """Fill a launch's outputs with values no kernel writes (-1, NaN), so
+    that a check after one launch sees only that launch's writes."""
+    for t in outputs if isinstance(outputs, (tuple, list)) else (outputs,):
+        if t is not None:
+            t.fill_(float("nan") if t.is_floating_point() else -1)
+
+
+def in_pairs(run_base, run_other, kernel: str, n: int) -> dict:
+    """`n` pairs of device_ms of "base" and of another version, which of
+    the two runs first alternating: each side's times, quartiles (25, 50,
+    75%) and the pairs it won (a tie counts for neither)."""
+    import numpy as np
+    base, other = [], []
+    for k in range(n):
+        if k % 2 == 0:
+            base.append(device_ms(run_base, kernel))
+            other.append(device_ms(run_other, kernel))
+        else:
+            other.append(device_ms(run_other, kernel))
+            base.append(device_ms(run_base, kernel))
+    return {"pairs": n, "base_pair_ms": base, "other_pair_ms": other,
+            "base_quartiles_ms": [float(q) for q in np.percentile(
+                base, [25, 50, 75])],
+            "other_quartiles_ms": [float(q) for q in np.percentile(
+                other, [25, 50, 75])],
+            "base_wins": sum(b < o for b, o in zip(base, other)),
+            "other_wins": sum(o < b for b, o in zip(base, other))}
 
 
 def phases(lib, run, ctas: int) -> dict:
@@ -1133,12 +1184,22 @@ def front_inputs() -> dict:
         out[label] = {"k10": (pcm.to(torch.int16).contiguous(), cfg),
                       "k11": tuple(a.contiguous() if isinstance(
                           a, torch.Tensor) else a for a in seen["k11"])}
+    # the sharded form's 256-frame batch (its upload int32): the -5
+    # batch four times over
+    pcm, cfg = out["-5"]["k10"]
+    x, w, c, O = out["-5"]["k11"]
+    out["-5, 256 frames"] = {
+        "k10": (pcm.repeat(4, 1, 1).to(torch.int32).contiguous(), cfg),
+        "k11": (x.repeat(4, 1, 1).contiguous(), w, c, O)}
     return out
 
 
-def time_k10(libs: dict, inputs: dict) -> None:
+def time_k10(libs: dict, inputs: dict, others=(), pairs: int = 0) -> None:
     """Time each built K10 library on each input's K10 arguments, in turns
-    with "base"; each output held against the plain version."""
+    with "base"; each output held against the plain version.  `others`
+    (the labels of --other) are also timed in `pairs` pairs with base.
+    Every library writes the same output buffers, so that no time depends
+    on where a buffer lies."""
     import torch
 
     from chip_smoke import front_calls
@@ -1149,25 +1210,29 @@ def time_k10(libs: dict, inputs: dict) -> None:
     for label, seen in inputs.items():
         pcm, cfg = seen["k10"]
         want = plain(pcm, cfg)
-        outs = {name: candidates_cuda.launch_arguments(pcm, cfg)
-                for name in libs}
+        outs, args = candidates_cuda.launch_arguments(pcm, cfg)
         for name, (lib, regs) in libs.items():
             lib.flac_channel_candidates.argtypes = [p] * 5 + [i] * 7 + [p]
 
-            def call(lib_, args):
+            def call(lib_):
                 code = lib_.flac_channel_candidates(*args, stream)
                 if code:
                     raise SystemExit(f"K10 {name!r}: CUDA error {code}")
-            run = lambda lib=lib, n=name: call(lib, outs[n][1])  # noqa: E731
+            run = lambda lib=lib: call(lib)  # noqa: E731
+            poison(outs)
             run()
             torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(outs[name][0], want))
+            same = all(torch.equal(a, b) for a, b in zip(outs, want))
             ms = device_ms(run, "channel_candidates_kernel")
-            base = device_ms(lambda: call(libs["base"][0], outs["base"][1]),
+            base = device_ms(lambda: call(libs["base"][0]),
                              "channel_candidates_kernel")
             extra = (phases(lib, run, candidates_cuda.ctas(
-                pcm.shape[0], pcm.shape[1], cfg))
+                pcm.shape[0], pcm.shape[1], cfg,
+                torch.cuda.get_device_properties(0).multi_processor_count))
                 if name == "phases" else {})
+            if name in others and pairs:
+                extra.update(in_pairs(lambda: call(libs["base"][0]), run,
+                                      "channel_candidates_kernel", pairs))
             print(json.dumps({"kernel": "K10", "variant": name,
                               "input": label, "B": pcm.shape[0],
                               "N": pcm.shape[2], "dtype": str(pcm.dtype),
@@ -1176,9 +1241,11 @@ def time_k10(libs: dict, inputs: dict) -> None:
                               "ptxas": regs}), flush=True)
 
 
-def time_k11(libs: dict, inputs: dict) -> None:
+def time_k11(libs: dict, inputs: dict, others=(), pairs: int = 0) -> None:
     """Time each built K11 library on each input's K11 arguments, in turns
-    with "base"; each output held against the plain version."""
+    with "base"; each output held against the plain version.  `others`
+    (the labels of --other) are also timed in `pairs` pairs with base.
+    Every library writes the same output buffer."""
     import torch
 
     from flac_tpu_torch.ops import autoc_cuda, lpc
@@ -1187,26 +1254,28 @@ def time_k11(libs: dict, inputs: dict) -> None:
     for label, seen in inputs.items():
         x, w, c, O = seen["k11"]
         want = lpc.autocorrelation_plain(x, w, c, O)
-        outs = {name: autoc_cuda.launch_arguments(x, w, c, O)
-                for name in libs}
-        plan = autoc_cuda.plan(x.shape[0] * x.shape[1], x.shape[2],
-                               w.shape[0], O)
+        out, args = autoc_cuda.launch_arguments(x, w, c, O)
+        plan = autoc_cuda.plan(x.shape[0] * x.shape[1], w.shape[0], O)
         for name, (lib, regs) in libs.items():
             lib.flac_window_autoc.argtypes = [p] * 4 + [i] * 6 + [p]
 
-            def call(lib_, args):
+            def call(lib_):
                 code = lib_.flac_window_autoc(*args, stream)
                 if code:
                     raise SystemExit(f"K11 {name!r}: CUDA error {code}")
-            run = lambda lib=lib, n=name: call(lib, outs[n][1])  # noqa: E731
+            run = lambda lib=lib: call(lib)  # noqa: E731
+            poison(out)
             run()
             torch.cuda.synchronize()
-            same = torch.equal(outs[name][0], want)
+            same = torch.equal(out, want)
             ms = device_ms(run, "window_autoc_kernel")
-            base = device_ms(lambda: call(libs["base"][0], outs["base"][1]),
+            base = device_ms(lambda: call(libs["base"][0]),
                              "window_autoc_kernel")
             extra = (phases(lib, run, plan["ctas"])
                      if name == "phases" else {})
+            if name in others and pairs:
+                extra.update(in_pairs(lambda: call(libs["base"][0]), run,
+                                      "window_autoc_kernel", pairs))
             print(json.dumps({"kernel": "K11", "variant": name,
                               "input": label, "rows": x.shape[0] * x.shape[1],
                               "windows": w.shape[0], "lags": O + 1,
@@ -1340,6 +1409,9 @@ def main() -> int:
                          "restore.cu, assemble_fields.cu, frame_crc.cu, "
                          "lpc_coeffs.cu, rice_cost.cu, "
                          "channel_candidates.cu and window_autoc.cu")
+    ap.add_argument("--pairs", type=int, default=0, metavar="N",
+                    help="time K10 and K11 against each --other version "
+                         "in N pairs too, which runs first alternating")
     args = ap.parse_args()
     others = dict(o.split("=", 1) for o in args.other)
     import torch
@@ -1461,9 +1533,10 @@ def main() -> int:
         time_k7(libs7, {lv: seen["k7"] for lv, seen in search.items()})
     front = front_inputs() if do_k10 or do_k11 else {}
     if do_k10:
-        time_k10(libs10, {"-5": front["-5"]})
+        time_k10(libs10, {k: front[k] for k in ("-5", "-5, 256 frames")},
+                 others, args.pairs)
     if do_k11:
-        time_k11(libs11, front)
+        time_k11(libs11, front, others, args.pairs)
     print(smi, flush=True)
     return 0
 

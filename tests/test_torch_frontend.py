@@ -317,11 +317,16 @@ def test_constants_mirror_the_sources():
     csrc = REPO / "flac_tpu_torch" / "csrc"
     k10 = (csrc / "channel_candidates.cu").read_text()
     assert f"constexpr int THREADS = {candidates_cuda.THREADS};" in k10
-    assert f"constexpr int CLUSTER = {candidates_cuda.CLUSTER};" in k10
-    assert "const int share = ((N + CLUSTER - 1) / CLUSTER + 7) & ~7;" \
-        in k10
-    assert [candidates_cuda.share(n) for n in (1, 33, 1152, 4096)] \
+    assert f"constexpr int SPLIT = {candidates_cuda.SPLIT};" in k10
+    assert "constexpr int STAGE_BYTES = %d * 1024;" % (
+        candidates_cuda.STAGE_BYTES // 1024) in k10
+    assert "const int staged = (ms ? 2 : 1) * (long long)share * 4 " \
+        "<= STAGE_BYTES;" in k10
+    assert "const int split = units < sms ? SPLIT : 1;" in k10
+    assert "const int share = ((N + split - 1) / split + 7) & ~7;" in k10
+    assert [candidates_cuda.share(n, 2) for n in (1, 33, 1152, 4096)] \
         == [8, 24, 576, 2048]
+    assert candidates_cuda.share(4096, 1) == 4096
     k11 = (csrc / "window_autoc.cu").read_text()
     for name, value in (("COLS", autoc_cuda.COLUMNS_A_LANE),
                         ("LANES", autoc_cuda.LANES),
@@ -329,23 +334,27 @@ def test_constants_mirror_the_sources():
                         ("TILE", autoc_cuda.TILE),
                         ("HALO", autoc_cuda.MAX_LAG),
                         ("MAX_ROWS", autoc_cuda.MAX_ROWS),
-                        ("WPASS", autoc_cuda.WPASS)):
+                        ("WPASS", autoc_cuda.WPASS),
+                        ("ONE_THREADS", autoc_cuda.ONE_THREADS)):
         assert f"constexpr int {name} = {value};" in k11, name
     # a lane's columns times a warp's lanes: one block of the Gram product
     assert autoc_cuda.COLUMNS_A_LANE * autoc_cuda.LANES \
         == tlpc.AUTOC_COLUMNS
     assert "return maxlag <= 12 ? maxlag + 1 : 12;" in k11
+    assert "if (a.W == 1) {" in k11
     for t in autoc_cuda.TEMPLATE_LAGS[:-1]:
         assert f"if (a.O <= {t}) return launch_with<X, {t}>" in k11
+        assert f"if (a.O <= {t}) return launch_one_window<X, {t}>" in k11
     assert [autoc_cuda.template_lag(O) for O in (1, 8, 9, 12, 13, 32)] \
         == [8, 8, 12, 12, 32, 32]
     assert [autoc_cuda.part_lags(O) for O in (8, 12, 32)] == [9, 13, 12]
-    # two rows a CTA: -5 (one window) 2 warps computing, -8 (six) 12
-    assert [(p["rows"], p["wpass"], p["parts"], p["ctas"])
-            for p in (autoc_cuda.plan(256, 4096, 1, 8),
-                      autoc_cuda.plan(256, 4096, 6, 12),
-                      autoc_cuda.plan(3, 4096, 2, 32))] \
-        == [(2, 1, 1, 128), (2, 6, 1, 128), (2, 2, 3, 2)]
+    # one window (-5): a CTA of 128 threads a row; several (-8): two rows
+    # a CTA of 384, order 32 in three lag parts
+    assert [(p["threads"], p["rows"], p["wpass"], p["parts"], p["ctas"])
+            for p in (autoc_cuda.plan(256, 1, 8),
+                      autoc_cuda.plan(256, 6, 12),
+                      autoc_cuda.plan(3, 2, 32))] \
+        == [(128, 1, 1, 1, 256), (384, 2, 6, 1, 128), (384, 2, 2, 3, 2)]
     k12 = (csrc / "assign_channels.cu").read_text()
     assert f"constexpr int THREADS = {assign_cuda.THREADS};" in k12
     assert "__constant__ int CH0[4] = {%s};" % ", ".join(
@@ -353,9 +362,16 @@ def test_constants_mirror_the_sources():
     assert "__constant__ int CH1[4] = {%s};" % ", ".join(
         map(str, stereo._ASSIGN_CH1)) in k12
     cfg5 = EncoderConfig.from_preset(5).resolve()
-    assert candidates_cuda.ctas(64, 2, cfg5) == 64 * candidates_cuda.CLUSTER
+    # on an H100's 132 SMs: two CTAs a frame at -5's 64 frames (and -0's
+    # 128 (frame, channel)s), one at the sharded form's 256
+    assert candidates_cuda.ctas(64, 2, cfg5, 132) \
+        == 64 * candidates_cuda.SPLIT
     assert candidates_cuda.ctas(64, 2, EncoderConfig.from_preset(
-        0).resolve()) == 128 * candidates_cuda.CLUSTER
+        0).resolve(), 132) == 128 * candidates_cuda.SPLIT
+    assert candidates_cuda.ctas(256, 2, cfg5, 132) == 256
+    assert candidates_cuda.staged(2, 4096, cfg5, 2) \
+        and candidates_cuda.staged(2, 4096, cfg5, 1) \
+        and not candidates_cuda.staged(1, 32768, cfg5, 2)
 
 
 def test_encode_ranges():
