@@ -32,32 +32,30 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             taps past 16 bits and out-of-range shifts) and on the first
             native.parse_frames batch of the -5 and -8 clips; K4 (all six
             outputs) and K5 (on the plain deposit of the plain fields)
-            bit-identical on the corners of ops/assemble_synth.py and on a
-            64-frame -5 and -8 batch whose subframe choice comes from the
-            ops form; K5 on its own corners (assemble_synth.seal_cases:
-            every residue of byte_len - 2 mod 16, the longest header,
-            minimal frames, a carrying CRC-8 deposit, 1, 64 and 256
-            frames, and past the plain version's domain byte_len - 2 past
-            the row, byte_len below 2, an odd W) against the host seal and,
-            in its domain, the plain one; and the chain K4 -> K1 -> K5
-            byte for byte against plain -> plain -> plain on the -5
-            batch.  K6 (all five
-            outputs) and K7 (all three) bit-identical on the corners of
-            ops/search_synth.py and on the search inputs of the ops form
-            of 64-frame -5 and -8 batches of the track's recipe, of 64
-            blocks of the 33-bit clip (RICE2) and of 8 frames at -8 -e -p;
-            K8 (the candidate residuals) and K9 (the select and realize)
-            on their corners of ops/search_synth.py and on the same real
-            search inputs: K9's every SubframeChoice field bit-identical,
-            K8's orders and flags bit-identical and its residual rows
-            wherever their flag holds (a wide fixed or "f64" row whose
-            flag is false has no defined residuals:
-            residuals_cuda.comparable_rows).  K10 (the channel
-            candidates), K11 (the windowed autocorrelation) and K12 (the
-            channel assignment) bit-identical on the corners of
-            ops/frontend_synth.py and on their inputs in the ops form of
-            the same real batches and of a 64-frame -4 batch (the loose
-            path); K10 on the 16-bit batches' int16 uploads too.
+            bit-identical on the corners of ops/assemble_synth.py; K5 on
+            its own corners (assemble_synth.seal_cases: every residue of
+            byte_len - 2 mod 16, the longest header, minimal frames, a
+            carrying CRC-8 deposit, 1, 64 and 256 frames, and past the
+            plain version's domain byte_len - 2 past the row, byte_len
+            below 2, an odd W) against the host seal and, in its domain,
+            the plain one; K6-K12 on their corners of
+            ops/search_synth.py and ops/frontend_synth.py.  Then every
+            kernel of an encode program call on its inputs in the ops
+            form of real batches, as StreamEncoder uploads them
+            (real_batches: 64 frames of the track's recipe at -5, -8 and
+            -4, the loose path; 8 frames at -8 -e -p; 64 blocks of the
+            33-bit clip, RICE2 and the safe layout; 64 frames of 24-bit
+            96 kHz stereo at -5 and -8, of 24-bit 5.1 at -5 and -8 and of
+            16-bit mono at -5): K10 (on a 16-bit batch also widened to
+            int32), K11, K6 (all five outputs), K8, K7 (all three), K9
+            (every SubframeChoice field), K12 on the stereo mid-side path,
+            K4 and K5 (on the ops form's words and on the plain deposit of
+            the plain fields) bit-identical, K8's residual rows wherever
+            their flag holds (a wide fixed or "f64" row whose flag is
+            false has no defined residuals:
+            residuals_cuda.comparable_rows), and where the batch takes
+            the quad layout the chain K4 -> K1 -> K5 byte for byte
+            against plain -> plain -> plain.
 4. main:    the main path at full size: a 180 s 44.1 kHz 16-bit stereo
             track encoded at -5 (blocksize 4096, 64 frames a batch) on the
             GPU through the compiled encode programs (CUDA graphs: two
@@ -87,45 +85,70 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             with a corrupted and a cut frame must equal the host engine's
             (samples and errors); the "scan" engine on the GPU must equal
             the host engine on a short -0 clip (blocksize 1152).
-6. times:   each kernel at the main path's shapes: `ms`, its device time
-            per launch (torch.profiler; CUDA events around calls queued
-            behind a sleep kernel, `ms_queued_events`, beside it, and in
-            its place where three traces miss launches, as `ms_by` says),
-            `kernel_ms` and `plain_ms`, the
-            kernel's and its plain version's time per call (CUDA events
-            around back-to-back calls), and its bound, printed as one
-            `kernels` line with each kernel's ptxas usage, K1's cluster
-            size and K2's staged CTAs per main-path launch.  K4 and K5 are
-            timed on the track's first batch (the ops form's arguments;
-            K5 on a copy of the words it seals in place), both also on the
-            track's first 256 frames (`at_B256`), K5 beside the device
-            time of an empty launch of its grid, clusters and shared
-            memory (`empty_launch_ms`); K4-K12
-            carry a one-line `design`.  K3 is timed
-            on both engines' inputs (int32 and int16 residuals) with its
-            chain floor (N x the chain probe's cycles a sample / the SM
-            clock) beside the bound; the device engine's transpose copy
-            of K2's codes is timed on its own line before it.  K6 and K7
-            on the search inputs of the -5 and -8 batches of phase 3
-            (`ms` at -5, the -8 times beside it); K6 also beside its
-            chain floor (the dependent float64 operations of the longest
-            problem's chain, lpc_cuda.chain_ops for the longest candidate
-            of this run, each at its own latency from lpc_cuda.op_cycles,
-            over the SM clock) and the earlier one-thread design's figure
-            (`chain_floor_ms_before`: two recursions and 32 quantizer
-            steps, every operation at an add's latency).  K8 and K9 on
-            the same -5 and -8 search inputs (`ms` at -5), each beside
-            its byte bound (K8: x read once and every candidate row
-            written; K9: x read once, each winner's residual row read and
-            the realized row written).  K10 on the track's first 64
-            frames as uploaded (int16), K11 and K12 on their inputs in the
-            ops form of the -5 and -8 batches (`ms` at -5, -8 beside it),
-            each beside its bound (K10, K12: bytes; K11: the larger of its
-            bytes and the float32 fmas of the blocks whose windowed
-            samples are not all zero, `products_nonzero`, with every
-            lag of every sample, `products`, beside it); K11
-            beside one grouped float32 conv1d of the windowed rows
-            (`library_ms`, a yardstick the port never calls).
+hires:      the configurations the main path leaves out, at full size
+            (HIRES): 180 s of 24-bit 96 kHz stereo (BASELINE.json config
+            3) at -5 and -8, 60 s of 24-bit 48 kHz 5.1 at -5 and -8, 60 s
+            of 16-bit 44.1 kHz mono at -5, each
+            signals.make_test_signal(n, channels, bits, seed).  For each
+            preset: two warm-up encodes capture the keys, a timed
+            StreamEncoder encode (blocksize 4096, 64 frames a batch)
+            through the compiled programs: MB/s, the stream's SHA-256, and
+            the launches, which must be K4, K5, K7, K8, K9, K10, K6 and
+            K11 once an encode program call (the replays and the safe
+            re-encodes of quad-layout misfits), K12 once a call on the
+            stereo mid-side path (none for 5.1 and mono), K1 once a
+            quad-layout batch; decodes by "device", "fast" and "host",
+            each the source with the MD5 (MB/s), K2 and K3 once a decode
+            batch where the engine runs them; K2 (narrow and wide) and K3
+            (the fast engine's parse, and int32 residuals and PCM)
+            bit-identical to their plain versions on the stream's first
+            batch; the stream's first 10 s encoded on the card equal to
+            the port's CPU encode (the plain versions) byte for byte.
+            Then the two 24-bit sources as WAV files
+            (WAVE_FORMAT_EXTENSIBLE) through `python -m
+            flac_tpu_torch.cli -8` in one fresh process: each file equal
+            to StreamEncoder's bytes with the tool's padding and 10 s seek
+            table, K1 once a quad-layout batch; -d in another: the WAVs
+            back byte for byte, K2 and K3 once a decode batch.  Each
+            path's launches go into the `kernels` line as
+            `launches_hires`.
+6. times:   each kernel on its real inputs (encode_kernel_times,
+            decode_kernel_times): `ms`, its device time per launch
+            (torch.profiler; CUDA events around calls queued behind a
+            sleep kernel, `ms_queued_events`, beside it, and in its place
+            where three traces miss launches, as `ms_by` says),
+            `kernel_ms` and `plain_ms`, the kernel's and its plain
+            version's time per call (CUDA events around back-to-back
+            calls), and its bound: the larger of its bytes (each input
+            read once, each output written once) over 3.35 TB/s and its
+            operations over 67 T/s, counted as these inputs need them.
+            The encode kernels (K10, K11, K6, K8, K7, K9, K12, K4, K1,
+            K5) on the ops form's arguments of the track's first 64 frames
+            as uploaded (int16) at -5 (`ms`) and -8 (`at_-8`), K4 and K5
+            also on its first 256 frames (`at_B256`, the sharded form's
+            int32 batch), K5 beside the device time of an empty launch of
+            its grid, clusters and shared memory (`empty_launch_ms`); K2
+            and K3 on the main path's first decode batch (K2's codes as
+            K3's int32 residuals, int16 PCM), K3 also on the "fast"
+            engine's input and beside its chain floor (N x the chain
+            probe's cycles a sample / the SM clock), with the device
+            engine's copy of K2's codes into K3's residual matrix timed
+            on its own.  The hires shapes (`at_hires`): every encode
+            kernel on 64 frames of 24-bit 96 kHz stereo at -8 (int32
+            uploads: K8's "f64" mode, K7's RICE2) and of 24-bit 5.1 at -5
+            (K10's channels passing through, no K12), and K2 and K3 on the
+            24-bit -8 stream's first decode batch (int32 PCM), the plain
+            versions over fewer calls.  K6 also beside its chain floor
+            (the dependent float64 operations of the longest problem's
+            chain, lpc_cuda.chain_ops, each at its own latency from
+            lpc_cuda.op_cycles, over the SM clock) and the earlier
+            one-thread design's figure (`chain_floor_ms_before`); K11's
+            bound the larger of its bytes and the float32 fmas of the
+            blocks whose windowed samples are not all zero
+            (`products_nonzero`, every lag of every sample, `products`,
+            beside it), and K11 beside one grouped float32 conv1d of the
+            windowed rows (`library_ms`, a yardstick the port never
+            calls).  K4-K12 carry a one-line `design`.
 7. profile: torch.profiler over a 10 s encode (through the graphs,
             and op by op, whose flac.* ranges a replay does not record)
             and 10 s decodes with the "device" and "fast" engines: the
@@ -138,7 +161,10 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             flac.lpc_coeffs, K8 flac.residuals, K7 flac.rice, K9
             flac.select, K12 flac.assign, K4 flac.fields, K1 flac.pack,
             K5 flac.seal)
-            and the top kernels; the tables go to OUT_DIR/profile_*.txt.
+            and the top kernels; then through the graphs a 10 s encode of
+            24-bit 96 kHz stereo at -8 (the hires configuration: busy
+            share and kernel times by name); the tables go to
+            OUT_DIR/profile_*.txt.
 8. api:     the library API on the GPU.  The 180 s track at -5 in the
             `with` form of StreamEncoder, with a seek table every 10 s, a
             VORBIS_COMMENT, a PICTURE, a progress callback and verify=True:
@@ -225,13 +251,16 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             sharded form) on the track's blocks, the trimmed 17-frame
             batch, the final short block, a safe re-encode bucket with
             per-frame numbers, 64 blocks of the 33-bit clip (the safe
-            layout, no K1), and four shard entries of the card (every
-            shard against the ops); each key's capture time, what it
+            layout, no K1), 64 frames of 24-bit 96 kHz stereo at -5 and
+            -8 and of 24-bit 5.1 at -5 (int32, as StreamEncoder uploads
+            them; no K12 for 5.1), and four shard entries of the card
+            (every shard against the ops); each key's capture time, what it
             added to the graph pool and the peak memory of its calls.  A
             replay's copied-out outputs must outlive the next replay of
             the key.  Warm calls and the ops
             form run under torch.cuda.set_sync_debug_mode("error").  One
-            64- and one 256-frame call, ops against replay (in turns: ops,
+            64- and one 256-frame call at -5 and one 64-frame call of
+            24-bit 96 kHz stereo at -8, ops against replay (in turns: ops,
             replay, replay, ops): host ms (the call), wall ms (with a
             synchronize), event ms (CUDA events around it), kernels and
             their summed device ms (torch.profiler); the track's keys from
@@ -240,9 +269,9 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
             OUT_DIR/gpu_tests.txt.  Each path's launches go into the
             `kernels` line as `launches_compiled_encode`.
 
-On every path of phases 8-11, K4, K5, K7, K8, K9 and K10 launch equally
-often, at least as often as K1, K6 (as often as K11) and K12.  The
-`kernels` line (K1-K12) comes after phase 11.
+On every path of the hires phase and phases 8-11, K4, K5, K7, K8, K9 and
+K10 launch equally often, at least as often as K1, K6 (as often as K11)
+and K12.  The `kernels` line (K1-K12) comes after phase 11.
 
 The last line is {"ok": true, "device": {...}}.  Longer logs (the compiler's
 register report, the profile tables) go to OUT_DIR, beside this script.
@@ -363,9 +392,33 @@ K12_DESIGN = ("a CTA of 256 threads a (frame, output channel): the "
               "assignment) in every thread, the chosen candidate's fields "
               "and its residual and signal rows copied with 16-byte loads "
               "and stores")
+# what phase 6 prints beside a kernel that no single PyTorch call matches
+LIBRARY_NOTES = {
+    "pack_fields64": "no single PyTorch call computes this deposit",
+    "rice_codes": "no PyTorch call decodes Rice codes",
+    "restore": "no PyTorch call computes an integer IIR restore",
+    "assemble_fields": "no single PyTorch call builds FLAC field lists",
+    "frame_crc": "no PyTorch call computes a CRC",
+    "lpc_coeffs": "no PyTorch call runs Levinson-Durbin and the quantizer",
+    "rice_cost": "no PyTorch call computes partitioned Rice costs",
+    "candidate_residuals": "no single PyTorch call computes the fixed and "
+                           "LPC residuals: conv1d has no integer form on the "
+                           "card, and the shift, masks and range flags are "
+                           "more ops",
+    "select_realize": "no single PyTorch call selects and realizes a "
+                      "subframe: an argmin, then gathers from five tables",
+    "channel_candidates": "no single PyTorch call forms the channel "
+                          "candidates and their wasted bits",
+    "assign_channels": "no single PyTorch call picks the assignment and "
+                       "gathers a subframe choice"}
 # K10 a sample pair: two loads, the mid and side, four ORs and compares,
 # the four shifts (~14)
 K10_OPS_PER_SAMPLE = 14
+DESIGNS = {"assemble_fields": K4_DESIGN, "frame_crc": K5_DESIGN,
+           "lpc_coeffs": K6_DESIGN, "rice_cost": K7_DESIGN,
+           "candidate_residuals": K8_DESIGN, "select_realize": K9_DESIGN,
+           "channel_candidates": K10_DESIGN, "window_autoc": K11_DESIGN,
+           "assign_channels": K12_DESIGN}
 # the range of the ops form that launches each ctypes kernel
 ENCODE_KERNEL_RANGES = {"channel_candidates_kernel": "flac.candidates",
                         "window_autoc_kernel": "flac.lpc_coeffs",
@@ -501,10 +554,12 @@ def kernel_device_ms(fn, kernel: str, runs: int = 25,
     contains `kernel`: {"ms", "ms_by" (how "ms" was taken),
     "ms_queued_events" (`queued_device_ms`, always taken beside it)}.
     "ms" comes from torch.profiler's trace of `runs` calls of `fn` after a
-    warm call: the kernel alone, without the host's launch gaps.  CUPTI now
-    and then delivers no kernel record of a traced window; a trace that
-    does not hold exactly `runs` launches is taken again, and after
-    `attempts` such traces "ms" is the queued events' time."""
+    warm call: the kernel alone, without the host's launch gaps, the mean
+    over the launches the trace holds.  CUPTI now and then delivers no
+    kernel record of a traced window, and often drops one launch's record;
+    a trace that holds fewer than `runs` - 1 launches (or more than `runs`)
+    is taken again, and after `attempts` such traces "ms" is the queued
+    events' time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     queued = queued_device_ms(fn, runs)
@@ -515,10 +570,10 @@ def kernel_device_ms(fn, kernel: str, runs: int = 25,
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if kernel in e.key]
         count = sum(e.count for e in events)
-        if count == runs:
+        if runs - 1 <= count <= runs:
             return {"ms": sum(_device_us(e, True) for e in events) / count
                     / 1e3, "ms_by": "torch.profiler",
-                    "ms_queued_events": queued}
+                    "profiler_launches": count, "ms_queued_events": queued}
         emit({"phase": "times", "kernel": kernel, "trace": attempt,
               "profiler_launches_seen": count, "expected": runs})
     return {"ms": queued, "ms_by": "cuda events, calls queued",
@@ -722,42 +777,16 @@ def k3_cases(clips: dict):
 # phase 3 cases: K4 and K5 against their plain versions
 # ---------------------------------------------------------------------------
 
-def capture_assembly(x, cfg) -> dict:
-    """The arguments of assemble_fields (K4, "k4") and of seal_frames (K5,
-    "k5": its words before the seal) in the ops form of one encode batch
-    of blocks `x` [B, C, N] on the card, blocksize N."""
-    from flac_tpu_torch import encoder as encoder_mod
-    from flac_tpu_torch.models import frame as frame_mod
-    seen = {}
-    fields, seal = frame_mod.assemble_fields, frame_mod.seal_frames
-
-    def spy_fields(*a):
-        seen["k4"] = a
-        return fields(*a)
-
-    def spy_seal(words, byte_len, hdr_bytes):
-        seen["k5"] = (words.clone(), byte_len.clone(), hdr_bytes.clone())
-        return seal(words, byte_len, hdr_bytes)
-    frame_mod.assemble_fields, frame_mod.seal_frames = spy_fields, spy_seal
-    try:
-        encoder_mod._encode_batch_ops(
-            x, encoder_mod._frame_numbers(0, x.shape[0], x.device), cfg,
-            x.shape[2], "auto", "kernel")
-    finally:
-        frame_mod.assemble_fields, frame_mod.seal_frames = fields, seal
-    return seen
-
-
-def real_assembly(level: int, seed: int, frames: int = 64) -> dict:
-    """capture_assembly of a `frames`-frame batch of a test signal at
-    -`level`, blocksize 4096."""
+def upload(pcm, frames: int, bps: int = 16):
+    """The first `frames` blocks of 4096 of pcm [C, n] on the card as
+    StreamEncoder uploads them: [frames, C, 4096], int16 to 16 bits, else
+    int32."""
     import numpy as np
     import torch
-    from flac_tpu_torch import EncoderConfig, signals
-    cfg = EncoderConfig.from_preset(level, blocksize=4096).resolve()
-    pcm = signals.make_test_signal(frames * 4096, seed=seed)
-    return capture_assembly(torch.from_numpy(np.ascontiguousarray(
-        pcm.reshape(2, frames, 4096).transpose(1, 0, 2))).cuda(), cfg)
+    C = pcm.shape[0]
+    return torch.from_numpy(np.ascontiguousarray(
+        pcm[:, :frames * 4096].reshape(C, frames, 4096).transpose(1, 0, 2),
+        np.int16 if bps <= 16 else np.int32)).cuda()
 
 
 def k4_compare(args) -> tuple[bool, int]:
@@ -804,56 +833,64 @@ def plain_pack(fields, args):
 # phase 3 cases: K6 and K7 against their plain versions
 # ---------------------------------------------------------------------------
 
-# the search's dispatchers by key: K6, K8, K7, K9
-SEARCH_STAGES = {"k6": "lpc_candidates", "k8": "candidate_residuals",
-                 "k7": "_rice_cost", "k9": "select_and_realize"}
+# the dispatchers of an encode program call by kernel: (module under
+# flac_tpu_torch, name)
+STAGES = {"k10": ("models.stereo", "build_channel_candidates"),
+          "k11": ("ops.lpc", "window_autocorrelation"),
+          "k6": ("models.subframe", "lpc_candidates"),
+          "k8": ("models.subframe", "candidate_residuals"),
+          "k7": ("models.subframe", "_rice_cost"),
+          "k9": ("models.subframe", "select_and_realize"),
+          "k12": ("models.stereo", "assign_channels"),
+          "k4": ("models.frame", "assemble_fields"),
+          "k1": ("ops.pack_cuda", "pack_fields64"),
+          "k5": ("models.frame", "seal_frames")}
+SEARCH_STAGES = ("k6", "k8", "k7", "k9")
+FRONT_STAGES = ("k10", "k11", "k12")
 
 
-# the dispatchers of K10, K11 and K12 by key: (module, name)
-FRONT_STAGES = {"k10": ("models.stereo", "build_channel_candidates"),
-                "k11": ("ops.lpc", "window_autocorrelation"),
-                "k12": ("models.stereo", "assign_channels")}
-
-
-def capture_search(x, cfg) -> dict:
-    """The arguments of subframe.lpc_candidates (K6, "k6"),
-    candidate_residuals (K8, "k8"), _rice_cost (K7, "k7") and
-    select_and_realize (K9, "k9"), and of stereo.build_channel_candidates
-    (K10, "k10"), lpc.window_autocorrelation (K11,
-    "k11") and stereo.assign_channels (K12, "k12") in the ops form of one
-    encode batch of blocks `x` [B, C, N] on the card, blocksize N."""
+def capture_ops(x, cfg) -> dict:
+    """The arguments of each dispatcher of STAGES (K10, K11, K6, K8, K7,
+    K9, K12, K4, K1 where the batch takes the quad layout, K5) in the ops
+    form of one encode batch of blocks `x` [B, C, N] on the card,
+    blocksize N, by key; their tensors copied (K5 seals its words in
+    place)."""
     import importlib
+
+    import torch
     from flac_tpu_torch import encoder as encoder_mod
-    stages = {k: ("models.subframe", name)
-              for k, name in SEARCH_STAGES.items()}
-    stages.update(FRONT_STAGES)
     mods = {k: importlib.import_module(f"flac_tpu_torch.{m}")
-            for k, (m, _) in stages.items()}
+            for k, (m, _) in STAGES.items()}
     seen = {}
-    real = {k: getattr(mods[k], name) for k, (_, name) in stages.items()}
+    real = {k: getattr(mods[k], name) for k, (_, name) in STAGES.items()}
 
     def spy(key):
         def call(*a):
-            seen[key] = a
+            seen[key] = tuple(t.clone() if isinstance(t, torch.Tensor)
+                              else t for t in a)
             return real[key](*a)
         return call
-    for key, (_, name) in stages.items():
+    for key, (_, name) in STAGES.items():
         setattr(mods[key], name, spy(key))
     try:
         encoder_mod._encode_batch_ops(
             x, encoder_mod._frame_numbers(0, x.shape[0], x.device), cfg,
             x.shape[2], "auto", "kernel")
     finally:
-        for key, (_, name) in stages.items():
+        for key, (_, name) in STAGES.items():
             setattr(mods[key], name, real[key])
     return seen
 
 
-def front_calls(key: str):
-    """(the dispatch, the plain version) of K10 ("k10"), K11 ("k11") or
-    K12 ("k12"), each taking the captured arguments."""
-    from flac_tpu_torch.models import stereo
+def stage_calls(key: str):
+    """(the dispatch, the plain version) of K10 ("k10"), K11 ("k11"), K12
+    ("k12"), K6 ("k6"), K8 ("k8"), K7 ("k7") or K9 ("k9"), each taking
+    the captured arguments."""
+    from flac_tpu_torch.models import stereo, subframe
     from flac_tpu_torch.ops import lpc
+    if key in SEARCH_STAGES:
+        name = STAGES[key][1]
+        return getattr(subframe, name), getattr(subframe, f"{name}_plain")
     if key == "k10":
         from flac_tpu_torch.ops import candidates_cuda
 
@@ -876,7 +913,7 @@ def front_compare(key: str, args) -> tuple:
     CUDA tensors: (every output identical in value and type, max abs
     difference)."""
     import torch
-    kernel_fn, plain_fn = front_calls(key)
+    kernel_fn, plain_fn = stage_calls(key)
     got = kernel_fn(*args)
     want = plain_fn(*args)
     torch.cuda.synchronize()
@@ -896,14 +933,40 @@ def front_compare(key: str, args) -> tuple:
 
 
 def real_search(cfg, pcm, frames: int = 64) -> dict:
-    """capture_search of the first `frames` blocks of pcm [C, n] on the
-    card at blocksize cfg.blocksize."""
+    """capture_ops of the first `frames` blocks of pcm [C, n] on the card
+    at blocksize cfg.blocksize, as int32."""
     import numpy as np
     import torch
     N, C = cfg.blocksize, pcm.shape[0]
-    return capture_search(torch.from_numpy(np.ascontiguousarray(
+    return capture_ops(torch.from_numpy(np.ascontiguousarray(
         pcm[:, :frames * N].reshape(C, frames, N).transpose(1, 0, 2)))
         .cuda(), cfg)
+
+
+def real_batches():
+    """Phase 3's real batches, made one at a time: (label, resolved
+    configuration, the blocks on the card as StreamEncoder uploads them):
+    64 frames of the track's recipe at -5, -8 and -4 (the loose path), 8
+    frames at -8 -e -p, 64 blocks of the 33-bit clip (int64 signals,
+    RICE2, the safe layout), and 64 frames of each hires configuration at
+    each of its presets."""
+    from flac_tpu_torch import EncoderConfig, signals
+    track = signals.make_test_signal(64 * 4096, seed=180)
+    for level in (5, 8, 4):
+        yield (f"-{level}{' (loose mid-side)' if level == 4 else ''}, "
+               "64 frames",
+               EncoderConfig.from_preset(level, blocksize=4096).resolve(),
+               upload(track, 64))
+    yield ("-8 -e -p, 8 frames", EncoderConfig.from_preset(
+        8, blocksize=4096, do_exhaustive_model_search=True,
+        do_qlp_coeff_prec_search=True).resolve(), upload(track, 8))
+    yield ("33-bit side, 64 blocks", EncoderConfig.from_preset(
+        5, blocksize=4096, sample_rate=HIRES_RATE,
+        bits_per_sample=32).resolve(), upload(hires_clip(), 64, 32))
+    for h in HIRES:
+        for level in h.presets:
+            yield (f"{h.label} -{level}, 64 frames", hires_cfg(h, level),
+                   upload(hires_pcm(h, 64 * 4096), 64, h.bps))
 
 
 def search_compare(kernel_fn, plain_fn, args) -> tuple[bool, int]:
@@ -930,6 +993,434 @@ def search_compare(kernel_fn, plain_fn, args) -> tuple[bool, int]:
               if a.numel() and a.shape == b.shape else 0
               for a, b in zip(got, want))
     return same, err
+
+
+def stage_compare(key: str, args) -> tuple:
+    """K6-K12 by key ("k6" to "k12") against its plain version on its
+    captured arguments: (identical, max abs difference)."""
+    if key in FRONT_STAGES:
+        return front_compare(key, args)
+    return search_compare(*stage_calls(key), args)
+
+
+# ---------------------------------------------------------------------------
+# phase 6 helpers: each kernel timed on its real inputs beside its bound
+# ---------------------------------------------------------------------------
+
+# each kernel's key in STAGES and in the phases' tables -> its name
+KERNEL_KEYS = {"k1": "pack_fields64", "k2": "rice_codes", "k3": "restore",
+               "k4": "assemble_fields", "k5": "frame_crc",
+               "k6": "lpc_coeffs", "k7": "rice_cost",
+               "k8": "candidate_residuals", "k9": "select_realize",
+               "k10": "channel_candidates", "k11": "window_autoc",
+               "k12": "assign_channels"}
+
+
+def bound(nbytes: int, nops: int) -> dict:
+    """The least time the card could take for work that must move `nbytes`
+    (each input read once, each output written once) and do `nops`
+    operations: the larger of the two times at the data sheet's rates."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "operations": nops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def time_kernel(kern, plain, kernel: str, plain_runs: int = 25) -> dict:
+    """The device ms of a launch of the CUDA kernel named `kernel` in
+    `kern` (kernel_device_ms), and the ms of a call of `kern` and of
+    `plain` (cuda_time_ms, in turns plain, kern, kern, plain: the pairs
+    bracket drift in the card), the plain version over `plain_runs` calls
+    (after 5 warm calls, or 1 where the runs are fewer than 25)."""
+    warm = 5 if plain_runs >= 25 else 1
+    runs = [cuda_time_ms(plain, warm, plain_runs), cuda_time_ms(kern),
+            cuda_time_ms(kern), cuda_time_ms(plain, warm, plain_runs)]
+    return {**kernel_device_ms(kern, kernel),
+            "kernel_ms": min(runs[1:3]), "plain_ms": min(runs[0], runs[3]),
+            "kernel_ms_runs": runs[1:3],
+            "plain_ms_runs": [runs[0], runs[3]]}
+
+
+def k1_work(nzeros, max_words: int) -> tuple:
+    """K1's (bytes, operations): each input read once (nzeros, payload,
+    pbits), each output written once (the deposit's words are uint32; that
+    the kernel stores them zero-extended in int64 is the port's layout,
+    not the function's work), and total_bits; per field one scan add,
+    three clamped shifts, ORs and index tests, about 16 operations."""
+    B, S = nzeros.shape
+    return B * S * (4 + 8 + 4) + B * max_words * 4 + B * 4, B * S * 16
+
+
+def k4_work(args) -> tuple:
+    """K4's (B, F, bytes, operations) on its arguments: each input read
+    once as the batch needs it (the channel scalars, warm-up and
+    coefficients of every subframe, the partition parameters of the orders
+    in use, residuals of FIXED and LPC subframes, signal samples of
+    VERBATIM ones, the assignment and frame numbers), each output written
+    once (nzeros, payload, pbits and the three [B] outputs);
+    K4_OPS_PER_FIELD a field, K4_OPS_PER_SAMPLE a coded sample."""
+    from flac_tpu_torch.models import frame as frame_mod
+    from flac_tpu_torch.ops import assemble_cuda
+    ch, sig, cfg, layout = args[0], args[1], args[4], args[6]
+    B, C, N = sig.shape
+    P = ch.params.shape[-1]
+    F = assemble_cuda.field_layout(
+        C, N, P, *frame_mod.resolve_layout(cfg, N, P, layout)).F
+    fmt = frame_mod.fmt
+    has_res = (ch.type_ == fmt.SUBFRAME_TYPE_FIXED) | (
+        ch.type_ == fmt.SUBFRAME_TYPE_LPC)
+    is_v = ch.type_ == fmt.SUBFRAME_TYPE_VERBATIM
+    nbytes = int(B * C * (7 * 4 + 1 + 32 * ch.warmup.element_size()
+                          + 32 * 4)
+                 + ((1 << ch.po.long()) * 4 * has_res).sum()
+                 + has_res.sum() * N * 4
+                 + is_v.sum() * N * sig.element_size()
+                 + B * (4 + 8) + B * F * 16 + B * 9)
+    nops = int(B * F * K4_OPS_PER_FIELD
+               + has_res.sum() * N * K4_OPS_PER_SAMPLE)
+    return B, F, nbytes, nops
+
+
+def k5_work(byte_len) -> tuple:
+    """K5's (bytes, operations): each frame's bytes under the CRCs read
+    once, its length and header length, the 3 CRC bytes written;
+    K5_OPS_PER_BYTE a byte."""
+    crc_bytes = int((byte_len.long() - 2).clamp(min=0).sum())
+    B = int(byte_len.shape[0])
+    return crc_bytes + B * 8 + B * 3, crc_bytes * K5_OPS_PER_BYTE
+
+
+def stage_work(key: str, a, plain_fn, probe: dict, op_cycles: dict,
+               sms: int) -> tuple:
+    """(bytes, operations, what else the line prints) of K6-K12 by key on
+    their captured arguments `a`, counted as these inputs need them; K6
+    with its chain floor, K11 with one grouped float32 conv1d of its
+    windowed rows as a yardstick (`library_ms`: another rounding, and the
+    port never calls it)."""
+    import torch.nn.functional as F
+    from flac_tpu_torch.ops import autoc_cuda, candidates_cuda, lpc_cuda, \
+        residuals_cuda
+    if key == "k6":
+        autoc, bps_k, _, cfg_k = a
+        B6, CH6, A6, O6 = (*autoc.shape[:3], autoc.shape[3] - 1)
+        AC6 = lpc_cuda.candidates(A6, O6, cfg_k)
+        problems = B6 * CH6 * A6
+        ests = 1 if cfg_k.do_exhaustive_model_search else 2
+        # what these inputs need: the candidates' own orders
+        orders = plain_fn(*a)[2]
+        # each input read once (autoc, bps), each output written once (qc,
+        # shift, order, precision, ok); the operations of one recursion a
+        # problem, its orders' estimates and each candidate's quantizer up
+        # to its order
+        nbytes = (autoc.numel() * 8 + bps_k.numel() * 4
+                  + B6 * CH6 * AC6 * (32 * 4 + 3 * 4 + 1))
+        nops = (problems * sum(2 * i + K6_OPS_PER_STEP for i in range(O6))
+                + problems * O6 * ests * K6_OPS_PER_ESTIMATE
+                + int(orders.sum()) * K6_OPS_PER_QUANT_STEP
+                + B6 * CH6 * AC6 * K6_OPS_PER_CANDIDATE)
+        # the longest problem's chain, each operation at its own dependent
+        # latency; the earlier design's count (every operation as an add,
+        # two recursions, 32 quantizer steps) beside it
+        chain = lpc_cuda.chain_ops(O6, int(orders.max()))
+        before = k6_chain_ops_before(O6, cfg_k)
+        return nbytes, nops, {
+            "problems": problems, "candidates": B6 * CH6 * AC6,
+            "order": O6, "longest_candidate": int(orders.max()),
+            "chain_ops": chain, "op_cycles": op_cycles,
+            "chain_floor_ms": lpc_cuda.chain_cycles(chain, op_cycles)
+            / probe["cycles_per_ns"] / 1e6,
+            "chain_ops_before": before,
+            "chain_floor_ms_before": before * op_cycles["add"]
+            / probe["cycles_per_ns"] / 1e6,
+            "ctas": lpc_cuda.ctas(problems, O6),
+            "lanes": lpc_cuda.lanes(O6)}
+    if key == "k8":
+        x8, qc8, _, order8 = a[:4]
+        B8, CH8, N8 = x8.shape
+        AC8 = qc8.shape[2]
+        rows = B8 * CH8
+        # each input read once (x, the coefficients, shifts, orders, bps),
+        # each output written once (res_all, int32 in every mode,
+        # order_all, f_ok, fit_ok); the operations of the fixed rows, and
+        # of each LPC candidate's taps to its order
+        nbytes = (x8.numel() * x8.element_size()
+                  + rows * AC8 * (32 + 2) * 4 + rows * 4
+                  + rows * (5 + AC8) * (N8 + 1) * 4 + rows * (5 + AC8))
+        taps = int(order8.clamp(max=residuals_cuda.max_taps(
+            N8, a[7])).sum())
+        nops = (rows * N8 * 5 * K8_OPS_PER_FIXED_SAMPLE
+                + taps * N8 * K8_OPS_PER_TAP
+                + rows * AC8 * N8 * K8_OPS_PER_LPC_SAMPLE)
+        return nbytes, nops, {
+            "rows": rows, "N": N8, "candidates": 5 + AC8, "taps": taps,
+            "lpc_mode": a[6], "fixed_wide": a[5],
+            "ctas": list(residuals_cuda.ctas(rows, AC8))}
+    if key == "k7":
+        res_k, _, N_k, max_po_k, cfg_k = a
+        rows = res_k.numel() // N_k
+        L7, P7 = max_po_k + 1, 1 << max_po_k
+        K7 = 31 if cfg_k.rice_param_limit > 15 else 15
+        # each input read once (the int32 residuals, the orders), each
+        # output written once (bits, parameters, RICE2 flags)
+        nbytes = (res_k.numel() * 4 + rows * 4
+                  + rows * L7 * (4 + 1) + rows * L7 * P7 * 4)
+        nops = rows * (N_k * (K7_OPS_PER_SAMPLE + K7 * K7_OPS_PER_SAMPLE_K)
+                       + (2 * P7 - 1) * K7 * K7_OPS_PER_NODE_K)
+        return nbytes, nops, {"rows": rows, "N": N_k, "partitions": P7,
+                              "parameters": K7}
+    if key == "k9":
+        x9 = a[0]
+        B9, CH9, N9 = x9.shape
+        r_bits9, r_ks9 = a[11], a[12]
+        C9, L9 = r_bits9.shape[2:]
+        P9 = r_ks9.shape[-1]
+        AC9 = C9 - 5
+        rows = B9 * CH9
+        # what these inputs need: x once (the constant test), each
+        # candidate's costs, header fields and flags, the winners'
+        # residual rows (FIXED and LPC winners only), one parameter row
+        # and coefficient row a winner; each output written once
+        choice = plain_fn(*a)
+        has_res = int((choice.type_ >= 2).sum())
+        lpc_w = int((choice.type_ == 3).sum())
+        nbytes = (x9.numel() * x9.element_size()
+                  + rows * (C9 * L9 * 4 + C9 * 4 + 5 + AC9 * 6 + 8)
+                  + has_res * N9 * 4 + rows * (P9 * 4 + 1)
+                  + lpc_w * (32 + 2) * 4
+                  + rows * (N9 * 4 + P9 * 4 + 32 * 4
+                            + 32 * x9.element_size() + 6 * 4 + 1))
+        nops = rows * (N9 * K9_OPS_PER_SAMPLE + C9 * K9_OPS_PER_CANDIDATE)
+        return nbytes, nops, {"rows": rows, "N": N9, "candidates": C9 + 2,
+                              "winners_with_residuals": has_res,
+                              "partitions": P9}
+    if key == "k10":
+        pcm10, cfg10 = a
+        B10, C10, N10 = pcm10.shape
+        loose10 = candidates_cuda.forms(C10, cfg10)[2]
+        x10 = plain_fn(*a)[0]
+        CH10 = x10.shape[1]
+        # each input read once (the uploaded samples), each output written
+        # once (the candidates, bps_eff, wasted, the loose assignment);
+        # K10_OPS_PER_SAMPLE a sample pair (half of it a sample that
+        # passes through)
+        nbytes = (pcm10.numel() * pcm10.element_size()
+                  + x10.numel() * x10.element_size()
+                  + 2 * B10 * CH10 * 4 + (B10 * 4 if loose10 else 0))
+        nops = B10 * N10 * C10 * K10_OPS_PER_SAMPLE // 2
+        return nbytes, nops, {
+            "frames": B10, "channels": C10, "N": N10,
+            "input_dtype": str(pcm10.dtype), "candidates": CH10,
+            "ctas": candidates_cuda.ctas(B10, C10, cfg10, sms),
+            "staged": candidates_cuda.staged(
+                C10, N10, cfg10, candidates_cuda.split(
+                    candidates_cuda.units(B10, C10, cfg10), sms))}
+    if key == "k11":
+        x11, w11, c11, O11 = a
+        B11, CH11, N11 = x11.shape
+        W11, A11 = w11.shape[0], c11.shape[0]
+        rows = B11 * CH11
+        # each input read once (x, the windows, the combine), the output
+        # written once; the float32 fmas these rows need, two operations
+        # each: every product whose first factor lies in a block of 128
+        # windowed samples that are not all zero (a block of zeros adds
+        # exact zeros, which no exact implementation must compute); every
+        # lag of every sample beside it
+        nbytes = (x11.numel() * x11.element_size() + w11.numel() * 4
+                  + c11.numel() * 8 + rows * A11 * (O11 + 1) * 8)
+        products = rows * W11 * sum(N11 - l for l in range(O11 + 1))
+        products_nonzero = k11_products_nonzero(x11, w11, O11)
+        d = (x11.float()[..., None, :] * w11).reshape(1, rows * W11, N11)
+        d_in = F.pad(d, (0, O11))
+        d_w = d.reshape(rows * W11, 1, N11)
+        library_ms = cuda_time_ms(
+            lambda: F.conv1d(d_in, d_w, groups=rows * W11))
+        return nbytes, 2 * products_nonzero, {
+            "library_ms": library_ms,
+            "library_call": f"F.conv1d([1, {rows * W11}, {N11 + O11}] "
+                            f"float32, [{rows * W11}, 1, {N11}], "
+                            f"groups={rows * W11})",
+            "rows": rows, "N": N11, "windows": W11, "apodizations": A11,
+            "lags": O11 + 1, "products": products,
+            "products_nonzero": products_nonzero,
+            "fma_bound_ms_all_products":
+                2 * products / NON_TENSOR_OPS_PER_S * 1e3,
+            "template_lag": autoc_cuda.template_lag(O11),
+            "plan": autoc_cuda.plan(rows, W11, O11)}
+    choice12, x12, loose12 = a[:3]
+    B12, _, N12 = x12.shape
+    P12 = choice12.params.shape[-1]
+    xs = x12.element_size()
+    # the four candidates' bits (the totals) or the loose assignment read
+    # once; a chosen candidate's fields and rows read once and written
+    # once a stream channel
+    per_channel = (8 * 4 + 1 + 32 * 4 + 32 * xs + P12 * 4 + N12 * 4
+                   + N12 * xs)
+    nbytes = (B12 * 4 * 4 + (B12 * 4 if loose12 is not None else 0)
+              + 2 * 2 * B12 * per_channel + B12 * 4)
+    return nbytes, B12 * 2 * 20, {"frames": B12, "N": N12,
+                                  "partitions": P12, "ctas": 2 * B12}
+
+
+def encode_kernel_times(label: str, x, cfg, probe: dict, op_cycles: dict,
+                        sms: int, plain_runs: int = 25,
+                        keys: tuple | None = None) -> dict:
+    """Phase 6 on one encode batch: each kernel of an encode program call
+    (K10, K11 and K6 where the preset has LPC, K8, K7, K9, K12 on the
+    stereo mid-side path, K4, K1 where the batch takes the quad layout,
+    K5) on its arguments in the ops form of the blocks `x` [B, C, N] (as
+    StreamEncoder uploads them) at `cfg`: held bit-identical to its plain
+    version, then timed (time_kernel) beside its bound, one `times` line
+    each; only the kernels of `keys` ("k1" to "k12") where it is given.
+    Returns {kernel name: its numbers}."""
+    import torch
+    from flac_tpu_torch.models import frame as frame_mod
+    from flac_tpu_torch.ops import bitpack, pack_cuda
+    seen = capture_ops(x, cfg)
+    out = {}
+
+    def put(key, kern, plain, work, extra, err):
+        name = KERNEL_KEYS[key]
+        out[name] = {**time_kernel(kern, plain, f"{name}_kernel",
+                                   plain_runs),
+                     **bound(*work), "max_abs_err": err, **extra}
+        emit({"phase": "times", "kernel": name, "batch": label,
+              "input_shape": list(x.shape), "input_dtype": str(x.dtype),
+              **out[name]})
+    keys = keys or tuple(KERNEL_KEYS)
+    for key in (*FRONT_STAGES, *SEARCH_STAGES):
+        a = seen.get(key)
+        if key not in keys or a is None or key == "k12" and not a[-1]:
+            continue            # no LPC, or no mid-side search: no launch
+        ok, err = stage_compare(key, a)
+        if not ok:
+            raise AssertionError(f"{KERNEL_KEYS[key]} differs from its "
+                                 f"plain version on {label}")
+        kern_fn, plain_fn = stage_calls(key)
+        nbytes, nops, extra = stage_work(key, a, plain_fn, probe,
+                                         op_cycles, sms)
+        put(key, lambda a=a, f=kern_fn: f(*a), lambda a=a, f=plain_fn: f(*a),
+            (nbytes, nops), extra, err)
+    a4 = seen["k4"]
+    ok, err = k4_compare(a4)
+    if not ok:
+        raise AssertionError(f"K4 differs from its plain version on {label}")
+    B, F, nbytes, nops = k4_work(a4)
+    if "k4" in keys:
+        put("k4", lambda: frame_mod.assemble_fields(*a4),
+            lambda: frame_mod.assemble_fields_plain(*a4), (nbytes, nops),
+            {"B": B, "F": F}, err)
+    if "k1" in seen and "k1" in keys:
+        nz, pay, pb, W = seen["k1"]
+        kw, kt = pack_cuda.pack_fields64(nz, pay, pb, W)
+        pw, pt = bitpack.pack_fields64(nz, pay, pb, W)
+        torch.cuda.synchronize()
+        if not (torch.equal(kw, pw) and torch.equal(kt, pt)):
+            raise AssertionError(f"K1 differs from its plain version on "
+                                 f"{label}")
+        put("k1", lambda: pack_cuda.pack_fields64(nz, pay, pb, W),
+            lambda: bitpack.pack_fields64(nz, pay, pb, W), k1_work(nz, W),
+            {"B": int(nz.shape[0]), "S": int(nz.shape[1]), "W": W}, 0)
+    w5, bl5, hb5 = seen["k5"]
+    ok, err = k5_compare(w5, bl5, hb5)
+    if not ok:
+        raise AssertionError(f"K5 differs from its plain version on {label}")
+    w5k = w5.clone()                  # K5 seals in place: time on a copy
+    if "k5" in keys:
+        put("k5", lambda: frame_mod.seal_frames(w5k, bl5, hb5),
+            lambda: frame_mod.seal_frames_plain(w5, bl5, hb5), k5_work(bl5),
+            {"B": int(bl5.shape[0]), "frame_bytes": int(bl5.sum())}, err)
+    return out
+
+
+def decode_kernel_times(stream: bytes, probe: dict,
+                        plain_runs: int = 5) -> dict:
+    """Phase 6 on one decode batch: K2 and K3 on the first decode batch of
+    `stream` as the "device" engine gives it (K2's codes as K3's [S, N]
+    int32 residuals, the PCM in the stream's width: int16 to 16 bits,
+    else int32), each held bit-identical to its plain version and timed
+    beside its bound; K3 also on the "fast" engine's input (int16
+    residuals where they fit) and beside its chain floor (N x the chain
+    probe's cycles a sample, folded form, over the SM clock), and the
+    engine's copy of K2's codes into K3's residual matrix, timed on its
+    own.  Returns {kernel name: its numbers}."""
+    import numpy as np
+    import torch
+    from flac_tpu_torch import decoder_device as dd
+    from flac_tpu_torch.ops import bitunpack, restore_cuda, rice_cuda
+    arr, frames, idxs, N, C, bps = next(stream_batches(stream))
+    barrays, bkw = dd.batch_inputs(arr, *dd._prep_batch(arr, frames, idxs,
+                                                        N, C))
+    t = [torch.from_numpy(a).cuda() for a in barrays]
+    k2kw = dict(T=dd._tile_T(N), NROW=bkw["NROW"], SEG=bkw["SEG"],
+                wide=bkw["wide"])
+    ok, err2, n_ovf = k2_compare(t[:3], k2kw)
+    if not ok:
+        raise AssertionError("K2 differs from its plain version on the "
+                             "stream's first decode batch")
+    # each input read once (the batch's stream words, lane_start, the SEG
+    # segment slots of each lane), each output written once (res [T, L]
+    # int32 or int64, ovf one byte a lane); the operations count the codes
+    # this batch really decodes (real segments, at most T a lane)
+    T, SEG, L = k2kw["T"], k2kw["SEG"], barrays[1].shape[0]
+    counts = ((barrays[2] >> 7) & 0xFF) * (barrays[2] != bitunpack.SEG_INERT)
+    codes = int(counts.sum(axis=1).clip(max=T).sum())
+    k2 = {**time_kernel(lambda: rice_cuda.rice_codes(*t[:3], **k2kw),
+                        lambda: bitunpack.rice_codes_plain(*t[:3], **k2kw),
+                        "rice_codes_kernel", plain_runs),
+          **bound(barrays[0].nbytes + L * 4 + L * SEG * 4
+                  + T * L * (8 if k2kw["wide"] else 4) + L,
+                  codes * K2_OPS_PER_CODE),
+          "max_abs_err": err2, "L": L, "NROW": k2kw["NROW"], "SEG": SEG,
+          "T": T, "wide": k2kw["wide"], "codes": codes, "ovf_lanes": n_ovf}
+    res_tl, _ = rice_cuda.rice_codes(*t[:3], **k2kw)
+    S = t[3].shape[0]
+    transpose_ms = queued_device_ms(lambda: res_tl.t().reshape(S, -1))
+    k3args = (res_tl.t().reshape(S, -1)[:, :N], *t[3:])
+    k3kw = dict(blocksize=N, channels=C, max_order=bkw["max_order"],
+                wide=bkw["wide"], out16=bps <= 16, bps=bps)
+    ok, err3 = k3_compare(dict(zip(RESTORE_KEYS, k3args)), k3kw)
+    if not ok:
+        raise AssertionError("K3 differs from its plain version on the "
+                             "stream's first decode batch")
+    [(farrays, fkw)] = restore_batch_inputs(stream, first_only=True)
+    ft = {k: torch.from_numpy(v).cuda() for k, v in farrays.items()}
+    ok, _ = k3_compare(ft, fkw)
+    if not ok:
+        raise AssertionError("K3 differs from its plain version on the "
+                             "fast engine's first batch")
+    fargs = (ft["res"], *(ft[k] for k in RESTORE_KEYS[1:]))
+    fast = kernel_device_ms(lambda: restore_cuda.restore_undo(*fargs, **fkw),
+                            "restore_kernel")
+    # each input read once (res as the device engine hands it over, in
+    # int32; order, shift, wasted, the taps, the assignments), each output
+    # written once (the PCM, a flag a frame); the operations count each
+    # subframe's own order, not the bucket's
+    B = S // C
+    out_bytes = 2 if k3kw["out16"] else 8 if k3kw["wide"] else 4
+    k3 = {**time_kernel(lambda: restore_cuda.restore_undo(*k3args, **k3kw),
+                        lambda: bitunpack.restore_undo_body(*k3args, **k3kw),
+                        "restore_kernel", 1),
+          **bound(S * N * 4 + S * 4 * 3 + S * bkw["max_order"] * 4 + B * 4
+                  + S * N * out_bytes + B,
+                  int(N * (K3_OPS_PER_TAP * barrays[3].astype(np.int64)
+                           + K3_OPS_PER_SAMPLE).sum())),
+          "max_abs_err": err3, "S": S, "N": N, "channels": C,
+          "max_order": bkw["max_order"],
+          "out_dtype": "int16" if k3kw["out16"] else "int32",
+          "ms_fast_engine_input": fast["ms"],
+          "ms_fast_engine_input_by": fast["ms_by"],
+          "fast_engine_res_dtype": str(farrays["res"].dtype),
+          "chain_probe": probe,
+          "chain_floor_ms": N * probe["folded_cycles_per_sample"]
+          / probe["cycles_per_ns"] / 1e6,
+          "transpose_copy_ms": transpose_ms,
+          "transpose_copy": {"shape": list(res_tl.shape),
+                             "dtype": str(res_tl.dtype)},
+          "smem_dynamic_bytes": restore_cuda.smem_bytes(4, bkw["wide"])}
+    for name, entry in (("rice_codes", k2), ("restore", k3)):
+        emit({"phase": "times", "kernel": name, **entry})
+    return {"rice_codes": k2, "restore": k3}
 
 
 # ---------------------------------------------------------------------------
@@ -1026,13 +1517,16 @@ def decode_batches(frames: list) -> int:
     return sum(-(-n // DECODE_BATCH) for n in groups.values())
 
 
-def encode(pcm, level: int, blocksize: int = 4096, **kw):
+def encode(pcm, level: int, blocksize: int = 4096, rate: int = RATE,
+           bps: int = 16, **kw):
+    """pcm [C, n] through StreamEncoder on the card at -`level`, 64 frames
+    a batch: (the stream's bytes, the encoder)."""
     from flac_tpu_torch import EncoderConfig
     from flac_tpu_torch.encoder import StreamEncoder
     buf = io.BytesIO()
-    enc = StreamEncoder(buf, EncoderConfig.from_preset(level,
-                                                       blocksize=blocksize),
-                        device="cuda", batch_frames=64, **kw)
+    enc = StreamEncoder(buf, EncoderConfig.from_preset(
+        level, blocksize=blocksize, sample_rate=rate, channels=pcm.shape[0],
+        bits_per_sample=bps), device="cuda", batch_frames=64, **kw)
     enc.process(pcm)
     enc.finish()
     return buf.getvalue(), enc
@@ -2033,6 +2527,279 @@ def parallel_paths(pcm, stream: bytes, expect_quad: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase hires: the hi-res and multichannel configurations at full size
+# ---------------------------------------------------------------------------
+
+Hires = collections.namedtuple("Hires", "label rate channels bps presets "
+                                        "seconds seed")
+# the configurations the main path leaves out: BASELINE.json config 3
+# (hi-res masters), 5.1 (film and surround archives) and mono (spoken
+# word), each `seconds` of signals.make_test_signal(n, channels, bps,
+# seed) encoded at each of `presets`
+HIRES = (Hires("24-bit 96 kHz stereo", 96000, 2, 24, (5, 8), 180, 96),
+         Hires("24-bit 48 kHz 5.1", 48000, 6, 24, (5, 8), 60, 51),
+         Hires("16-bit 44.1 kHz mono", 44100, 1, 16, (5,), 60, 1))
+# phase 6's shapes of them: (configuration, preset)
+HIRES_TIMED = ((HIRES[0], 8), (HIRES[1], 5))
+CPU_CLIP_SECONDS = 10        # each stream's first seconds, also on the CPU
+
+# a `python -m flac_tpu_torch.cli` process (the module's __main__ through
+# runpy) that then writes its kernel launches to the file sys.argv[1]
+TOOL_SCRIPT = COUNTS + """
+import json, runpy, sys
+count_file = sys.argv[1]
+sys.argv = ["flac_tpu_torch.cli", *sys.argv[2:]]
+reset_counts()
+try:
+    runpy.run_module("flac_tpu_torch.cli", run_name="__main__",
+                     alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+with open(count_file, "w") as f:
+    json.dump(counts(), f)
+sys.exit(rc)
+"""
+
+
+def hires_pcm(h, n: int | None = None):
+    """[channels, n] int32 samples of configuration h (its full length by
+    default)."""
+    from flac_tpu_torch import signals
+    return signals.make_test_signal(n or h.seconds * h.rate, h.channels,
+                                    h.bps, seed=h.seed)
+
+
+def hires_cfg(h, level: int):
+    """Configuration h's resolved EncoderConfig at -level, blocksize 4096."""
+    from flac_tpu_torch import EncoderConfig
+    return EncoderConfig.from_preset(
+        level, blocksize=4096, sample_rate=h.rate, channels=h.channels,
+        bits_per_sample=h.bps).resolve()
+
+
+def _tool(argv, count_file: str) -> tuple:
+    """TOOL_SCRIPT in a fresh process: (wall seconds, its launches)."""
+    t0 = time.perf_counter()
+    _join([_spawn([sys.executable, "-c", TOOL_SCRIPT, count_file, *argv])],
+          600)
+    wall = time.perf_counter() - t0
+    with open(count_file) as f:
+        return wall, json.load(f)
+
+
+def hires_paths() -> tuple:
+    """Phase hires.  Raises AssertionError on the first check that fails.
+    Returns (each path's kernel launches, counted from 0 just before it
+    and read just after; the streams by (label, preset); the largest
+    |difference| of K2 and K3 from their plain versions on the streams'
+    first batches)."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from flac_tpu_torch import (EncoderConfig, container, decode_stream_tpu,
+                                metadata as md)
+    from flac_tpu_torch import encoder as encoder_mod
+    from flac_tpu_torch.encoder import encode_file_to_flac
+    launches, streams = {}, {}
+    errs = {"rice_codes": 0, "restore": 0}
+    real_run = encoder_mod._PROGRAMS.run
+    for h in HIRES:
+        pcm = hires_pcm(h)
+        n = pcm.shape[1]
+        pcm_bytes = pcm.size * h.bps // 8
+        for level in h.presets:
+            path = f"{h.label} -{level}"
+            cfg = hires_cfg(h, level)
+            # two warm-up encodes run each key's ops and capture it
+            # (encoder._EncodePrograms); the timed encode replays
+            warm = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                encode(pcm, level, rate=h.rate, bps=h.bps)
+                torch.cuda.synchronize()
+                warm.append(time.perf_counter() - t0)
+            calls = []
+
+            def counting_run(name, fn, *inputs):
+                calls.append(name)
+                return real_run(name, fn, *inputs)
+            encoder_mod._PROGRAMS.run = counting_run
+            _reset_counts()
+            try:
+                t0 = time.perf_counter()
+                stream, enc = encode(pcm, level, rate=h.rate, bps=h.bps)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                del encoder_mod._PROGRAMS.run
+            c = launches[f"{path} encode"] = _counts()
+            quad = quad_batches(cfg, n, 64)
+            # K4, K5, K7, K8, K9, K10, K6 and K11 once an encode program
+            # call (a replay here, or a safe re-encode), K12 once on the
+            # stereo mid-side path, K1 once a quad-layout batch
+            want = dict(dict.fromkeys(KERNEL_MODULES, len(calls)),
+                        pack_fields64=quad, rice_codes=0, restore=0,
+                        assign_channels=len(calls) if cfg.do_mid_side else 0)
+            streams[(h.label, level)] = stream
+            emit({"phase": "hires", "case": f"{path} encode",
+                  "seconds_audio": h.seconds, "pcm_mb": pcm_bytes / 1e6,
+                  "warm_up_s": warm, "encode_wall_s": wall,
+                  "encode_mb_per_s": pcm_bytes / 1e6 / wall,
+                  "compression_ratio": len(stream) / pcm_bytes,
+                  "stream_bytes": len(stream),
+                  "sha256": hashlib.sha256(stream).hexdigest(),
+                  "encode_program_calls": len(calls),
+                  "calls_by_program": dict(collections.Counter(
+                      f"{nm[0]}, N={nm[2]}, {nm[3]}" for nm in calls)),
+                  "quad_batches": quad, "misfit_frames": enc.misfit_frames,
+                  "launches": c})
+            if c != want:
+                raise AssertionError(f"{path}: the encode launched {c}, "
+                                     f"expected {want}")
+            # every engine gives the source back with the MD5; K2 and K3
+            # once a decode batch where the engine runs them
+            mbps = {}
+            for engine in ("device", "fast", "host"):
+                decode_stream_tpu(stream, engine=engine)       # warm-up
+                torch.cuda.synchronize()
+                _reset_counts()
+                t0 = time.perf_counter()
+                st = decode_stream_tpu(stream, engine=engine,
+                                       max_batch=DECODE_BATCH)
+                torch.cuda.synchronize()
+                mbps[engine] = pcm_bytes / 1e6 / (time.perf_counter() - t0)
+                c = launches[f"{path} decode {engine}"] = _counts()
+                batches = decode_batches(st.frames)
+                want = dict.fromkeys(KERNEL_MODULES, 0)
+                want["rice_codes"] = batches if engine == "device" else 0
+                want["restore"] = batches if engine != "host" else 0
+                if not st.md5_ok or not np.array_equal(st.samples, pcm):
+                    raise AssertionError(f"{path}: the {engine} engine's "
+                                         "decode differs from the source")
+                if c != want:
+                    raise AssertionError(f"{path}: the {engine} decode "
+                                         f"launched {c}, expected {want}")
+                del st
+            emit({"phase": "hires", "case": f"{path} decode",
+                  "md5": "match", "decode_mb_per_s": mbps,
+                  "decode_batches": batches})
+            # K2 and K3 against their plain versions on the stream's first
+            # decode batch: K2 on the tile tables (narrow and wide), K3 on
+            # the fast engine's parse and as int32 residuals and PCM
+            [(arrays, kw)] = decode_batch_inputs(stream, first_only=True)
+            cases = [("rice_codes", f"{'wide' if wide else 'narrow'}",
+                      k2_compare([torch.from_numpy(a).cuda()
+                                  for a in arrays], dict(kw, wide=wide)))
+                     for wide in (False, True)]
+            [(arrays, kw)] = restore_batch_inputs(stream, first_only=True)
+            t = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+            cases += [("restore", f"the fast engine's parse, "
+                       f"{arrays['res'].dtype} residuals",
+                       k3_compare(t, kw)),
+                      ("restore", "int32 residuals, int32 PCM",
+                       k3_compare(dict(t, res=t["res"].int()),
+                                  dict(kw, out16=False)))]
+            for name, label, (ok, err, *_) in cases:
+                emit({"phase": "hires", "kernel": name,
+                      "case": f"{path} stream, first batch, {label}",
+                      "identical": ok, "max_abs_err": err})
+                if not ok:
+                    raise AssertionError(f"{name} differs from its plain "
+                                         f"version on {path}'s first batch "
+                                         f"({label})")
+                errs[name] = max(errs[name], err)
+            # the card's stream equals the port's CPU encode (the plain
+            # versions), on the first CPU_CLIP_SECONDS
+            clip = np.ascontiguousarray(pcm[:, :CPU_CLIP_SECONDS * h.rate])
+            card, _ = encode(clip, level, rate=h.rate, bps=h.bps)
+            t0 = time.perf_counter()
+            cpu = encode_file_to_flac(clip, EncoderConfig.from_preset(
+                level, blocksize=4096, sample_rate=h.rate,
+                channels=h.channels, bits_per_sample=h.bps), device="cpu",
+                batch_frames=64)
+            emit({"phase": "hires", "case": f"{path}, {CPU_CLIP_SECONDS} s "
+                  "on the card and on the CPU", "identical": card == cpu,
+                  "bytes": len(card), "cpu_encode_s":
+                  time.perf_counter() - t0})
+            if card != cpu:
+                raise AssertionError(f"{path}: the card's stream differs "
+                                     "from the CPU encode's")
+
+    # the 24-bit sources as WAV files (WAVE_FORMAT_EXTENSIBLE) through the
+    # flac tool at -8, then -d, each in a fresh process
+    tool = [h for h in HIRES if h.bps == 24]
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        src, out = (os.path.join(tmp.name, d) for d in ("src", "out"))
+        os.makedirs(src)
+        os.makedirs(out)
+        wavs, wants, quad, batches = [], [], 0, 0
+        for i, h in enumerate(tool):
+            pcm = hires_pcm(h)
+            wavs.append(container.write_wav(pcm, h.rate, h.bps))
+            with open(os.path.join(src, f"{i}.wav"), "wb") as f:
+                f.write(wavs[-1])
+            # what the tool should write: StreamEncoder's bytes with its
+            # padding and 10 s seek table
+            table = md.SeekTableBlock(points=md.SeekTableBlock
+                                      .template_spaced(pcm.shape[1], h.rate,
+                                                       10.0).points)
+            wants.append(encode_file_to_flac(pcm, hires_cfg(h, 8),
+                                             padding=4096, seektable=table,
+                                             device="cuda"))
+            quad += quad_batches(hires_cfg(h, 8), pcm.shape[1], 64)
+            batches += decode_batches(decode_stream_tpu(
+                wants[-1], engine="host").frames)
+        del pcm
+        enc_s, c = _tool(["-8", "-s", *(os.path.join(src, f"{i}.wav")
+                                        for i in range(len(tool)))],
+                         os.path.join(tmp.name, "encode.json"))
+        launches["the 24-bit WAVs: flac -8"] = c
+        for i in range(len(tool)):
+            shutil.move(os.path.join(src, f"{i}.flac"),
+                        os.path.join(out, f"{i}.flac"))
+            with open(os.path.join(out, f"{i}.flac"), "rb") as f:
+                if f.read() != wants[i]:
+                    raise AssertionError(f"the tool's -8 file of "
+                                         f"{tool[i].label} differs from "
+                                         "StreamEncoder's bytes")
+        if c["pack_fields64"] != quad:
+            raise AssertionError(f"the tool's -8 encode launched {c}, "
+                                 f"expected K1 {quad} times")
+        dec_s, c = _tool(["-d", "-s", *(os.path.join(out, f"{i}.flac")
+                                        for i in range(len(tool)))],
+                         os.path.join(tmp.name, "decode.json"))
+        launches["the 24-bit WAVs: flac -d"] = c
+        for i in range(len(tool)):
+            with open(os.path.join(out, f"{i}.wav"), "rb") as f:
+                if f.read() != wavs[i]:
+                    raise AssertionError(f"-d did not give the WAV of "
+                                         f"{tool[i].label} back")
+        if c != dict(dict.fromkeys(KERNEL_MODULES, 0), rice_codes=batches,
+                     restore=batches):
+            raise AssertionError(f"the tool's -d launched {c}, expected K2 "
+                                 f"and K3 {batches} times")
+        wav_mb = sum(len(w) for w in wavs) / 1e6
+        emit({"phase": "hires", "case": "the 24-bit WAVs through "
+              "python -m flac_tpu_torch.cli -8, then -d",
+              "configurations": [h.label for h in tool], "wav_mb": wav_mb,
+              "encode_wall_s": enc_s, "decode_wall_s": dec_s,
+              "encode_mb_per_s": wav_mb / enc_s,
+              "decode_mb_per_s": wav_mb / dec_s,
+              "files_equal_stream_encoder": True, "wav_round_trip": True,
+              "quad_batches": quad, "decode_batches": batches,
+              "launches": {k: launches[k] for k in (
+                  "the 24-bit WAVs: flac -8", "the 24-bit WAVs: flac -d")}})
+    finally:
+        tmp.cleanup()
+    return launches, streams, errs
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the compiled encode programs on the card
 # ---------------------------------------------------------------------------
 
@@ -2250,6 +3017,18 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
     if launches[f"-5, 32-bit stereo at {HIRES_RATE} Hz (the safe layout)"][
             "pack_fields64"]:
         raise AssertionError("the 33-bit side's program launched K1")
+    # the hires configurations' 64-frame keys (int32, as StreamEncoder
+    # uploads 24 bits)
+    for h, lv in ((HIRES[0], 5), (HIRES[0], 8), (HIRES[1], 5)):
+        src = hires_pcm(h, 3 * 64 * N)
+        cfg_h = hires_cfg(h, lv)
+        hold(f"-{lv}, {h.label}, 64 frames, int32",
+             [(blocks(src, lo * N, 64, dtype=np.int32), lo)
+              for lo in (0, 64, 128)],
+             lambda x, lo, cfg=cfg_h: encoder_mod.encode_batch(x, lo, cfg,
+                                                               N),
+             lambda x, lo, cfg=cfg_h: ops(x, lo, cfg),
+             mid_side=cfg_h.do_mid_side)
 
     # four shard entries of the card: one key, every shard against the ops
     host = np.ascontiguousarray(
@@ -2303,24 +3082,32 @@ def compiled_encode(pcm, track_keys: dict) -> dict:
     emit({"phase": "compiled", "case": "set_sync_debug_mode('error') "
           "around warm calls and the ops form", "raised": False})
 
-    # ---- times: one call of 64 and of 256 frames, ops against replay ----
+    # ---- times: one call of 64 and of 256 frames at -5, and of 64 frames
+    # of 24-bit 96 kHz stereo at -8, ops against replay ----
     times = {}
-    for B, dtype in ((64, np.int16), (256, np.int32)):
-        xb = blocks(pcm, 0, B, dtype=dtype)
-        nums = encoder_mod._frame_numbers(0, B, dev)
+    h = HIRES[0]
+    for label, xb, cfg_t, pcm_mb in (
+            ("64_frames", blocks(pcm, 0, 64), cfg5, 64 * N * 2 * 2 / 1e6),
+            ("256_frames", blocks(pcm, 0, 256, dtype=np.int32), cfg5,
+             256 * N * 2 * 2 / 1e6),
+            (f"64_frames_{h.label} -8", blocks(hires_pcm(h, 64 * N), 0, 64,
+                                               dtype=np.int32),
+             hires_cfg(h, 8), 64 * N * 2 * 3 / 1e6)):
+        nums = encoder_mod._frame_numbers(0, xb.shape[0], dev)
 
-        def replay(xb=xb):
-            encoder_mod.encode_batch(xb, 0, cfg5, N)
+        def replay(xb=xb, cfg_t=cfg_t):
+            encoder_mod.encode_batch(xb, 0, cfg_t, N)
 
-        def op_by_op(xb=xb, nums=nums):
-            encoder_mod._encode_batch_ops(xb, nums, cfg5, N, "auto",
+        def op_by_op(xb=xb, nums=nums, cfg_t=cfg_t):
+            encoder_mod._encode_batch_ops(xb, nums, cfg_t, N, "auto",
                                           "kernel")
-        row = {label: call_times(fn) for label, fn in (
+        row = {run: call_times(fn) for run, fn in (
             ("ops", op_by_op), ("replay", replay), ("replay_2", replay),
             ("ops_2", op_by_op))}
-        row["pcm_mb"] = B * N * 2 * 2 / 1e6
-        times[f"{B}_frames"] = row
-    emit({"phase": "compiled", "case": "times, -5", "times": times,
+        row["pcm_mb"] = pcm_mb
+        times[label] = row
+    emit({"phase": "compiled", "case": "times, -5 and 24-bit -8",
+          "times": times,
           "track_keys": track_keys,
           "phase_11_programs": program_info(progs),
           "graph_pool_mb": sum(p.pool_bytes for p in progs.graphs.values())
@@ -2429,12 +3216,9 @@ def main() -> int:
         from flac_tpu_torch.models import frame as frame_mod
         from flac_tpu_torch import decoder as decoder_mod
         from flac_tpu_torch import encoder as encoder_mod
-        from flac_tpu_torch.models import subframe
-        from flac_tpu_torch.ops import assemble_cuda, assemble_synth, \
-            assign_cuda, autoc_cuda, bitpack, bitunpack, candidates_cuda, \
-            frontend_synth, lpc_cuda, pack_cuda, residuals_cuda, \
-            restore_cuda, rice_cost_cuda, rice_cuda, seal_cuda, \
-            search_synth, select_cuda
+        from flac_tpu_torch.ops import assemble_synth, autoc_cuda, \
+            bitpack, frontend_synth, lpc_cuda, pack_cuda, restore_cuda, \
+            rice_cuda, seal_cuda, search_synth
     except ImportError as e:
         return fail(f"the flac_tpu_torch package is not here ({e})")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2546,7 +3330,11 @@ def main() -> int:
                     f"mirror or passes 227 KB: {k3_smem}")
 
     # ---- 3. each kernel against its plain version ----
-    max_err = 0
+    # the largest |difference| each kernel showed where it is compared
+    errs = dict.fromkeys(KERNEL_MODULES, 0)
+
+    def note(name, err):
+        errs[name] = max(errs[name], err)
     for label, nz, pay, pb, W in pack_cases():
         args_gpu = [torch.from_numpy(a).cuda() for a in (nz, pay, pb)]
         kw, kt = pack_cuda.pack_fields64(*args_gpu, W)
@@ -2558,10 +3346,9 @@ def main() -> int:
               "identical": ok, "max_abs_err": err})
         if not ok:
             return fail(f"K1 differs from its plain version on '{label}'")
-        max_err = max(max_err, err)
+        note("pack_fields64", err)
     clips = {f"-{lv}": encode(signals.make_test_signal(
         5 * RATE, seed=30 + lv), lv)[0] for lv in (5, 8)}
-    k2_err = 0
     for label, arrays, static in k2_cases(clips):
         ok, err, n_ovf = k2_compare(
             [torch.from_numpy(a).cuda() for a in arrays], static)
@@ -2572,8 +3359,7 @@ def main() -> int:
               "identical": ok, "max_abs_err": err})
         if not ok:
             return fail(f"K2 differs from its plain version on '{label}'")
-        k2_err = max(k2_err, err)
-    k3_err = 0
+        note("rice_codes", err)
     for label, arrays, static in k3_cases(clips):
         t = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
         ok, err = k3_compare(t, static)
@@ -2583,16 +3369,10 @@ def main() -> int:
               "identical": ok, "max_abs_err": err})
         if not ok:
             return fail(f"K3 differs from its plain version on '{label}'")
-        k3_err = max(k3_err, err)
-    # K4 and K5 on the corners, then on real -5 and -8 batches (the ops
-    # form's choice); K5 on the plain deposit of the plain fields
-    k4_err = k5_err = 0
-    real = {f"-{lv}, 64 frames": real_assembly(lv, seed=70 + lv)
-            for lv in (5, 8)}
-    k45_cases = [(label, assemble_synth.as_inputs(case, "cuda"))
-                 for label, case in assemble_synth.cases()]
-    k45_cases += [(label, r["k4"]) for label, r in real.items()]
-    for label, a4 in k45_cases:
+        note("restore", err)
+    # K4 and K5 on the corners, K5 on the plain deposit of the plain fields
+    for label, case in assemble_synth.cases():
+        a4 = assemble_synth.as_inputs(case, "cuda")
         ok4, err4 = k4_compare(a4)
         fields = frame_mod.assemble_fields_plain(*a4)
         ok5, err5 = k5_compare(*plain_pack(fields, a4), fields.hdr_bytes)
@@ -2604,7 +3384,8 @@ def main() -> int:
         if not (ok4 and ok5):
             return fail(f"K4 or K5 differs from its plain version on "
                         f"'{label}': {ok4}, {ok5}")
-        k4_err, k5_err = max(k4_err, err4), max(k5_err, err5)
+        note("assemble_fields", err4)
+        note("frame_crc", err5)
     # K5 on its own corners: against the host seal everywhere, and against
     # the plain version inside its domain
     for label, case in assemble_synth.seal_cases():
@@ -2624,120 +3405,101 @@ def main() -> int:
               "identical": ok5, "max_abs_err": err5})
         if not ok5:
             return fail(f"K5 differs on its corner '{label}'")
-        k5_err = max(k5_err, err5)
-    # the whole chain, K4 -> K1 -> K5 against plain -> plain -> plain, on
-    # the -5 batch: the frames' bytes
-    a4 = real["-5, 64 frames"]["k4"]
-    fk = frame_mod.assemble_fields(*a4)
-    W = frame_mod.max_words(a4[4], 2, 4096, a4[0].params.shape[-1])
-    wk, tk = pack_cuda.pack_fields64(fk.nzeros, fk.payload, fk.pbits, W)
-    wk = frame_mod.seal_frames(wk, tk // 8, fk.hdr_bytes)
-    fp = frame_mod.assemble_fields_plain(*a4)
-    wp, tp = bitpack.pack_fields64(fp.nzeros, fp.payload, fp.pbits, W)
-    wp = frame_mod.seal_frames_plain(wp, tp // 8, fp.hdr_bytes)
-    torch.cuda.synchronize()
-    chain_ok = torch.equal(wk, wp) and torch.equal(tk, tp)
-    emit({"phase": "kernels", "case": "-5, 64 frames: K4 -> K1 -> K5 "
-          "against plain -> plain -> plain", "identical": chain_ok,
-          "frame_bytes": int((tk // 8).sum())})
-    if not chain_ok:
-        return fail("the chain K4 -> K1 -> K5 differs from the plain chain")
-    # K6-K12 on the corners, then on their inputs in the ops form of real
-    # batches: -5 and -8 (64 frames of the track's recipe), the 33-bit clip
-    # (64 blocks: int64 signals, RICE2), -8 with -e -p (8 frames) and -4
-    # (64 frames: the loose path)
-    search_err = dict.fromkeys([*SEARCH_STAGES, *FRONT_STAGES], 0)
-    track = signals.make_test_signal(64 * 4096, seed=180)
-    hi = hires_clip()
-    real_cfgs = {
-        "-5, 64 frames": (EncoderConfig.from_preset(
-            5, blocksize=4096).resolve(), track, 64),
-        "-8, 64 frames": (EncoderConfig.from_preset(
-            8, blocksize=4096).resolve(), track, 64),
-        "33-bit side, 64 blocks": (EncoderConfig.from_preset(
-            5, blocksize=4096, sample_rate=HIRES_RATE,
-            bits_per_sample=32).resolve(), hi, 64),
-        "-8 -e -p, 8 frames": (EncoderConfig.from_preset(
-            8, blocksize=4096, do_exhaustive_model_search=True,
-            do_qlp_coeff_prec_search=True).resolve(), track, 8),
-        "-4 (loose mid-side), 64 frames": (EncoderConfig.from_preset(
-            4, blocksize=4096).resolve(), track, 64)}
+        note("frame_crc", err5)
 
-    # each stage's kernel name, its kernel id, its dispatch and its plain
-    # version
-    stages = {"k6": ("lpc_coeffs", "K6", subframe.lpc_candidates,
-                     subframe.lpc_candidates_plain),
-              "k8": ("candidate_residuals", "K8",
-                     subframe.candidate_residuals,
-                     subframe.candidate_residuals_plain),
-              "k7": ("rice_cost", "K7", subframe._rice_cost,
-                     subframe._rice_cost_plain),
-              "k9": ("select_realize", "K9", subframe.select_and_realize,
-                     subframe.select_and_realize_plain),
-              "k10": ("channel_candidates", "K10"),
-              "k11": ("window_autoc", "K11"),
-              "k12": ("assign_channels", "K12")}
-
-    def search_cases():
-        """(label, "k6" to "k12", the arguments on the card, the case's
-        configuration or None), made one at a time, so that no case's
-        tensors outlive its comparison (they would count in the later
-        phases' peak memory)"""
-        for label, case in frontend_synth.candidate_cases():
-            a10 = frontend_synth.as_candidate_inputs(case, "cuda")
-            yield f"corner: {label}", "k10", a10, a10[1]
-        for label, case in frontend_synth.autoc_cases():
-            yield (f"corner: {label}", "k11",
-                   frontend_synth.as_autoc_inputs(case, "cuda"), None)
-        for label, case in frontend_synth.assign_cases():
-            yield (f"corner: {label}", "k12",
-                   (*frontend_synth.as_assign_inputs(case, "cuda"),
-                    EncoderConfig(
-                        limit_min_bitrate=case["limit_min_bitrate"]), True),
-                   None)
-        for label, case in search_synth.lpc_cases():
-            yield (f"corner: {label}", "k6",
-                   search_synth.as_lpc_inputs(case, "cuda"), case["cfg"])
-        for label, case in search_synth.rice_cases():
-            yield (f"corner: {label}", "k7",
-                   search_synth.as_rice_inputs(case, "cuda"), case["cfg"])
-        for label, case in search_synth.residual_cases():
-            yield (f"corner: {label}", "k8",
-                   search_synth.as_residual_inputs(case, "cuda"), None)
-        for label, case in search_synth.select_cases():
-            yield (f"corner: {label}", "k9",
-                   search_synth.as_select_inputs(case, "cuda"), None)
-        for label, (cfg_r, src, frames) in real_cfgs.items():
-            seen = real_search(cfg_r, src, frames)
-            # the encoder takes 16-bit blocks as uploaded: int16
-            a10 = ((seen["k10"][0].to(torch.int16), *seen["k10"][1:])
-                   if cfg_r.bits_per_sample <= 16 else None)
-            for key in [*SEARCH_STAGES, *FRONT_STAGES]:
-                yield label, key, seen.pop(key), cfg_r
-            if a10 is not None:
-                yield f"{label}, int16 upload", "k10", a10, cfg_r
-    for label, which, a_s, cfg_s in search_cases():
-        if which in FRONT_STAGES:
-            name, kid = stages[which]
-            ok, err = front_compare(which, a_s)
-        else:
-            name, kid, kern_fn, plain_fn = stages[which]
-            ok, err = search_compare(kern_fn, plain_fn, a_s)
-        search_err[which] = max(search_err[which], err)
-        emit({"phase": "kernels", "kernel": name, "case": label,
-              "input_shape": list(a_s[1 if which == "k12" else 0].shape),
-              "input_dtype": str(a_s[1 if which == "k12" else 0].dtype),
+    def kernel_case(label, key, a, cfg_s):
+        """One K6-K12 comparison, printed; raises if it differs."""
+        ok, err = stage_compare(key, a)
+        note(KERNEL_KEYS[key], err)
+        shown = a[1 if key == "k12" else 0]
+        emit({"phase": "kernels", "kernel": KERNEL_KEYS[key],
+              "case": label, "input_shape": list(shown.shape),
+              "input_dtype": str(shown.dtype),
               "config": None if cfg_s is None else {
                   k: getattr(cfg_s, k) for k in (
-                      "bits_per_sample", "max_lpc_order",
+                      "bits_per_sample", "channels", "max_lpc_order",
                       "do_exhaustive_model_search",
                       "do_qlp_coeff_prec_search", "do_escape_coding",
                       "max_residual_partition_order")},
               "identical": ok, "max_abs_err": err})
         if not ok:
-            return fail(f"{kid} differs from its plain version on "
-                        f"'{label}'")
-    del a_s
+            raise AssertionError(f"K{key[1:]} differs from its plain "
+                                 f"version on '{label}'")
+
+    # K6-K12 on their corners (ops/frontend_synth.py, ops/search_synth.py)
+    corners = (
+        [("k10", label, frontend_synth.as_candidate_inputs(case, "cuda"))
+         for label, case in frontend_synth.candidate_cases()]
+        + [("k11", label, frontend_synth.as_autoc_inputs(case, "cuda"))
+           for label, case in frontend_synth.autoc_cases()]
+        + [("k12", label, (*frontend_synth.as_assign_inputs(case, "cuda"),
+                           EncoderConfig(limit_min_bitrate=case[
+                               "limit_min_bitrate"]), True))
+           for label, case in frontend_synth.assign_cases()]
+        + [("k6", label, search_synth.as_lpc_inputs(case, "cuda"))
+           for label, case in search_synth.lpc_cases()]
+        + [("k7", label, search_synth.as_rice_inputs(case, "cuda"))
+           for label, case in search_synth.rice_cases()]
+        + [("k8", label, search_synth.as_residual_inputs(case, "cuda"))
+           for label, case in search_synth.residual_cases()]
+        + [("k9", label, search_synth.as_select_inputs(case, "cuda"))
+           for label, case in search_synth.select_cases()])
+    try:
+        for key, label, a in corners:
+            kernel_case(f"corner: {label}", key, a,
+                        a[-1] if key in ("k10", "k6", "k7") else None)
+        del corners
+        # every kernel of an encode program call (K10, K11, K6, K8, K7,
+        # K9, K12, K4, K1, K5) on its inputs in the ops form of real
+        # batches, each as StreamEncoder uploads it (real_batches); K10
+        # on a 16-bit batch widened to int32 too; the chain K4 -> K1 -> K5
+        # against plain -> plain -> plain: the frames' bytes
+        for label, cfg_r, x in real_batches():
+            seen = capture_ops(x, cfg_r)
+            for key in (*FRONT_STAGES, *SEARCH_STAGES):
+                if key in seen and (key != "k12" or seen[key][-1]):
+                    kernel_case(label, key, seen.pop(key), cfg_r)
+            if x.dtype == torch.int16:
+                kernel_case(f"{label}, widened to int32", "k10",
+                            (x.int(), cfg_r), cfg_r)
+            a4 = seen["k4"]
+            ok4, err4 = k4_compare(a4)
+            ok5, err5 = k5_compare(*seen["k5"])
+            fp = frame_mod.assemble_fields_plain(*a4)
+            okp, errp = k5_compare(*plain_pack(fp, a4), fp.hdr_bytes)
+            chain = {}
+            if "k1" in seen:
+                W = seen["k1"][3]
+                fk = frame_mod.assemble_fields(*a4)
+                wk, tk = pack_cuda.pack_fields64(fk.nzeros, fk.payload,
+                                                 fk.pbits, W)
+                wk = frame_mod.seal_frames(wk, tk // 8, fk.hdr_bytes)
+                wp, tp = bitpack.pack_fields64(fp.nzeros, fp.payload,
+                                               fp.pbits, W)
+                wp = frame_mod.seal_frames_plain(wp, tp // 8, fp.hdr_bytes)
+                torch.cuda.synchronize()
+                chain = {"chain_k4_k1_k5_identical": torch.equal(wk, wp)
+                         and torch.equal(tk, tp),
+                         "frame_bytes": int((tk // 8).sum()), "W": W}
+            emit({"phase": "kernels", "kernel": "assemble_fields, "
+                  "frame_crc, pack_fields64", "case": label,
+                  "frames": int(a4[1].shape[0]),
+                  "channels": int(a4[1].shape[1]),
+                  "fields": int(fp.nzeros.shape[1]),
+                  "misfits": int((~fp.ok).sum()),
+                  "identical": [ok4, ok5, okp], "max_abs_err": [err4, err5,
+                                                               errp],
+                  **chain})
+            if not (ok4 and ok5 and okp and chain.get(
+                    "chain_k4_k1_k5_identical", True)):
+                raise AssertionError(f"K4, K5 or the chain K4 -> K1 -> K5 "
+                                     f"differs from its plain version on "
+                                     f"'{label}'")
+            note("assemble_fields", err4)
+            note("frame_crc", max(err5, errp))
+            del seen, a4, fp
+    except AssertionError as e:
+        return fail(str(e))
     if args.quick:
         emit({"phase": "done", "quick": True,
               "seconds": time.perf_counter() - t_start})
@@ -3006,687 +3768,85 @@ def main() -> int:
     if not same:
         return fail("the scan engine's decode differs from the host's")
 
-    # ---- 6. times at the main path's shapes ----
-    captured = {}
-    real_pack = frame_mod.pack_cuda.pack_fields64
+    # ---- hires: the hi-res and multichannel configurations ----
+    t0 = time.perf_counter()
+    hires, hires_streams, hires_errs = hires_paths()
+    check_encode_calls("hires", hires)
+    for name, err in hires_errs.items():
+        note(name, err)
+    emit({"phase": "hires", "seconds": time.perf_counter() - t0})
 
-    def capture(nz, pay, pb, W):
-        captured["args"] = (nz.clone(), pay.clone(), pb.clone(), W)
-        return real_pack(nz, pay, pb, W)
-    frame_mod.pack_cuda.pack_fields64 = capture
-    try:
-        # the ops form: a graph replay would not call the wrapper
-        blocks = torch.from_numpy(np.ascontiguousarray(
-            pcm[:, :64 * 4096].reshape(2, 64, 4096).transpose(1, 0, 2))).cuda()
-        encoder_mod._encode_batch_ops(
-            blocks, encoder_mod._frame_numbers(0, 64, blocks.device), cfg5,
-            4096, "auto", "kernel")
-    finally:
-        frame_mod.pack_cuda.pack_fields64 = real_pack
-    nz, pay, pb, W = captured["args"]
-    B, S = nz.shape
-    kw, kt = pack_cuda.pack_fields64(nz, pay, pb, W)
-    pw, pt = bitpack.pack_fields64(nz, pay, pb, W)
-    if not (torch.equal(kw, pw) and torch.equal(kt, pt)):
-        return fail("K1 differs from its plain version on real -5 fields")
-    max_err = max(max_err, int((kw - pw).abs().max()))
-    # plain, kernel, kernel, plain: the pairs bracket drift in the card
-    plain_ms = cuda_time_ms(lambda: bitpack.pack_fields64(nz, pay, pb, W))
-    kernel_ms = cuda_time_ms(lambda: pack_cuda.pack_fields64(
-        nz, pay, pb, W))
-    kernel_ms2 = cuda_time_ms(lambda: pack_cuda.pack_fields64(
-        nz, pay, pb, W))
-    plain_ms2 = cuda_time_ms(lambda: bitpack.pack_fields64(nz, pay, pb, W))
-    k1_dev = kernel_device_ms(lambda: pack_cuda.pack_fields64(
-        nz, pay, pb, W), "pack_fields64_kernel")
-    # each input read once (nzeros, payload, pbits), each output written
-    # once: the deposit's words are uint32 (that the kernel stores them
-    # zero-extended in int64 is the port's layout, not the function's
-    # work), and total_bits; per field: one scan add, three clamped
-    # shifts, ORs and index tests, about 16 integer operations
-    nbytes = B * S * (4 + 8 + 4) + B * W * 4 + B * 4
-    nops = B * S * 16
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
-    emit({"phase": "times", "kernel": "pack_fields64", "B": B, "S": S,
-          "W": W, "device_ms": k1_dev["ms"],
-          "kernel_ms_runs": [kernel_ms, kernel_ms2],
-          "plain_ms_runs": [plain_ms, plain_ms2], "bytes": nbytes,
-          "operations": nops})
-    k1 = {"name": "pack_fields64", "route": "cuda",
-          "source": pack_cuda.SOURCE, "replaces": pack_cuda.REPLACES,
-          "launches": k1_launches, "max_abs_err": max_err,
-          **k1_dev,
-          "kernel_ms": min(kernel_ms, kernel_ms2),
-          "plain_ms": min(plain_ms, plain_ms2),
-          "bound_ms": max(bytes_ms, ops_ms),
-          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-          "library_ms": None,
-          "library_note": "no single PyTorch call computes this deposit",
-          "cluster": pack_cuda.CLUSTER,
-          "smem_dynamic_bytes": pack_cuda.rank_words(W) * 4,
-          "ptxas": usage["pack_fields64"]}
-
-    # K2 on the main path's first full decode batch
-    [(arrays, k2kw)] = decode_batch_inputs(stream, first_only=True)
-    words2d, lane_start, segs = (torch.from_numpy(a).cuda() for a in arrays)
-    ok, err, n_ovf = k2_compare([words2d, lane_start, segs], k2kw)
-    if not ok:
-        return fail("K2 differs from its plain version on the main path's "
-                    "first batch")
-    k2_err = max(k2_err, err)
-
-    def k2_kernel():
-        rice_cuda.rice_codes(words2d, lane_start, segs, **k2kw)
-
-    def k2_plain():
-        bitunpack.rice_codes_plain(words2d, lane_start, segs, **k2kw)
-    plain_ms = cuda_time_ms(k2_plain, warmup=1, runs=5)
-    kernel_ms = cuda_time_ms(k2_kernel)
-    kernel_ms2 = cuda_time_ms(k2_kernel)
-    plain_ms2 = cuda_time_ms(k2_plain, warmup=1, runs=5)
-    k2_dev = kernel_device_ms(k2_kernel, "rice_codes_kernel")
-    # each input read once (the batch's stream words, lane_start, the SEG
-    # segment slots of each lane), each output written once (res [T, L]
-    # int32 or int64, ovf one byte a lane); the operations count the codes
-    # this batch really decodes (real segments, at most T a lane)
-    T, SEG = k2kw["T"], k2kw["SEG"]
-    L = arrays[1].shape[0]
-    counts = ((arrays[2] >> 7) & 0xFF) * (arrays[2] != bitunpack.SEG_INERT)
-    codes = int(counts.sum(axis=1).clip(max=T).sum())
-    nbytes = (arrays[0].nbytes + L * 4 + L * SEG * 4
-              + T * L * (8 if k2kw["wide"] else 4) + L)
-    nops = codes * K2_OPS_PER_CODE
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
-    emit({"phase": "times", "kernel": "rice_codes", "L": L, "T": T,
-          "NROW": k2kw["NROW"], "SEG": SEG, "wide": k2kw["wide"],
-          "codes": codes, "ovf_lanes": n_ovf,
-          "staged_ctas_per_launch": per_launch, "device_ms": k2_dev["ms"],
-          "kernel_ms_runs": [kernel_ms, kernel_ms2],
-          "plain_ms_runs": [plain_ms, plain_ms2], "bytes": nbytes,
-          "operations": nops})
-    k2 = {"name": "rice_codes", "route": "cuda",
-          "source": rice_cuda.SOURCE, "replaces": rice_cuda.REPLACES,
-          "launches": k2_launches, "max_abs_err": k2_err,
-          **k2_dev,
-          "kernel_ms": min(kernel_ms, kernel_ms2),
-          "plain_ms": min(plain_ms, plain_ms2),
-          "bound_ms": max(bytes_ms, ops_ms),
-          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-          "library_ms": None,
-          "library_note": "no PyTorch call decodes Rice codes",
-          "staged_ctas_per_launch": per_launch,
-          "smem_dynamic_bytes": rice_cuda.STAGE_ROWS * 64,
-          "ptxas": usage["rice_codes"]}
-
-    # K3 on the main path's first full decode batch, as the device engine
-    # gives it: K2's codes as the [S, N] residual matrix, int16 PCM out
-    from flac_tpu_torch import decoder_device as dd
-    arr = np.frombuffer(stream, np.uint8)
-    prep = dd._prep_batch(arr, st.frames, list(range(DECODE_BATCH)), 4096, 2)
-    barrays, bkw = dd.batch_inputs(arr, *prep)
-    tensors = [torch.from_numpy(a).cuda() for a in barrays]
-    res_tl, _ = rice_cuda.rice_codes(*tensors[:3], T=dd._tile_T(4096),
-                                     NROW=bkw["NROW"], SEG=bkw["SEG"],
-                                     wide=bkw["wide"])
-    S = tensors[3].shape[0]
-    # the device engine's lanes -> residual matrix copy
-    # (ops/bitunpack.py rice_decode_restore), timed on its own
-    transpose_ms = queued_device_ms(
-        lambda: res_tl.t().reshape(S, -1), runs=25)
-    emit({"phase": "times", "step": "res_tl.t().reshape(S, -1)",
-          "shape": list(res_tl.shape), "dtype": str(res_tl.dtype),
-          "device_ms_queued_events": transpose_ms,
-          "bytes": 2 * res_tl.numel() * res_tl.element_size()})
-    k3t = dict(zip(RESTORE_KEYS, [res_tl.t().reshape(S, -1)[:, :4096],
-                                  *tensors[3:]]))
-    k3kw = dict(blocksize=4096, channels=2, max_order=bkw["max_order"],
-                wide=bkw["wide"], out16=True, bps=16)
-    ok, err = k3_compare(k3t, k3kw)
-    if not ok:
-        return fail("K3 differs from its plain version on the main path's "
-                    "first batch")
-    k3_err = max(k3_err, err)
-    k3args = (k3t["res"], *(k3t[k] for k in RESTORE_KEYS[1:]))
-
-    def k3_kernel():
-        restore_cuda.restore_undo(*k3args, **k3kw)
-
-    def k3_plain():
-        bitunpack.restore_undo_body(*k3args, **k3kw)
-    plain_ms = cuda_time_ms(k3_plain, warmup=0, runs=1)
-    kernel_ms = cuda_time_ms(k3_kernel)
-    kernel_ms2 = cuda_time_ms(k3_kernel)
-    plain_ms2 = cuda_time_ms(k3_plain, warmup=0, runs=1)
-    k3_dev = kernel_device_ms(k3_kernel, "restore_kernel")
-    # the fast engine's input: int16 residuals of the same frames
-    [(farrays, fkw)] = restore_batch_inputs(stream, first_only=True)
-    ft = {k: torch.from_numpy(v).cuda() for k, v in farrays.items()}
-    fargs = (ft["res"], *(ft[k] for k in RESTORE_KEYS[1:]))
-    k3_fast = kernel_device_ms(
-        lambda: restore_cuda.restore_undo(*fargs, **fkw), "restore_kernel")
-    # the chain's floor: each CTA's N samples at the probe's cycles a
-    # sample (the folded form, which the main path takes) and SM clock
+    # ---- 6. times at the main path's shapes and at the hires shapes ----
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    op_cycles = lpc_cuda.op_cycles()
     probe = kernel_variants.chain_probe(probe_lib)
-    chain_floor_ms = (4096 * probe["folded_cycles_per_sample"]
-                      / probe["cycles_per_ns"] / 1e6)
-    # each input read once (res as the device engine hands it over, in
-    # int32; order, shift, wasted, the taps, the assignments), each output
-    # written once (int16 PCM, a flag a frame); the operations count each
-    # subframe's own order, not the bucket's
-    N = 4096
-    B = S // 2
-    order_np = barrays[3].astype(np.int64)
-    nbytes = (S * N * 4 + S * 4 * 3 + S * bkw["max_order"] * 4 + B * 4
-              + S * N * 2 + B)
-    nops = int(N * (K3_OPS_PER_TAP * order_np + K3_OPS_PER_SAMPLE).sum())
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
-    emit({"phase": "times", "kernel": "restore", "S": S, "N": N,
-          "max_order": bkw["max_order"], "device_ms": k3_dev["ms"],
-          "device_ms_fast_engine_input": k3_fast["ms"],
-          "chain_probe": probe, "chain_floor_ms": chain_floor_ms,
-          "kernel_ms_runs": [kernel_ms, kernel_ms2],
-          "plain_ms_runs": [plain_ms, plain_ms2], "bytes": nbytes,
-          "operations": nops})
-    k3 = {"name": "restore", "route": "cuda",
-          "source": restore_cuda.SOURCE, "replaces": restore_cuda.REPLACES,
-          "launches": k3_launches, "launches_fast_engine": k3_fast_launches,
-          "max_abs_err": k3_err, **k3_dev,
-          "ms_int16_input": k3_fast["ms"],
-          "ms_int16_input_by": k3_fast["ms_by"],
-          "kernel_ms": min(kernel_ms, kernel_ms2),
-          "plain_ms": min(plain_ms, plain_ms2),
-          "bound_ms": max(bytes_ms, ops_ms),
-          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-          "chain_floor_ms": chain_floor_ms,
-          "transpose_copy_ms": transpose_ms,
-          "smem_dynamic_bytes": restore_cuda.smem_bytes(
-              k3t["res"].element_size(), bkw["wide"]),
-          "library_ms": None,
-          "library_note": "no PyTorch call computes an integer IIR restore",
-          "ptxas": usage["restore"]}
-
-    # K4 and K5 on the main path's first batch (the ops form), as K1; K4
-    # also on the track's first 256 frames (the sharded form's batch)
-    seen = capture_assembly(blocks, cfg5)
-    a4, (w5, bl5, hb5) = seen["k4"], seen["k5"]
-    ok4, err4 = k4_compare(a4)
-    ok5, err5 = k5_compare(w5, bl5, hb5)
-    if not (ok4 and ok5):
-        return fail("K4 or K5 differs from its plain version on the main "
-                    "path's first batch")
-    k4_err, k5_err = max(k4_err, err4), max(k5_err, err5)
-    seen_256 = capture_assembly(torch.from_numpy(np.ascontiguousarray(
-        pcm[:, :256 * 4096].reshape(2, 256, 4096).transpose(1, 0, 2)))
-        .cuda(), cfg5)
-    a4_256, (w5_256, bl5_256, hb5_256) = seen_256["k4"], seen_256["k5"]
-    del seen_256
-    ok4, err4 = k4_compare(a4_256)
-    ok5, err5 = k5_compare(w5_256, bl5_256, hb5_256)
-    if not (ok4 and ok5):
-        return fail("K4 or K5 differs from its plain version on the track's "
-                    "first 256 frames")
-    k4_err, k5_err = max(k4_err, err4), max(k5_err, err5)
-    w5k = w5.clone()                 # K5 seals in place: time on a copy
-    w5k_256 = w5_256.clone()
-
-    def k4_kernel():
-        frame_mod.assemble_fields(*a4)
-
-    def k4_plain():
-        frame_mod.assemble_fields_plain(*a4)
-
-    def k5_kernel():
-        frame_mod.seal_frames(w5k, bl5, hb5)
-
-    def k5_plain():
-        frame_mod.seal_frames_plain(w5, bl5, hb5)
-
-    def k5_kernel_256():
-        frame_mod.seal_frames(w5k_256, bl5_256, hb5_256)
-
-    def k5_plain_256():
-        frame_mod.seal_frames_plain(w5_256, bl5_256, hb5_256)
-
-    def k4_kernel_256():
-        frame_mod.assemble_fields(*a4_256)
-
-    def k4_plain_256():
-        frame_mod.assemble_fields_plain(*a4_256)
-    k45 = {}
-    for name, kern, plain, dev_name in (
-            ("assemble_fields", k4_kernel, k4_plain,
-             "assemble_fields_kernel"),
-            ("assemble_fields B=256", k4_kernel_256, k4_plain_256,
-             "assemble_fields_kernel"),
-            ("frame_crc", k5_kernel, k5_plain, "frame_crc_kernel"),
-            ("frame_crc B=256", k5_kernel_256, k5_plain_256,
-             "frame_crc_kernel")):
-        runs = [cuda_time_ms(f) for f in (plain, kern, kern, plain)]
-        k45[name] = {"dev": kernel_device_ms(kern, dev_name),
-                     "plain_ms_runs": [runs[0], runs[3]],
-                     "kernel_ms_runs": [runs[1], runs[2]]}
-
-    def k4_work(args):
-        """K4's bytes and operations on a batch: each input read once as
-        the batch needs it (the channel scalars, warm-up and coefficients
-        of every subframe, the partition parameters of the orders in use,
-        residuals of FIXED and LPC subframes, signal samples of VERBATIM
-        ones, the assignment and frame numbers), each output written once
-        (nzeros, payload, pbits and the three [B] outputs);
-        K4_OPS_PER_FIELD a field, K4_OPS_PER_SAMPLE a coded sample.
-        Returns (B, F, bytes, operations)."""
-        ch, sig = args[0], args[1]
-        B_, C_, N_ = sig.shape
-        F_ = assemble_cuda.field_layout(
-            C_, N_, ch.params.shape[-1], *frame_mod.resolve_layout(
-                cfg5, N_, ch.params.shape[-1], args[6])).F
-        fmt = frame_mod.fmt
-        has_res = (ch.type_ == fmt.SUBFRAME_TYPE_FIXED) | (
-            ch.type_ == fmt.SUBFRAME_TYPE_LPC)
-        is_v = ch.type_ == fmt.SUBFRAME_TYPE_VERBATIM
-        nbytes = int(B_ * C_ * (7 * 4 + 1 + 32 * ch.warmup.element_size()
-                                + 32 * 4)
-                     + ((1 << ch.po.long()) * 4 * has_res).sum()
-                     + has_res.sum() * N_ * 4
-                     + is_v.sum() * N_ * sig.element_size()
-                     + B_ * (4 + 8) + B_ * F_ * 16 + B_ * 9)
-        nops = int(B_ * F_ * K4_OPS_PER_FIELD
-                   + has_res.sum() * N_ * K4_OPS_PER_SAMPLE)
-        return B_, F_, nbytes, nops
-    B4, F4, k4_bytes, k4_ops = k4_work(a4)
-    _, _, k4_bytes_256, k4_ops_256 = k4_work(a4_256)
-    t = k45["assemble_fields B=256"]
-    bytes_ms = k4_bytes_256 / HBM_BYTES_PER_S * 1e3
-    ops_ms = k4_ops_256 / NON_TENSOR_OPS_PER_S * 1e3
-    k4_at_256 = {"B": 256, "ms": t["dev"]["ms"], "ms_by": t["dev"]["ms_by"],
-                 "ms_queued_events": t["dev"]["ms_queued_events"],
-                 "kernel_ms": min(t["kernel_ms_runs"]),
-                 "plain_ms": min(t["plain_ms_runs"]), "bytes": k4_bytes_256,
-                 "operations": k4_ops_256, "bound_ms": max(bytes_ms, ops_ms),
-                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    emit({"phase": "times", "kernel": "assemble_fields", **k4_at_256,
-          "device_ms": t["dev"]["ms"], "kernel_ms_runs": t["kernel_ms_runs"],
-          "plain_ms_runs": t["plain_ms_runs"]})
-    # K5: each frame's bytes under the CRCs read once, its length and
-    # header length, the 3 CRC bytes written; K5_OPS_PER_BYTE a byte
-    def k5_work(byte_len):
-        crc_bytes = int((byte_len.long() - 2).clamp(min=0).sum())
-        B_ = int(byte_len.shape[0])
-        return crc_bytes + B_ * 8 + B_ * 3, crc_bytes * K5_OPS_PER_BYTE
-    k5_bytes, k5_ops = k5_work(bl5)
-    t = k45["frame_crc B=256"]
-    nbytes, nops = k5_work(bl5_256)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
-    k5_at_256 = {"B": 256, "ms": t["dev"]["ms"], "ms_by": t["dev"]["ms_by"],
-                 "ms_queued_events": t["dev"]["ms_queued_events"],
-                 "cluster": seal_cuda.cluster_size(256),
-                 "kernel_ms": min(t["kernel_ms_runs"]),
-                 "plain_ms": min(t["plain_ms_runs"]), "bytes": nbytes,
-                 "operations": nops, "bound_ms": max(bytes_ms, ops_ms),
-                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    emit({"phase": "times", "kernel": "frame_crc", **k5_at_256,
-          "device_ms": t["dev"]["ms"], "kernel_ms_runs": t["kernel_ms_runs"],
-          "plain_ms_runs": t["plain_ms_runs"]})
+    cfgs = {lv: EncoderConfig.from_preset(lv, blocksize=4096).resolve()
+            for lv in (5, 8)}
+    # the track's first batch as StreamEncoder uploads it (int16), at -5
+    # and -8; its first 256 frames (the sharded form's batch, int32) for
+    # K4 and K5; the main path's first decode batch
+    at = {f"-{lv}": encode_kernel_times(f"-{lv}", upload(pcm, 64), cfg,
+                                        probe, op_cycles, sms)
+          for lv, cfg in cfgs.items()}
+    at_256 = encode_kernel_times("-5, 256 frames", upload(pcm, 256, 32),
+                                 cfgs[5], probe, op_cycles, sms,
+                                 keys=("k4", "k5"))
+    at["-5"].update(decode_kernel_times(stream, probe))
+    # the hires shapes: the plain versions over 3 calls
+    at_hires = {f"{h.label} -{lv}": encode_kernel_times(
+        f"{h.label} -{lv}", upload(hires_pcm(h, 64 * 4096), 64, h.bps),
+        hires_cfg(h, lv), probe, op_cycles, sms, plain_runs=3)
+        for h, lv in HIRES_TIMED}
+    at_hires[f"{HIRES[0].label} -8"].update(decode_kernel_times(
+        hires_streams[(HIRES[0].label, 8)], probe, plain_runs=1))
+    for shapes in (at, at_hires, {"B256": at_256}):
+        for entries in shapes.values():
+            for name, entry in entries.items():
+                note(name, entry["max_abs_err"])
     # the device time of an empty launch of K5's grid at B=64, launched as
     # K5 is (CTAs of 256 threads in clusters of its size, each holding its
     # shared memory): the least a launch takes
-    empty_cluster = seal_cuda.cluster_size(B4)
-    empty_ctas = B4 * empty_cluster
+    empty_cluster = seal_cuda.cluster_size(64)
     empty_smem = max(f["smem_static_bytes"]
                      for f in usage["frame_crc"].values())
     empty_launch = kernel_device_ms(
         lambda: probe_lib.flac_empty_launch(
-            empty_ctas, 256, empty_cluster, empty_smem,
+            64 * empty_cluster, 256, empty_cluster, empty_smem,
             torch.cuda.current_stream().cuda_stream),
         "empty_kernel")
-    kernels45 = []
-    for name, mod, nbytes, nops, err, launches_main in (
-            ("assemble_fields", assemble_cuda, k4_bytes, k4_ops, k4_err,
-             k4_launches),
-            ("frame_crc", seal_cuda, k5_bytes, k5_ops, k5_err,
-             k5_launches)):
-        t = k45[name]
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
-        emit({"phase": "times", "kernel": name, "B": B4, "F": F4,
-              "device_ms": t["dev"]["ms"],
-              "kernel_ms_runs": t["kernel_ms_runs"],
-              "plain_ms_runs": t["plain_ms_runs"], "bytes": nbytes,
-              "operations": nops})
-        kernels45.append({
+    main_launches = dict(main_counts, rice_codes=k2_launches,
+                         restore=k3_launches)
+    extras = {
+        "pack_fields64": {"cluster": pack_cuda.CLUSTER,
+                          "smem_dynamic_bytes": pack_cuda.rank_words(
+                              at["-5"]["pack_fields64"]["W"]) * 4},
+        "rice_codes": {"staged_ctas_per_launch": per_launch,
+                       "smem_dynamic_bytes": rice_cuda.STAGE_ROWS * 64},
+        "restore": {"launches_fast_engine": k3_fast_launches},
+        "assemble_fields": {"at_B256": at_256["assemble_fields"]},
+        "frame_crc": {"at_B256": at_256["frame_crc"],
+                      "cluster": seal_cuda.cluster_size(64),
+                      "empty_launch_ms": empty_launch["ms"],
+                      "empty_launch_ctas": 64 * empty_cluster,
+                      "empty_launch_cluster": empty_cluster,
+                      "empty_launch_smem": empty_smem}}
+    kernels_line = []
+    for name, mod in _wrappers().items():
+        main = at["-5"][name]
+        kernels_line.append({
             "name": name, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": launches_main,
-            "max_abs_err": err, **t["dev"],
-            "kernel_ms": min(t["kernel_ms_runs"]),
-            "plain_ms": min(t["plain_ms_runs"]),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-            "library_note": ("no single PyTorch call builds FLAC field "
-                             "lists" if name == "assemble_fields" else
-                             "no PyTorch call computes a CRC"),
-            **({"design": K4_DESIGN, "at_B256": k4_at_256}
-               if name == "assemble_fields" else
-               {"design": K5_DESIGN, "at_B256": k5_at_256,
-                "cluster": seal_cuda.cluster_size(B4),
-                "empty_launch_ms": empty_launch["ms"],
-                "empty_launch_ctas": empty_ctas,
-                "empty_launch_cluster": empty_cluster,
-                "empty_launch_smem": empty_smem}),
-            "ptxas": usage[name]})
-    k4, k5 = kernels45
-
-    # K6-K9 on the search inputs of phase 3's -5 and -8 batches (the ops
-    # form's arguments): the kernel's device time (torch.profiler), the
-    # kernel and the plain version through their dispatch (CUDA events,
-    # plain, kernel, kernel, plain), the bound; K6 beside its chain floor
-    op_cycles = lpc_cuda.op_cycles()
-    timed_inputs = {lv: real_search(*real_cfgs[f"{lv}, 64 frames"])
-                    for lv in ("-5", "-8")}
-    kernels_search = []
-    for name, mod, key, kern_fn, plain_fn, launches_main, err in (
-            ("lpc_coeffs", lpc_cuda, "k6", subframe.lpc_candidates,
-             subframe.lpc_candidates_plain, k6_launches, search_err["k6"]),
-            ("rice_cost", rice_cost_cuda, "k7", subframe._rice_cost,
-             subframe._rice_cost_plain, k7_launches, search_err["k7"]),
-            ("candidate_residuals", residuals_cuda, "k8",
-             subframe.candidate_residuals,
-             subframe.candidate_residuals_plain, k8_launches,
-             search_err["k8"]),
-            ("select_realize", select_cuda, "k9",
-             subframe.select_and_realize, subframe.select_and_realize_plain,
-             k9_launches, search_err["k9"])):
-        shapes = {}
-        for lv in ("-5", "-8"):
-            a67 = timed_inputs[lv][key]
-            ok, e67 = search_compare(kern_fn, plain_fn, a67)
-            if not ok:
-                return fail(f"{name} differs from its plain version on the "
-                            f"{lv} batch")
-            runs = [cuda_time_ms(lambda f=f, a67=a67: f(*a67))
-                    for f in (plain_fn, kern_fn, kern_fn, plain_fn)]
-            dev = kernel_device_ms(lambda a67=a67: kern_fn(*a67),
-                                   f"{name}_kernel")
-            cfg_k = a67[-1]
-            if key == "k6":
-                autoc, bps_k, N_k = a67[0], a67[1], a67[2]
-                B6, CH6, A6, O6 = (*autoc.shape[:3], autoc.shape[3] - 1)
-                AC6 = lpc_cuda.candidates(A6, O6, cfg_k)
-                problems = B6 * CH6 * A6
-                ests = 1 if cfg_k.do_exhaustive_model_search else 2
-                # what these inputs need: the candidates' own orders
-                orders = plain_fn(*a67)[2]
-                # each input read once (autoc, bps), each output written
-                # once (qc, shift, order, precision, ok); the operations
-                # of one recursion a problem, its orders' estimates and
-                # each candidate's quantizer up to its order
-                nbytes = (autoc.numel() * 8 + bps_k.numel() * 4
-                          + B6 * CH6 * AC6 * (32 * 4 + 3 * 4 + 1))
-                nops = (problems * sum(2 * i + K6_OPS_PER_STEP
-                                       for i in range(O6))
-                        + problems * O6 * ests * K6_OPS_PER_ESTIMATE
-                        + int(orders.sum()) * K6_OPS_PER_QUANT_STEP
-                        + B6 * CH6 * AC6 * K6_OPS_PER_CANDIDATE)
-                # the longest problem's chain, each operation at its own
-                # dependent latency; the earlier design's count (every
-                # operation as an add, two recursions, 32 quantizer steps)
-                # beside it
-                chain = lpc_cuda.chain_ops(O6, int(orders.max()))
-                before = k6_chain_ops_before(O6, cfg_k)
-                extra = {"problems": problems, "candidates": B6 * CH6 * AC6,
-                         "order": O6, "longest_candidate": int(orders.max()),
-                         "chain_ops": chain, "op_cycles": op_cycles,
-                         "chain_floor_ms": lpc_cuda.chain_cycles(
-                             chain, op_cycles)
-                         / probe["cycles_per_ns"] / 1e6,
-                         "chain_ops_before": before,
-                         "chain_floor_ms_before": before * op_cycles["add"]
-                         / probe["cycles_per_ns"] / 1e6,
-                         "ctas": lpc_cuda.ctas(problems, O6),
-                         "lanes": lpc_cuda.lanes(O6)}
-            elif key == "k8":
-                x8, qc8, _, order8 = a67[:4]
-                B8, CH8, N8 = x8.shape
-                AC8 = qc8.shape[2]
-                rows = B8 * CH8
-                # each input read once (x, the coefficients, shifts,
-                # orders, bps), each output written once (res_all,
-                # order_all, f_ok, fit_ok); the operations of the fixed
-                # rows, and of each LPC candidate's taps to its order
-                nbytes = (x8.numel() * x8.element_size()
-                          + rows * AC8 * (32 + 2) * 4 + rows * 4
-                          + rows * (5 + AC8) * (N8 + 1) * 4
-                          + rows * (5 + AC8))
-                taps = int(order8.clamp(max=residuals_cuda.max_taps(
-                    N8, a67[7])).sum())
-                nops = (rows * N8 * 5 * K8_OPS_PER_FIXED_SAMPLE
-                        + taps * N8 * K8_OPS_PER_TAP
-                        + rows * AC8 * N8 * K8_OPS_PER_LPC_SAMPLE)
-                extra = {"rows": rows, "N": N8, "candidates": 5 + AC8,
-                         "taps": taps,
-                         "ctas": list(residuals_cuda.ctas(rows, AC8))}
-            elif key == "k9":
-                x9 = a67[0]
-                B9, CH9, N9 = x9.shape
-                r_bits9, r_ks9 = a67[11], a67[12]
-                C9, L9 = r_bits9.shape[2:]
-                P9 = r_ks9.shape[-1]
-                AC9 = C9 - 5
-                rows = B9 * CH9
-                # what these inputs need: x once (the constant test), each
-                # candidate's costs, header fields and flags, the
-                # winners' residual rows (FIXED and LPC winners only), one
-                # parameter row and coefficient row a winner; each output
-                # written once
-                choice = plain_fn(*a67)
-                has_res = int((choice.type_ >= 2).sum())
-                lpc_w = int((choice.type_ == 3).sum())
-                nbytes = (x9.numel() * x9.element_size()
-                          + rows * (C9 * L9 * 4 + C9 * 4 + 5 + AC9 * 6 + 8)
-                          + has_res * N9 * 4 + rows * (P9 * 4 + 1)
-                          + lpc_w * (32 + 2) * 4
-                          + rows * (N9 * 4 + P9 * 4 + 32 * 4
-                                    + 32 * x9.element_size() + 6 * 4 + 1))
-                nops = rows * (N9 * K9_OPS_PER_SAMPLE
-                               + C9 * K9_OPS_PER_CANDIDATE)
-                extra = {"rows": rows, "N": N9, "candidates": C9 + 2,
-                         "winners_with_residuals": has_res,
-                         "partitions": P9}
-            else:
-                res_k, order_k, N_k, max_po_k = a67[:4]
-                rows = res_k.numel() // N_k
-                L7, P7 = max_po_k + 1, 1 << max_po_k
-                K7 = 31 if cfg_k.rice_param_limit > 15 else 15
-                # each input read once (the int32 residuals, the orders),
-                # each output written once (bits, parameters, RICE2 flags)
-                nbytes = (res_k.numel() * 4 + rows * 4
-                          + rows * L7 * (4 + 1) + rows * L7 * P7 * 4)
-                nops = rows * (N_k * (K7_OPS_PER_SAMPLE
-                                      + K7 * K7_OPS_PER_SAMPLE_K)
-                               + (2 * P7 - 1) * K7 * K7_OPS_PER_NODE_K)
-                extra = {"rows": rows, "N": N_k, "partitions": P7,
-                         "parameters": K7}
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
-            shapes[lv] = {"dev": dev, "kernel_ms": min(runs[1:3]),
-                          "plain_ms": min(runs[0], runs[3]),
-                          "bytes": nbytes, "operations": nops,
-                          "bound_ms": max(bytes_ms, ops_ms),
-                          "bound_by": ("bytes" if bytes_ms >= ops_ms
-                                       else "operations"), **extra}
-            emit({"phase": "times", "kernel": name, "batch": lv,
-                  "input_shape": list(a67[0].shape),
-                  "device_ms": dev["ms"], "kernel_ms_runs": runs[1:3],
-                  "plain_ms_runs": [runs[0], runs[3]], "bytes": nbytes,
-                  "operations": nops, **extra})
-        main = shapes["-5"]
-        kernels_search.append({
-            "name": name, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": launches_main,
-            "max_abs_err": err, **main["dev"],
-            "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            **({"chain_floor_ms": main["chain_floor_ms"],
-                "chain_floor_ms_before": main["chain_floor_ms_before"]}
-               if key == "k6" else {}),
-            "at_-8": {k: (v["ms"] if k == "dev" else v)
-                      for k, v in shapes["-8"].items()},
-            "library_ms": None,
-            "library_note": {
-                "k6": "no PyTorch call runs Levinson-Durbin and the "
-                      "quantizer",
-                "k7": "no PyTorch call computes partitioned Rice costs",
-                "k8": "no single PyTorch call computes the fixed and LPC "
-                      "residuals: conv1d has no integer form on the card, "
-                      "and the shift, masks and range flags are more ops",
-                "k9": "no single PyTorch call selects and realizes a "
-                      "subframe: an argmin, then gathers from five "
-                      "tables"}[key],
-            "design": {"k6": K6_DESIGN, "k7": K7_DESIGN, "k8": K8_DESIGN,
-                       "k9": K9_DESIGN}[key],
-            "ptxas": usage[name]})
-    k6, k7, k8, k9 = kernels_search
-
-    # K10 on the track's first 64 frames as StreamEncoder uploads them
-    # (int16), K11 and K12 on their inputs in the ops form of the -5 and -8
-    # batches: device time, the kernel and the plain version through their
-    # dispatch (plain, kernel, kernel, plain), the bound; K11 beside one
-    # grouped float32 conv1d of its windowed rows (a yardstick: other
-    # rounding, and the port never calls it)
-    import torch.nn.functional as F
-    kernels_front = []
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, key, mod, launches_main in (
-            ("channel_candidates", "k10", candidates_cuda, k10_launches),
-            ("window_autoc", "k11", autoc_cuda, k11_launches),
-            ("assign_channels", "k12", assign_cuda, k12_launches)):
-        kern_fn, plain_fn = front_calls(key)
-        shapes = {}
-        for lv in ("-5",) if key == "k10" else ("-5", "-8"):
-            a = timed_inputs[lv][key]
-            if key == "k10":
-                a = (a[0].to(torch.int16), *a[1:])
-            ok, e = front_compare(key, a)
-            if not ok:
-                return fail(f"{name} differs from its plain version on the "
-                            f"{lv} batch")
-            search_err[key] = max(search_err[key], e)
-            runs = [cuda_time_ms(lambda f=f, a=a: f(*a))
-                    for f in (plain_fn, kern_fn, kern_fn, plain_fn)]
-            dev = kernel_device_ms(lambda a=a: kern_fn(*a), f"{name}_kernel")
-            library = {}
-            if key == "k10":
-                pcm10, cfg10 = a
-                B10, C10, N10 = pcm10.shape
-                loose10 = candidates_cuda.forms(C10, cfg10)[2]
-                x10 = plain_fn(*a)[0]
-                CH10 = x10.shape[1]
-                # each input read once (the uploaded samples), each output
-                # written once (the candidates, bps_eff, wasted, the loose
-                # assignment); K10_OPS_PER_SAMPLE a sample pair
-                nbytes = (pcm10.numel() * pcm10.element_size()
-                          + x10.numel() * x10.element_size()
-                          + 2 * B10 * CH10 * 4 + (B10 * 4 if loose10 else 0))
-                nops = B10 * N10 * K10_OPS_PER_SAMPLE
-                extra = {"frames": B10, "N": N10, "input_dtype":
-                         str(pcm10.dtype), "candidates": CH10,
-                         "ctas": candidates_cuda.ctas(B10, C10, cfg10,
-                                                      sms),
-                         "staged": candidates_cuda.staged(
-                             C10, N10, cfg10, candidates_cuda.split(
-                                 candidates_cuda.units(B10, C10, cfg10),
-                                 sms))}
-            elif key == "k11":
-                x11, w11, c11, O11 = a
-                B11, CH11, N11 = x11.shape
-                W11, A11 = w11.shape[0], c11.shape[0]
-                rows = B11 * CH11
-                # each input read once (x, the windows, the combine), the
-                # output written once; the float32 fmas these rows need,
-                # two operations each: every product whose first factor
-                # lies in a block of 128 windowed samples that are not all
-                # zero (a block of zeros adds exact zeros, which no exact
-                # implementation must compute); every lag of every
-                # sample beside it
-                nbytes = (x11.numel() * x11.element_size() + w11.numel() * 4
-                          + c11.numel() * 8 + rows * A11 * (O11 + 1) * 8)
-                products = rows * W11 * sum(N11 - l for l in range(O11 + 1))
-                products_nonzero = k11_products_nonzero(x11, w11, O11)
-                nops = 2 * products_nonzero
-                d = (x11.float()[..., None, :] * w11).reshape(
-                    1, rows * W11, N11)
-                d_in = F.pad(d, (0, O11))
-                d_w = d.reshape(rows * W11, 1, N11)
-                library = {"library_ms": cuda_time_ms(
-                    lambda: F.conv1d(d_in, d_w, groups=rows * W11)),
-                    "library_call": f"F.conv1d([1, {rows * W11}, "
-                                    f"{N11 + O11}] float32, "
-                                    f"[{rows * W11}, 1, {N11}], "
-                                    f"groups={rows * W11})"}
-                del d, d_in, d_w
-                extra = {"rows": rows, "N": N11, "windows": W11,
-                         "apodizations": A11, "lags": O11 + 1,
-                         "products": products,
-                         "products_nonzero": products_nonzero,
-                         "fma_bound_ms_all_products":
-                             2 * products / NON_TENSOR_OPS_PER_S * 1e3,
-                         "template_lag": autoc_cuda.template_lag(O11),
-                         "plan": autoc_cuda.plan(rows, W11, O11)}
-            else:
-                choice12, x12, loose12 = a[:3]
-                B12, _, N12 = x12.shape
-                P12 = choice12.params.shape[-1]
-                xs = x12.element_size()
-                # the four candidates' bits (the totals) or the loose
-                # assignment read once; a chosen candidate's fields and
-                # rows read once and written once a stream channel
-                per_channel = (8 * 4 + 1 + 32 * 4 + 32 * xs + P12 * 4
-                               + N12 * 4 + N12 * xs)
-                nbytes = (B12 * 4 * 4 + (B12 * 4 if loose12 is not None
-                                         else 0)
-                          + 2 * 2 * B12 * per_channel + B12 * 4)
-                nops = B12 * 2 * 20
-                extra = {"frames": B12, "N": N12, "partitions": P12,
-                         "ctas": 2 * B12}
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = nops / NON_TENSOR_OPS_PER_S * 1e3
-            shapes[lv] = {"dev": dev, "kernel_ms": min(runs[1:3]),
-                          "plain_ms": min(runs[0], runs[3]),
-                          "bytes": nbytes, "operations": nops,
-                          "bound_ms": max(bytes_ms, ops_ms),
-                          "bound_by": ("bytes" if bytes_ms >= ops_ms
-                                       else "operations"),
-                          **library, **extra}
-            emit({"phase": "times", "kernel": name, "batch": lv,
-                  "device_ms": dev["ms"], "kernel_ms_runs": runs[1:3],
-                  "plain_ms_runs": [runs[0], runs[3]], "bytes": nbytes,
-                  "operations": nops, **library, **extra})
-        main = shapes["-5"]
-        kernels_front.append({
-            "name": name, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": launches_main,
-            "max_abs_err": search_err[key], **main["dev"],
-            "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            **({"at_-8": {k: (v["ms"] if k == "dev" else v)
-                          for k, v in shapes["-8"].items()}}
-               if "-8" in shapes else {}),
+            "replaces": mod.REPLACES, "launches": main_launches[name],
+            **main, "max_abs_err": errs[name],
             "library_ms": main.get("library_ms"),
-            **({"library_call": main["library_call"]} if key == "k11"
-               else {"library_note": {
-                   "k10": "no single PyTorch call forms the channel "
-                          "candidates and their wasted bits",
-                   "k12": "no single PyTorch call picks the assignment "
-                          "and gathers a subframe choice"}[key]}),
-            "design": {"k10": K10_DESIGN, "k11": K11_DESIGN,
-                       "k12": K12_DESIGN}[key],
+            **({} if "library_call" in main
+               else {"library_note": LIBRARY_NOTES[name]}),
+            **({"at_-8": at["-8"][name]} if name in at["-8"] else {}),
+            "at_hires": {label: entries[name]
+                         for label, entries in at_hires.items()
+                         if name in entries},
+            **extras.get(name, {}),
+            **({"design": DESIGNS[name]} if name in DESIGNS else {}),
             "ptxas": usage[name]})
-    k10, k11, k12 = kernels_front
-    del timed_inputs, a67, choice, a
 
     # ---- 7. where the time goes in a steady encode and decode ----
     short = signals.make_test_signal(10 * RATE, seed=7)
@@ -3704,6 +3864,12 @@ def main() -> int:
         emit({**profile_run(lambda: encode(short, 5), "encode_-5_ops",
                             encode_ranges, encode_kernels),
               "own_kernels_range": ENCODE_KERNEL_RANGES})
+    # the hi-res configuration: 10 s of 24-bit 96 kHz stereo at -8
+    h = HIRES[0]
+    short_hi = hires_pcm(h, 10 * h.rate)
+    emit(profile_run(lambda: encode(short_hi, 8, rate=h.rate, bps=h.bps),
+                     "encode_24bit_96k_-8", encode_ranges, encode_kernels,
+                     warm=2))
     short_stream, _ = encode(short, 5)
     emit(profile_run(lambda: decode_stream_tpu(short_stream), "decode",
                      ("flac.tile_scan", "flac.upload", "flac.codes",
@@ -3714,40 +3880,25 @@ def main() -> int:
                      ("flac.parse", "flac.upload", "flac.restore",
                       "flac.fetch"), ("restore_kernel",)))
 
-    # ---- 8. the library API on the card ----
-    t0 = time.perf_counter()
-    api = library_api(pcm, stream, expect)
-    check_encode_calls("api", api)
-    emit({"phase": "api", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12):
-        k["launches_library_api"] = {path: c[k["name"]]
-                                     for path, c in api.items()}
-
-    # ---- 9. the command lines on the card ----
-    t0 = time.perf_counter()
-    clis = command_lines(pcm, stream)
-    check_encode_calls("cli", clis)
-    emit({"phase": "cli", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12):
-        k["launches_cli"] = {path: c[k["name"]] for path, c in clis.items()}
-
-    # ---- 10. the parallel paths and the encoder's pipeline ----
-    t0 = time.perf_counter()
-    par = parallel_paths(pcm, stream, expect)
-    check_encode_calls("parallel", par)
-    emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12):
-        k["launches_parallel"] = {path: c[k["name"]]
-                                  for path, c in par.items()}
-    # ---- 11. the compiled encode programs ----
-    t0 = time.perf_counter()
-    comp = compiled_encode(pcm, track_keys)
-    check_encode_calls("compiled", comp)
-    emit({"phase": "compiled", "seconds": time.perf_counter() - t0})
-    for k in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12):
-        k["launches_compiled_encode"] = {path: c[k["name"]]
-                                         for path, c in comp.items()}
-    emit({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12]})
+    # ---- 8-11: each path's launches, counted from 0 just before it ----
+    paths = {"launches_hires": hires}
+    for phase, key, run in (
+            ("api", "launches_library_api",
+             lambda: library_api(pcm, stream, expect)),      # 8. library API
+            ("cli", "launches_cli",
+             lambda: command_lines(pcm, stream)),            # 9. command lines
+            ("parallel", "launches_parallel",
+             lambda: parallel_paths(pcm, stream, expect)),   # 10. parallel
+            ("compiled", "launches_compiled_encode",
+             lambda: compiled_encode(pcm, track_keys))):     # 11. programs
+        t0 = time.perf_counter()
+        paths[key] = run()
+        check_encode_calls(phase, paths[key])
+        emit({"phase": phase, "seconds": time.perf_counter() - t0})
+    for k in kernels_line:
+        for key, launches in paths.items():
+            k[key] = {path: c[k["name"]] for path, c in launches.items()}
+    emit({"kernels": kernels_line})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": dev_info})

@@ -940,7 +940,7 @@ def k4_inputs() -> dict:
     import numpy as np
     import torch
 
-    from chip_smoke import RATE, TRACK_SECONDS, capture_assembly
+    from chip_smoke import RATE, TRACK_SECONDS, capture_ops
     from flac_tpu_torch import EncoderConfig, signals
     from flac_tpu_torch.models import frame as frame_mod
     from flac_tpu_torch.ops import assemble_cuda
@@ -950,7 +950,7 @@ def k4_inputs() -> dict:
     for B in (64, 256):
         blocks = torch.from_numpy(np.ascontiguousarray(
             pcm[:, :B * 4096].reshape(2, B, 4096).transpose(1, 0, 2))).cuda()
-        choice, signal, asg, nums, cfg_a, N, layout = capture_assembly(
+        choice, signal, asg, nums, cfg_a, N, layout = capture_ops(
             blocks, cfg)["k4"]
         quad, wide = frame_mod.resolve_layout(
             cfg_a, signal.shape[2], choice.params.shape[-1], layout)
@@ -978,7 +978,7 @@ def k5_inputs() -> dict:
     import numpy as np
     import torch
 
-    from chip_smoke import RATE, TRACK_SECONDS, capture_assembly
+    from chip_smoke import RATE, TRACK_SECONDS, capture_ops
     from flac_tpu_torch import EncoderConfig, signals
     cfg = EncoderConfig.from_preset(5, blocksize=4096).resolve()
     pcm = signals.make_test_signal(TRACK_SECONDS * RATE, seed=180)
@@ -986,7 +986,7 @@ def k5_inputs() -> dict:
     for B in (64, 256):
         blocks = torch.from_numpy(np.ascontiguousarray(
             pcm[:, :B * 4096].reshape(2, B, 4096).transpose(1, 0, 2))).cuda()
-        out[f"-5, B={B}"] = capture_assembly(blocks, cfg)["k5"]
+        out[f"-5, B={B}"] = capture_ops(blocks, cfg)["k5"]
     return out
 
 
@@ -1202,11 +1202,11 @@ def time_k10(libs: dict, inputs: dict, others=(), pairs: int = 0) -> None:
     on where a buffer lies."""
     import torch
 
-    from chip_smoke import front_calls
+    from chip_smoke import stage_calls
     from flac_tpu_torch.ops import candidates_cuda
     stream = torch.cuda.current_stream().cuda_stream
     p, i = ctypes.c_void_p, ctypes.c_int
-    _, plain = front_calls("k10")
+    _, plain = stage_calls("k10")
     for label, seen in inputs.items():
         pcm, cfg = seen["k10"]
         want = plain(pcm, cfg)

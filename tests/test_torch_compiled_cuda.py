@@ -9,7 +9,11 @@ every call after that replays it, with K1 inside.
 - K1's counter moves by the launches the graph holds on each replay;
 - a capture that fails raises, on every later call too: nothing falls
   back to the ops;
-- a warm encode_batch makes no host sync (torch.cuda.set_sync_debug_mode).
+- a warm encode_batch makes no host sync (torch.cuda.set_sync_debug_mode);
+- 6- and 8-channel batches (16 and 24 bits) through K10 (its channels
+  passing through), K4 (its field layout past two channels) and K3 (six
+  or eight subframes a frame) equal the plain versions, and their stream
+  decodes back on the card.
 
 Every test here carries the `gpu` marker and skips without a GPU (the
 CPU side is tests/test_torch_encode_static.py).  The file imports neither
@@ -25,11 +29,17 @@ import numpy as np
 import pytest
 import torch
 
-from flac_tpu_torch import EncoderConfig, signals
+from flac_tpu_torch import EncoderConfig, decode_stream_tpu, signals
 from flac_tpu_torch import encoder as encoder_mod
-from flac_tpu_torch.encoder import StreamEncoder
-from flac_tpu_torch.ops import pack_cuda
+from flac_tpu_torch.decoder import scan_frames
+from flac_tpu_torch.decoder_fast import _parse_batch, restore_inputs
+from flac_tpu_torch.encoder import StreamEncoder, encode_file_to_flac
+from flac_tpu_torch.models import frame as frame_mod
+from flac_tpu_torch.models import stereo
+from flac_tpu_torch.ops import assemble_cuda, bitunpack, candidates_cuda, \
+    pack_cuda, restore_cuda
 from flac_tpu_torch.parallel.shard import encode_batch_sharded
+from flac_tpu_torch.ref_decoder import parse_metadata
 
 pytestmark = pytest.mark.gpu
 
@@ -52,34 +62,36 @@ def programs(monkeypatch):
     return progs
 
 
-def _blocks(seed, frames=B, bps=16, dtype=np.int32):
-    pcm = signals.make_test_signal(N * frames, 2, bps, seed=seed)
+def _blocks(seed, frames=B, bps=16, dtype=np.int32, channels=2):
+    pcm = signals.make_test_signal(N * frames, channels, bps, seed=seed)
     return torch.from_numpy(np.ascontiguousarray(
-        pcm.reshape(2, frames, N).transpose(1, 0, 2), dtype)).cuda()
+        pcm.reshape(channels, frames, N).transpose(1, 0, 2), dtype)).cuda()
 
 
 def _same(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-# (preset, bits per sample, input dtype, layout)
+# (preset, channels, bits per sample, input dtype, layout)
 KEYS = {
-    "-0": (0, 16, np.int32, "auto"),
-    "-5 int16 input": (5, 16, np.int16, "auto"),
-    "-8": (8, 16, np.int32, "auto"),
-    "-5 safe layout": (5, 16, np.int32, "safe"),
-    "-5 24-bit (f64 residuals)": (5, 24, np.int32, "auto"),
-    "-5 32-bit (33-bit side)": (5, 32, np.int32, "auto"),
+    "-0": (0, 2, 16, np.int32, "auto"),
+    "-5 int16 input": (5, 2, 16, np.int16, "auto"),
+    "-8": (8, 2, 16, np.int32, "auto"),
+    "-5 safe layout": (5, 2, 16, np.int32, "safe"),
+    "-5 24-bit (f64 residuals)": (5, 2, 24, np.int32, "auto"),
+    "-8 24-bit (f64 residuals)": (8, 2, 24, np.int32, "auto"),
+    "-5 24-bit 5.1": (5, 6, 24, np.int32, "auto"),
+    "-5 32-bit (33-bit side)": (5, 2, 32, np.int32, "auto"),
 }
 
 
 @pytest.mark.parametrize("label", list(KEYS))
 def test_replay_equals_the_ops(cuda, programs, label):
-    level, bps, dtype, layout = KEYS[label]
-    cfg = EncoderConfig.from_preset(level, blocksize=N,
+    level, channels, bps, dtype, layout = KEYS[label]
+    cfg = EncoderConfig.from_preset(level, blocksize=N, channels=channels,
                                     bits_per_sample=bps).resolve()
     for call, seed in enumerate((1, 2, 3)):
-        pcm = _blocks(seed, bps=bps, dtype=dtype)
+        pcm = _blocks(seed, bps=bps, dtype=dtype, channels=channels)
         first = 100 * call
         got = encoder_mod.encode_batch(pcm, first, cfg, N, layout=layout)
         want = encoder_mod._encode_batch_ops(
@@ -228,3 +240,60 @@ def test_a_failed_capture_raises(cuda, programs, fault):
         assert torch.cuda.current_stream() == stream
     torch.cuda.synchronize()
     assert torch.equal(x + 1, torch.arange(1, 17, device=cuda))
+
+
+def _same_outputs(got, want):
+    return all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("bps", [16, 24])
+@pytest.mark.parametrize("channels", [6, 8])
+def test_multichannel_batches_match_plain(cuda, programs, monkeypatch,
+                                          channels, bps):
+    """K10, K4 and K3 take 6- and 8-channel batches: K10 passes each
+    channel through in a CTA of its own, K4 lays out the fields of every
+    channel, K3 restores six or eight subframes a frame.  Each equals its
+    plain version; the stream decodes back on the card."""
+    cfg = EncoderConfig.from_preset(5, blocksize=N, channels=channels,
+                                    bits_per_sample=bps).resolve()
+    pcm = _blocks(20 + channels, bps=bps, channels=channels,
+                  dtype=np.int16 if bps <= 16 else np.int32)
+    launched = candidates_cuda.launches
+    got = stereo.build_channel_candidates(pcm, cfg)
+    assert candidates_cuda.launches == launched + 1
+    assert _same_outputs(got, stereo.build_channel_candidates_plain(pcm,
+                                                                    cfg))
+    seen = {}
+    real = frame_mod.assemble_fields
+
+    def spy(*args):
+        seen["k4"] = args
+        return real(*args)
+    monkeypatch.setattr(frame_mod, "assemble_fields", spy)
+    encoder_mod._encode_batch_ops(pcm, encoder_mod._frame_numbers(0, B, cuda),
+                                  cfg, N, "auto", "kernel")
+    monkeypatch.undo()
+    launched = assemble_cuda.launches
+    got = frame_mod.assemble_fields(*seen["k4"])
+    assert assemble_cuda.launches == launched + 1
+    assert _same_outputs(got, frame_mod.assemble_fields_plain(*seen["k4"]))
+    # K3 on the first parsed batch of the card's stream of these blocks
+    host = pcm.cpu().numpy().transpose(1, 0, 2).reshape(channels, -1)
+    data = encode_file_to_flac(host.astype(np.int32), cfg, device=cuda,
+                               batch_frames=B)
+    st, pos = parse_metadata(data, 4)
+    frames = scan_frames(data, st, pos)
+    pg, asg = _parse_batch(np.frombuffer(data, np.uint8), frames,
+                           list(range(len(frames))), N, channels)
+    arrays, kw = restore_inputs(pg, asg, N, channels, bps)
+    for res in (arrays[0], arrays[0].astype(np.int32)):
+        t = [torch.from_numpy(a).to(cuda) for a in (res, *arrays[1:])]
+        args = (t[0][:, :N], *t[1:])
+        k = dict(kw, out16=kw["out16"] and res.dtype == np.int16)
+        launched = restore_cuda.launches
+        got = restore_cuda.restore_undo(*args, **k)
+        assert restore_cuda.launches == launched + 1
+        assert _same_outputs(got, bitunpack.restore_undo_body(*args, **k))
+    back = decode_stream_tpu(data, engine="device")
+    assert back.md5_ok and np.array_equal(back.samples, host)
