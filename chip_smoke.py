@@ -348,21 +348,26 @@ K6_DESIGN = ("a group of 8-32 lanes a problem in one-warp CTAs; one "
              "shared out over the lanes")
 
 
-K8_DESIGN = ("a CTA of 256 threads a (frame and channel candidate, "
-             "candidate group): the five fixed orders, or up to 4 LPC "
-             "candidates; x staged in tiles of 1024 samples with a "
-             "32-sample history; 4 consecutive samples a thread, its "
-             "window in registers down the taps, 16-byte stores; range "
-             "flags by __syncthreads_or")
+K8_DESIGN = ("every candidate of a frame and channel candidate in one "
+             "CTA of 128 threads, up to 8 CTAs a row sized to one wave "
+             "from the occupancy, each a run of 512-sample spans staged by "
+             "cp.async through a ring of 4 buffers with a 32-sample "
+             "history; 4 consecutive samples a thread, the fixed orders "
+             "from its window, the LPC candidates in chunks of up to 5 "
+             "with taps outer (a shared load of 4 samples and a broadcast "
+             "load of 4 coefficients a candidate feed 16 multiply-adds; "
+             "exact float64 fma at 24 bits), 16-byte stores; wide and f64 "
+             "flags ORed over a row's cluster in rank 0's shared memory")
 K9_DESIGN = ("a CTA of 256 threads a (frame, channel candidate): the "
              "constant test and a thread a candidate's cost, a shuffle "
              "argmin on (bits, index); the winner's residual row copied "
              "with 16-byte loads and stores, only its parameter row read")
 # K8 a residual: the fixed orders' differences and masks (~4 a row), an
-# LPC tap's shared load and multiply-add (3 a tap), the shift, subtract,
-# mask and range test (~5)
+# LPC tap's multiply-add (1 a tap: the shared loads of the window and
+# the coefficients are one a 16 taps), the shift, subtract, mask and
+# range test (~5)
 K8_OPS_PER_FIXED_SAMPLE = 4
-K8_OPS_PER_TAP = 3
+K8_OPS_PER_TAP = 1
 K8_OPS_PER_LPC_SAMPLE = 5
 # K9 a row: a compare a signal sample (the constant test), a candidate's
 # L compares and ~10 for its header and flags, the argmin's ~20 a
@@ -1152,10 +1157,17 @@ def stage_work(key: str, a, plain_fn, probe: dict, op_cycles: dict,
         nops = (rows * N8 * 5 * K8_OPS_PER_FIXED_SAMPLE
                 + taps * N8 * K8_OPS_PER_TAP
                 + rows * AC8 * N8 * K8_OPS_PER_LPC_SAMPLE)
+        # the library's grid (CTAs a row from the CTAs an SM holds), held
+        # against the Python mirror of its rule
+        parts8, k8_per_sm = residuals_cuda.grid(x8, a[5], a[6])
+        k8_grid = residuals_cuda.ctas(rows, N8, sms * k8_per_sm)
+        if k8_grid[0] != parts8:
+            raise RuntimeError(f"K8 launches {parts8} CTAs a row, its "
+                               f"mirror says {k8_grid}")
         return nbytes, nops, {
             "rows": rows, "N": N8, "candidates": 5 + AC8, "taps": taps,
             "lpc_mode": a[6], "fixed_wide": a[5],
-            "ctas": list(residuals_cuda.ctas(rows, AC8))}
+            "ctas": [*k8_grid, rows], "ctas_per_sm": k8_per_sm}
     if key == "k7":
         res_k, _, N_k, max_po_k, cfg_k = a
         rows = res_k.numel() // N_k

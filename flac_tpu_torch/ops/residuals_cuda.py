@@ -9,18 +9,23 @@ f_ok of flac_tpu/models/subframe.py:130-146, the LPC residual call at
 fuses into the jitted encode_batch and the port ran op by op: some
 thirty small kernels a -5 batch (a shifted copy, a product and a sum a
 tap, the masks, the casts, the concatenation).  The source is
-csrc/candidate_residuals.cu: a CTA of 256 threads a (frame and channel
-candidate, candidate group): group 0 the five fixed orders, each later
-group up to four LPC candidates.  The CTA stages its signal through
-shared memory in tiles of 1024 samples with a 32-sample history; a
-thread takes 4 consecutive samples, keeps its window of the signal in
-registers as it runs down the taps, and writes each row's 4 residuals
-with one 16-byte store; the range flags are CTA reductions.  The
-arithmetic is the plain version's (models/subframe.py
+csrc/candidate_residuals.cu: a CTA of 128 threads a (frame and channel
+candidate, span of 512 samples) computes every candidate row of that
+span: the span and its 32-sample history are staged once into shared
+memory beside the candidates' coefficients; a thread takes 4 consecutive
+samples, the fixed orders from its window in registers, the LPC
+candidates in chunks of up to 5, taps outer and candidates inner (one
+shared load of 4 history samples and one broadcast load of 4
+coefficients a candidate feed 16 multiply-adds), and writes each row's 4
+residuals with one 16-byte store.  The range flags of the wide fixed rows
+and the "f64" mode are ORs over a row's spans: those forms launch a row's
+CTAs as a thread block cluster (up to 8) that ORs them in rank 0's shared
+memory.  The arithmetic is the plain version's (models/subframe.py
 candidate_residuals_plain): wrapping int32 in "i32" mode and for narrow
 fixed rows, int64 where the plain version's float64 is exact (the "f64"
-mode, the wide fixed rows), so the two agree bit for bit on every row
-whose flag holds.
+mode, the wide fixed rows; on int32 signals a tap is one 32 x 32 ->
+64-bit multiply-add), so the two agree bit for bit on every row whose
+flag holds.
 
 Bound: at -5 a batch reads x ([64, 4, 4096] int32, 4.2 MB) and writes
 res_all ([64, 4, 6, 4096] int32, 25.2 MB): ~8.8 us at 3.35 TB/s (the
@@ -60,9 +65,11 @@ REPLACES = "flac_tpu/ops/lpc.py:315"     # lpc_residual, with fixed.py:44
 _LIB_NAME = "candidate_residuals"
 MAX_N = 1 << 15          # the plain version's blocksize cap
 FIXED_ORDERS = 5         # fixed orders 0..4 (FIXED in the source)
-GROUP = 4                # LPC candidates a CTA (GROUP in the source)
-THREADS = 256            # threads a CTA (THREADS in the source)
-TILE = 1024              # samples a tile (TILE in the source)
+THREADS = 128            # threads a CTA (THREADS in the source)
+SPAN = 512               # samples a span (SPAN in the source)
+RING = 4                 # spans staged ahead, at most (RING)
+CLUSTER = 8              # CTAs a row, at most (CLUSTER)
+BLOCK = 48               # candidates a coefficient table (BLOCK)
 LPC_MODES = ("i32", "f64")
 
 launches = 0          # kernel launches of K8 in this process
@@ -78,6 +85,9 @@ def _library() -> ctypes.CDLL:
         lib.flac_candidate_residuals.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.flac_candidate_residuals.restype = ctypes.c_int
+        lib.flac_candidate_residuals_grid.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.flac_candidate_residuals_grid.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -88,9 +98,33 @@ def max_taps(N: int, max_order: int) -> int:
     return min(fmt.MAX_LPC_ORDER, max(N - 1, 1), max(max_order, 1))
 
 
-def ctas(rows: int, AC: int) -> tuple:
-    """The launch's grid: (rows, 1 + ceil(AC / GROUP)) CTAs."""
-    return rows, 1 + -(-AC // GROUP)
+def ctas(rows: int, N: int, slots: int) -> tuple:
+    """The source's grid_of: (CTAs a row, spans of SPAN samples a CTA).
+    A row takes up to CLUSTER CTAs, halved (rounding up) while `rows`
+    rows would pass the `slots` CTAs the card holds at once, each CTA a
+    run of consecutive spans, and only CTAs that have one; where a row's
+    flags are ORed over its spans (the wide fixed path, the "f64" mode)
+    its CTAs form one thread block cluster."""
+    spans = -(-N // SPAN)
+    p = min(spans, CLUSTER)
+    while p > 1 and rows * p > slots:
+        p = (p + 1) // 2
+    per = -(-spans // p)
+    return -(-spans // per), per
+
+
+def grid(x, fixed_wide: bool, lpc_mode: str) -> tuple:
+    """(CTAs a row, CTAs of the form an SM holds) of a launch on x
+    [B, CH, N] on the current CUDA device, from the library's own rule
+    (flac_candidate_residuals_grid)."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(x.device):
+        kernels.check(_library().flac_candidate_residuals_grid(
+            x.shape[0] * x.shape[1], x.shape[2],
+            int(x.dtype == torch.int64), int(fixed_wide),
+            int(lpc_mode == "f64"), ctypes.addressof(out)),
+            "flac_candidate_residuals_grid")
+    return out[0], out[1]
 
 
 def comparable_rows(f_ok, fit_ok, fixed_wide: bool, lpc_mode: str):
@@ -151,6 +185,28 @@ def check_arguments(x, qc, qshift, cand_order, bps_eff, fixed_wide: bool,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def launch_arguments(x, qc, qshift, cand_order, bps_eff, fixed_wide: bool,
+                     lpc_mode: str, max_order: int) -> tuple:
+    """(the outputs res_all, order_all, f_ok, fit_ok, allocated on x's
+    device; the C entry point's arguments but the stream) of a K8 launch
+    on checked, contiguous arguments."""
+    B, CH, N = x.shape
+    AC = qc.shape[2]
+    C = FIXED_ORDERS + AC
+    dev = x.device
+    res = torch.empty((B, CH, C, N), dtype=torch.int32, device=dev)
+    order_all = torch.empty((B, CH, C), dtype=torch.int32, device=dev)
+    f_ok = torch.empty((B, CH, FIXED_ORDERS), dtype=torch.bool, device=dev)
+    fit_ok = torch.empty((B, CH, AC), dtype=torch.bool, device=dev)
+    out = (res, order_all, f_ok, fit_ok)
+    args = (x.data_ptr(), qc.data_ptr(), qshift.data_ptr(),
+            cand_order.data_ptr(), bps_eff.data_ptr(),
+            *(t.data_ptr() for t in out), B * CH, AC, N,
+            max_taps(N, max_order), int(x.dtype == torch.int64),
+            int(fixed_wide), int(lpc_mode == "f64"))
+    return out, args
+
+
 def candidate_residuals(x, qc, qshift, cand_order, bps_eff,
                         fixed_wide: bool, lpc_mode: str, max_order: int):
     """Launch K8: subframe.candidate_residuals on a CUDA device.  Returns
@@ -161,35 +217,22 @@ def candidate_residuals(x, qc, qshift, cand_order, bps_eff,
         raise ValueError("candidate_residuals: x is not on a GPU")
     check_arguments(x, qc, qshift, cand_order, bps_eff, fixed_wide,
                     lpc_mode, max_order)
-    B, CH, N = x.shape
-    AC = qc.shape[2]
-    C = FIXED_ORDERS + AC
-    dev = x.device
-    res = torch.empty((B, CH, C, N), dtype=torch.int32, device=dev)
-    order_all = torch.empty((B, CH, C), dtype=torch.int32, device=dev)
-    f_ok = torch.empty((B, CH, FIXED_ORDERS), dtype=torch.bool, device=dev)
-    fit_ok = torch.empty((B, CH, AC), dtype=torch.bool, device=dev)
-    if B * CH == 0:
-        return res, order_all, f_ok, fit_ok
-    x = x.contiguous()
-    qc, qshift = qc.contiguous(), qshift.contiguous()
+    x, qc, qshift = x.contiguous(), qc.contiguous(), qshift.contiguous()
     cand_order, bps_eff = cand_order.contiguous(), bps_eff.contiguous()
-    with torch.cuda.device(dev):
+    out, args = launch_arguments(x, qc, qshift, cand_order, bps_eff,
+                                 fixed_wide, lpc_mode, max_order)
+    if x.shape[0] * x.shape[1] == 0:
+        return out
+    with torch.cuda.device(x.device):
         lib = _library()
         kernels.check(lib.flac_candidate_residuals(
-            x.data_ptr(), qc.data_ptr(), qshift.data_ptr(),
-            cand_order.data_ptr(), bps_eff.data_ptr(), res.data_ptr(),
-            order_all.data_ptr(), f_ok.data_ptr(), fit_ok.data_ptr(),
-            B * CH, AC, N, max_taps(N, max_order),
-            int(x.dtype == torch.int64), int(fixed_wide),
-            int(lpc_mode == "f64"),
-            torch.cuda.current_stream().cuda_stream),
+            *args, torch.cuda.current_stream().cuda_stream),
             "flac_candidate_residuals launch")
         if torch.cuda.is_current_stream_capturing():
             captured += 1
         else:
             launches += 1
-    return res, order_all, f_ok, fit_ok
+    return out
 
 
 def count_replay(n: int) -> None:

@@ -40,7 +40,12 @@ N=4 (the fixed orders past N too); "i32" rows whose range analysis fails
 (coefficients near 2^14 at order 32 on 17-bit signals: the sums wrap);
 "f64" rows at 24 bits, wide fixed rows at 28 bits and on the 33-bit side
 with rows over 2^31 (flags false); AC = 0 (no LPC), -e -p's 132
-candidates a channel; N of 4, 16, 33, 1152, 4096, 4608 and 32768.
+candidates a channel; N of 4, 16, 33, 513, 1000, 1152, 4096, 4097, 4608
+and 32768 (K8's spans of 512 samples: not whole, one sample past one,
+one past eight); 24-bit "f64" rows at their extreme (order 32, |q| near
+2^14, the side at +-(2^24 - 1), sums near 2^44) and at AC = 9 (-8); a
+24-bit "f64" row and a 28-bit wide fixed row whose only residual past
+2^31 lies in the row's last span (the flag K8 ORs over a row's CTAs).
 
 K9 (`select_cases`): Rice cost tables with BIG levels and exact ties
 between partition orders, candidates whose totals tie exactly (two LPC
@@ -339,15 +344,62 @@ def residual_batch(seed: int, *, B: int, CH: int, N: int, AC: int,
             "cand_order": order.astype(np.int32), "bps_eff": bps_eff}
 
 
+def extreme_batch(seed: int, *, N: int, bps: int, AC: int) -> dict:
+    """[1, 2, N] int32 side signals of a `bps`-bit source at their
+    extreme (+-(2^bps - 1): a run of each sign, then random signs) and AC
+    candidates of order 32 whose coefficients share one sign and lie near
+    2^14 (2^14 .. 2^15 - 1), shifts 0, 15 and between: the "f64" sums
+    reach ~2^44, and the residuals both pass 2^31 (flags false) and stay
+    within it."""
+    rng = np.random.default_rng(seed)
+    amp = 2 ** bps - 1
+    x = np.empty((1, 2, N), np.int64)
+    x[..., :N // 3] = amp
+    x[..., N // 3:2 * N // 3] = -amp
+    x[..., 2 * N // 3:] = rng.choice([-amp, amp], (1, 2, N - 2 * N // 3))
+    sign = np.where(np.arange(AC) % 2 == 0, 1, -1)[None, None, :, None]
+    qc = sign * rng.integers(2 ** 14, 2 ** 15, (1, 2, AC, fmt.MAX_LPC_ORDER))
+    shift = rng.integers(0, 16, (1, 2, AC))
+    shift[..., 0::3] = 0
+    shift[..., 1::3] = 15
+    return {"x": x.astype(np.int32), "qc": qc.astype(np.int32),
+            "qshift": shift.astype(np.int32),
+            "cand_order": np.full((1, 2, AC), fmt.MAX_LPC_ORDER, np.int32),
+            "bps_eff": np.full((1, 2), bps + 1, np.int32)}
+
+
+def spike_batch(seed: int, *, N: int, bps: int, at: int) -> dict:
+    """[1, 2, N] int32 side signals of a `bps`-bit source, small
+    (|x| < 2^12) but for row 0's samples at..at+4, +-(2^bps - 1)
+    alternating: there alone the fourth difference (16 (2^bps - 1), past
+    2^31 from 28 bits) and the residual of an order-1 candidate of 2^14
+    at shift 0 pass 2^31.  Row 0's other candidate (the second
+    difference: order 2, shift 13) and row 1 stay within it.  With `at`
+    in a row's last span, the flags that go false come from that span
+    only."""
+    rng = np.random.default_rng(seed)
+    amp = 2 ** bps - 1
+    x = rng.integers(-2 ** 12, 2 ** 12, (1, 2, N))
+    x[0, 0, at:at + 5] = amp * np.array([1, -1, 1, -1, 1])
+    qc = np.zeros((1, 2, 2, fmt.MAX_LPC_ORDER), np.int64)
+    qc[..., 0, 0] = 2 ** 14
+    qc[..., 1, :2] = (2 ** 14, -2 ** 13)
+    return {"x": x.astype(np.int32), "qc": qc.astype(np.int32),
+            "qshift": np.array([[[0, 13]] * 2], np.int32),
+            "cand_order": np.array([[[1, 2]] * 2], np.int32),
+            "bps_eff": np.full((1, 2), bps + 1, np.int32)}
+
+
 def residual_cases() -> list:
     """[(label, case)]: a case is residual_batch's arrays with "N",
     "fixed_wide", "lpc_mode" and "max_order" (the search's arguments for
     a configuration of its bits)."""
     out = []
 
-    def add(label, N, bps, max_order, **kw):
-        case = residual_batch(len(out) + 1, N=N, bps=bps,
-                              max_order=max_order, **kw)
+    def add(label, N, bps, max_order, make=residual_batch, **kw):
+        case = make(len(out) + 1, N=N, bps=bps, **kw) if make is not \
+            residual_batch else residual_batch(
+                len(out) + 1, N=N, bps=bps, max_order=max_order, **kw)
         side = bps if kw.get("x64") else bps + 1   # the side's extra bit
         case.update(N=N, fixed_wide=side >= 28,
                     lpc_mode="i32" if side <= 17 else "f64",
@@ -379,6 +431,21 @@ def residual_cases() -> list:
         x64=True)
     add("N=4: orders to 3, fixed orders past N", 4, 16, 32, B=2, CH=2,
         AC=3)
+    # K8's spans of 512 samples (csrc/candidate_residuals.cu SPAN): N
+    # not a multiple of one, N one sample past one and past eight (a
+    # cluster's rank 0 takes the ninth)
+    add("N=1000: spans not whole, scalar stores", 1000, 16, 12, B=1,
+        CH=2, AC=3)
+    add("N=513: one sample past a span", 513, 16, 8, B=1, CH=2, AC=2)
+    add("24-bit f64, N=4097: one sample past eight spans", 4097, 24, 8,
+        B=1, CH=2, AC=2)
+    add("24-bit f64 at the extreme: order 32, q near 2^14, +-(2^24 - 1)",
+        1152, 24, 32, make=extreme_batch, AC=3)
+    add("24-bit f64: the only residual past 2^31 in the last span",
+        4096, 24, 2, make=spike_batch, at=4000)
+    add("28-bit wide fixed: the only residual past 2^31 in the last span",
+        4096, 28, 2, make=spike_batch, at=3700)
+    add("24-bit f64, AC = 9 (-8), N=4096", 4096, 24, 12, B=1, CH=2, AC=9)
     return out
 
 

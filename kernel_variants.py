@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of kernels K1-K7, K10 and K11 goes, on one NVIDIA GPU.
+"""Where the time of kernels K1-K8, K10 and K11 goes, on one NVIDIA GPU.
 
     python3 kernel_variants.py            # every variant of every kernel
-    python3 kernel_variants.py --k1       # K1's only (or --k2 ... --k7,
+    python3 kernel_variants.py --k1       # K1's only (or --k2 ... --k8,
                                           # --k10, --k11; several may be
                                           # given)
     python3 kernel_variants.py --other "old=DIR"  # and DIR/*.cu as they are
     python3 kernel_variants.py --k11 --other "old=DIR" --pairs 10
-                                          # and K10/K11 against DIR's in
+                                          # and K8/K10/K11 against DIR's in
                                           # 10 alternating pairs
+    python3 kernel_variants.py --k8 --sass DIR \
+        --sass-kernel candidate_residuals_kernelIiLb0E
+                                          # and the SASS of K8's narrow
+                                          # forms ("i32", "f64"), a file
+                                          # a variant
 
 Each variant is the kernel's source with one change (a constant, a part of
 the work cut out or moved, or timestamps), built by nvcc into a library of
@@ -26,8 +31,12 @@ and at -8 (2304 problems of order 12; 3584 rows), K10 and K11 on the
 same frames' front of the search as chip_smoke.py phase 6 takes it (K10:
 the -5 batch uploaded as int16; K11: the -5 and -8 rows, windows and
 combine) and on the -5 batch four times over (256 frames, the sharded
-form's batch; K10 on int32), each variant's output held against the
-plain version (`same_as_plain`) before it is timed.  Before K3's variants,
+form's batch; K10 on int32), K8 on the candidate residuals' arguments
+of 64 frames of the track at -5 and -8, of 24-bit 96 kHz stereo at -8
+("f64") and of 24-bit 5.1 at -5 (chip_smoke.py's HIRES), each variant's
+output held against the plain version (`same_as_plain`) before it is
+timed.  K8's --other versions also get the variants of the design
+before this one (K8_PARENT_VARIANTS) where their edits apply.  Before K3's variants,
 a one-thread
 probe times the recursion's chain (cycles a sample, generic and folded,
 and the SM clock); each K3 line carries the chain floor it gives,
@@ -639,6 +648,210 @@ K11_VARIANTS = [
                      "            const int i = k * ONE_THREADS + t;")]),
 ]
 
+# K8's "phases" (both designs): clock64 durations summed over the CTA's
+# work in thread 0's view, by slot: 1 the stage (signal, and the
+# coefficient table where the design has one), 2 the taps, 3 the
+# residuals and their stores, 4 the flags, 5 the fixed orders; 7 the
+# end (the last warp's clock64, PHMAX) and 9 the CTA's last globaltimer.
+# A CTA's index is linear over a 2-D grid.
+K8_PHASE_DEFS = PHASE_DEFS.replace(
+    "blockIdx.x * 10", "(blockIdx.x + blockIdx.y * gridDim.x) * 10") + r"""
+#define PHT(v) const long long v = clock64()
+#define PHADD(k, v) do { if (threadIdx.x == 0) g_ph[(blockIdx.x + \
+    blockIdx.y * gridDim.x) * 10 + (k)] += clock64() - (v); } while (0)
+"""
+
+# The earlier design (a CTA a (row, candidate group)), applied to an --other
+# source that has it: its phases, its "f64" taps as 32 x 32 -> 64-bit
+# multiply-adds (mad.wide.s32: the window and coefficient cast after the
+# product, not before; exact for int32 signals only), and the taps or
+# the stores alone (a wrong result, timed only)
+K8_PARENT_VARIANTS = [
+    ("phases", [
+        ("namespace {\n", "namespace {\n" + K8_PHASE_DEFS),
+        ("    const int t = threadIdx.x;\n    const int r = blockIdx.x;\n",
+         "    PHSTART();\n"
+         "    const int t = threadIdx.x;\n    const int r = blockIdx.x;\n"),
+        ("        __syncthreads();                     // the last tile is "
+         "read\n",
+         "        PHT(ph_s);\n"
+         "        __syncthreads();                     // the last tile is "
+         "read\n"),
+        ("            xs[i] = (n >= 0 && n < N) ? x[n] : X(0);\n        }\n"
+         "        __syncthreads();\n",
+         "            xs[i] = (n >= 0 && n < N) ? x[n] : X(0);\n        }\n"
+         "        __syncthreads();\n        PHADD(1, ph_s);\n"),
+        ("        if (g == 0) {\n            // fixed order o",
+         "        PHT(ph_f);\n        if (g == 0) {\n            // fixed order o"),
+        ("        } else {\n            using T = typename std::conditional"
+         "<F64, long long,\n",
+         "            PHADD(5, ph_f);\n"
+         "        } else {\n            using T = typename std::conditional"
+         "<F64, long long,\n"),
+        ("                for (int j = 0; j < taps; ++j) {\n",
+         "                PHT(ph_t);\n"
+         "                for (int j = 0; j < taps; ++j) {\n"),
+        ("p2 += q * w2; p3 += q * w3;\n                }\n",
+         "p2 += q * w2; p3 += q * w3;\n                }\n"
+         "                PHADD(2, ph_t);\n                PHT(ph_e);\n"),
+        ("                store4(res_r + (size_t)(FIXED + c0 + c) * N, n0, "
+         "N, vec,\n                       v[0], v[1], v[2], v[3]);\n",
+         "                store4(res_r + (size_t)(FIXED + c0 + c) * N, n0, "
+         "N, vec,\n                       v[0], v[1], v[2], v[3]);\n"
+         "                PHADD(3, ph_e);\n"),
+        ("    // the flags (a CTA reduction each) and the orders\n",
+         "    PHT(ph_g);\n"),
+        ("a.order_all[(size_t)r * C + FIXED + c0 + c] = s_order[c];\n"
+         "            }\n        }\n    }\n}\n",
+         "a.order_all[(size_t)r * C + FIXED + c0 + c] = s_order[c];\n"
+         "            }\n        }\n    }\n    PHADD(4, ph_g);\n"
+         "    PHMAX(7);\n}\n"),
+        ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
+    ("mad.wide", [
+        ("namespace {\n", "namespace {\n" + r"""
+template <typename T>
+__device__ __forceinline__ void mac(T& p, T q, T w) { p += q * w; }
+__device__ __forceinline__ void mac(long long& p, long long q,
+                                    long long w) {
+    asm("mad.wide.s32 %0, %1, %2, %0;"
+        : "+l"(p) : "r"((int)q), "r"((int)w));
+}
+"""),
+        ("p0 += q * w0; p1 += q * w1; p2 += q * w2; p3 += q * w3;",
+         "mac(p0, q, w0); mac(p1, q, w1); mac(p2, q, w2); "
+         "mac(p3, q, w3);")]),
+    ("taps only", [
+        ("                store4(res_r + (size_t)(FIXED + c0 + c) * N, n0, "
+         "N, vec,\n",
+         "                if (a.R < 0) store4(res_r + (size_t)(FIXED + c0 "
+         "+ c) * N, n0, N, vec,\n"),
+        ("                store4(res_r + (size_t)o * N, n0, N, vec, v[0], "
+         "v[1], v[2],\n",
+         "                if (a.R < 0) store4(res_r + (size_t)o * N, n0, N, "
+         "vec, v[0], v[1], v[2],\n")]),
+    ("stores only", [("const int taps = min(order, a.max_j);",
+                      "const int taps = 0 * min(order, a.max_j);")]),
+]
+# The design of csrc/candidate_residuals.cu (up to 8 CTAs a row, each a
+# run of spans through a ring of cp.async buffers): its phases (slot 6
+# the block's prologue: the ring's first copies issued and the
+# coefficients staged; slot 1 the waits for a span and the barriers);
+# the "f64" taps of int32 signals as 32 x 32 -> 64-bit multiply-adds
+# (mad.wide.s32 into int64 sums) in place of float64 fma; chunks of 4
+# and 8 "i32" candidates, of 3 and 5 float64 ones; ptxas told that 3
+# CTAs an SM will do (its register budget 170, not its own choice of 128
+# with a spill); CTAs of 64 and 256 threads (spans of 256 and 1024
+# samples); a ring of 2; a CTA a span (8 CTAs a row whatever the rows);
+# the taps or the stores alone (a wrong result, timed only)
+K8_VARIANTS = [
+    ("base", []),
+    ("phases", [
+        ("namespace {\n", "namespace {\n" + K8_PHASE_DEFS),
+        ("    const int t = threadIdx.x;\n    const int part = blockIdx.x;\n",
+         "    PHSTART();\n"
+         "    const int t = threadIdx.x;\n    const int part = blockIdx.x;\n"),
+        ("            __syncthreads();                 // the last block is "
+         "read\n",
+         "            PHT(ph_p);\n"
+         "            __syncthreads();                 // the last block is "
+         "read\n"),
+        ("            for (int i = 0; i < nsp; ++i) {\n"
+         "                // span i + RING - 1",
+         "            PHADD(6, ph_p);\n"
+         "            for (int i = 0; i < nsp; ++i) {\n"
+         "                PHT(ph_s);\n"
+         "                // span i + RING - 1"),
+        ("                const X* xs = sm.xs[i % RING];\n",
+         "                PHADD(1, ph_s);\n"
+         "                const X* xs = sm.xs[i % RING];\n"),
+        ("                    if (blk == 0)\n"
+         "                        fixed_rows<X, WIDE>(xs, base, n0, N, vec, "
+         "res_r,\n                                            bad);\n",
+         "                    PHT(ph_f);\n"
+         "                    if (blk == 0)\n"
+         "                        fixed_rows<X, WIDE>(xs, base, n0, N, vec, "
+         "res_r,\n                                            bad);\n"
+         "                    PHADD(5, ph_f);\n"),
+        ("                __syncthreads();             // span i's buffer is "
+         "read\n",
+         "                PHT(ph_b);\n"
+         "                __syncthreads();             // span i's buffer is "
+         "read\n                PHADD(1, ph_b);\n"),
+        ("    for (int g = 0; 4 * g < taps; ++g) {\n",
+         "    PHT(ph_t);\n    for (int g = 0; 4 * g < taps; ++g) {\n"),
+        ("        for (int k = 0; k < 4; ++k) hi[k] = w[k];\n    }\n",
+         "        for (int k = 0; k < 4; ++k) hi[k] = w[k];\n    }\n"
+         "    PHADD(2, ph_t);\n    PHT(ph_e);\n"),
+        ("        store4(rows + (size_t)c * N, n0, N, vec, v);\n    }\n}\n",
+         "        store4(rows + (size_t)c * N, n0, N, vec, v);\n    }\n"
+         "    PHADD(3, ph_e);\n}\n"),
+        ("            // the flags and the orders of the block\n",
+         "            PHT(ph_g);\n"),
+        ("                    a.order_all[(size_t)r * C + FIXED + cb + t] =\n"
+         "                        sm.order[t];\n                }\n"
+         "            }\n        }\n    }\n}\n",
+         "                    a.order_all[(size_t)r * C + FIXED + cb + t] =\n"
+         "                        sm.order[t];\n                }\n"
+         "            }\n            PHADD(4, ph_g);\n        }\n    }\n"
+         "    PHMAX(7);\n}\n"),
+        ("}  // extern \"C\"\n", "}  // extern \"C\"\n" + PHASE_TAIL)]),
+    ("mad.wide", [
+        ("template <> struct Taps<int, true> {\n"
+         "    using W = double; using Q = double; using A = double;\n"
+         "    static constexpr int CHUNK = 4;\n};\n",
+         "template <> struct Taps<int, true> {\n"
+         "    using W = int; using Q = int; using A = long long;\n"
+         "    static constexpr int CHUNK = 5;\n};\n"
+         "__device__ __forceinline__ void mac(long long& p, int q, int w) "
+         "{\n    asm(\"mad.wide.s32 %0, %1, %2, %0;\" : \"+l\"(p) : "
+         "\"r\"(q), \"r\"(w));\n}\n")]),
+    # the float64 sums to int64 by adding 1.5 x 2^52 (exact for an
+    # integer-valued |sum| <= 2^51: lpc_residual's bound on int32 signals
+    # gives < 2^50) in place of F2I.S64 (a 64-bit conversion)
+    ("1.5 x 2^52", [
+        ("// ---- PTX helpers ----\n",
+         "__device__ __forceinline__ long long as_int64(long long v) "
+         "{ return v; }\n"
+         "__device__ __forceinline__ long long as_int64(double v) {\n"
+         "    return __double_as_longlong(v + 6755399441055744.0)\n"
+         "        - 0x4338000000000000LL;\n}\n\n"
+         "// ---- PTX helpers ----\n"),
+        ("                    - ((long long)acc[c][k] >> sh);",
+         "                    - (as_int64(acc[c][k]) >> sh);")]),
+    ("i32 chunks of 4", [("static constexpr int CHUNK = 5;",
+                          "static constexpr int CHUNK = 4;")]),
+    ("i32 chunks of 8", [("static constexpr int CHUNK = 5;",
+                          "static constexpr int CHUNK = 8;")]),
+    ("f64 chunks of 3", [("using A = double;\n    static constexpr int "
+                          "CHUNK = 4;", "using A = double;\n    static "
+                          "constexpr int CHUNK = 3;")]),
+    ("f64 chunks of 5", [("using A = double;\n    static constexpr int "
+                          "CHUNK = 4;", "using A = double;\n    static "
+                          "constexpr int CHUNK = 5;")]),
+    ("3 CTAs an SM", [("__launch_bounds__(THREADS)\ncandidate_residuals_kernel",
+                       "__launch_bounds__(THREADS, 3)\n"
+                       "candidate_residuals_kernel")]),
+    ("f64 chunks of 5, 3 CTAs an SM", [
+        ("using A = double;\n    static constexpr int CHUNK = 4;",
+         "using A = double;\n    static constexpr int CHUNK = 5;"),
+        ("__launch_bounds__(THREADS)\ncandidate_residuals_kernel",
+         "__launch_bounds__(THREADS, 3)\ncandidate_residuals_kernel")]),
+    ("CTAs of 64 threads", [("constexpr int THREADS = 128;",
+                             "constexpr int THREADS = 64;")]),
+    ("CTAs of 256 threads", [("constexpr int THREADS = 128;",
+                              "constexpr int THREADS = 256;")]),
+    ("ring of 2", [("constexpr int RING = 4;", "constexpr int RING = 2;")]),
+    ("a CTA a span", [("    while (p > 1 && (long long)R * p > slots) "
+                       "p = (p + 1) / 2;\n", "")]),
+    ("taps only", [
+        ("        store4(rows + (size_t)c * N, n0, N, vec, v);\n",
+         "        if (N < 0) store4(rows + (size_t)c * N, n0, N, vec, v);\n"),
+        ("        store4(res_r + (size_t)o * N, n0, N, vec, v);\n",
+         "        if (N < 0) store4(res_r + (size_t)o * N, n0, N, vec, v);\n")]),
+    ("stores only", [("    for (int g = 0; 4 * g < taps; ++g) {\n",
+                      "    for (int g = 0; 4 * g < 0 * taps; ++g) {\n")]),
+]
+
 # One thread's chain of dependent samples, as the recursion runs it: the
 # generic form (x = (int)(P >> sh) + r; P = q * x + c by mad.wide) and the
 # folded one (x = the low word of P >> sh by one funnel shift; P = q * x + c
@@ -723,20 +936,29 @@ extern "C" int flac_empty_launch(int ctas, int threads, int cluster, int smem,
 """
 
 
-def build(kernel: str, variants, others) -> dict:
+def build(kernel: str, variants, others, other_variants=()) -> dict:
     """One nvcc per variant, all started together: {name: (library,
     ptxas lines)}.  `others`: {label: directory} of other versions of the
-    source (another commit's csrc/), built unchanged."""
+    source (another commit's csrc/), built unchanged, and with each of
+    `other_variants` ("label name") where all of its edits apply."""
     from flac_tpu_torch import kernels
     OUT.mkdir(parents=True, exist_ok=True)
     text = (SRC / f"{kernel}.cu").read_text()
-    variants = list(variants) + [
-        (label, Path(d) / f"{kernel}.cu") for label, d in others.items()
-        if (Path(d) / f"{kernel}.cu").exists()]
+    variants = list(variants)
+    for label, d in others.items():
+        path = Path(d) / f"{kernel}.cu"
+        if not path.exists():
+            continue
+        variants.append((label, (path, [])))
+        other = path.read_text()
+        variants += [(f"{label} {name}", (path, edits))
+                     for name, edits in other_variants
+                     if all(old in other for old, _ in edits)]
     jobs = {}
     for i, (name, edits) in enumerate(variants):
-        if isinstance(edits, Path):
-            text_i, edits = edits.read_text(), []
+        if isinstance(edits, tuple):
+            path, edits = edits
+            text_i = path.read_text()
         else:
             text_i = text
         src = text_i
@@ -761,7 +983,8 @@ def build(kernel: str, variants, others) -> dict:
             print(json.dumps({"kernel": kernel, "variant": name,
                               "nvcc_failed": out[-2000:]}), flush=True)
             continue
-        regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in out.splitlines()
+                if "registers" in ln or "spill" in ln]
         libs[name] = (ctypes.CDLL(str(lib)), regs)
     return libs
 
@@ -821,12 +1044,14 @@ def in_pairs(run_base, run_other, kernel: str, n: int) -> dict:
             "other_wins": sum(o < b for b, o in zip(base, other))}
 
 
-def phases(lib, run, ctas: int) -> dict:
+def phases(lib, run, ctas: int, durations: bool = False) -> dict:
     """One launch of a "phases" variant: where each CTA's cycles go.  For
     each point k, the median and the largest count of cycles from the
-    CTA's start; `cta_ns`, the median and largest lifetime of a CTA;
-    `start_spread_ns`, from the first CTA's start to the last's; `span_ns`,
-    from the first start to the last end; `cycles_per_ns`, the SM clock."""
+    CTA's start (with `durations`, points 1-6 are cycles summed in their
+    slots, over the CTAs that have them); `cta_ns`, the median and largest
+    lifetime of a CTA; `start_spread_ns`, from the first CTA's start to
+    the last's; `span_ns`, from the first start to the last end;
+    `cycles_per_ns`, the SM clock."""
     import numpy as np
     import torch
     n = ctas * PHASE_SLOTS
@@ -841,12 +1066,13 @@ def phases(lib, run, ctas: int) -> dict:
     if lib.flac_phases(buf.ctypes.data, n):
         raise SystemExit("flac_phases failed")
     ph = buf.reshape(ctas, PHASE_SLOTS)
-    out = {}
+    out = {"ctas": int((ph[:, 8] != 0).sum())}
     for k in range(1, 8):
-        d = ph[:, k] - ph[:, 0]
+        d = ph[:, k] if durations and k < 7 else ph[:, k] - ph[:, 0]
         d = d[ph[:, k] != 0]
         if len(d):
             out[f"point{k}_cycles"] = [int(np.median(d)), int(d.max())]
+    ph = ph[ph[:, 8] != 0]          # the CTAs that ran (of at most ctas)
     life = ph[:, 9] - ph[:, 8]
     last = max(k for k in range(1, 8) if (ph[:, k] != 0).any())
     out["cta_ns"] = [int(np.median(life)), int(life.max())]
@@ -1284,6 +1510,77 @@ def time_k11(libs: dict, inputs: dict, others=(), pairs: int = 0) -> None:
                               "ptxas": regs}), flush=True)
 
 
+def k8_inputs() -> dict:
+    """K8's arguments on the first 64 frames (ops form, int32) of the
+    track at -5 and -8, of chip_smoke.py's 24-bit 96 kHz stereo at -8
+    ("f64" mode) and of its 24-bit 5.1 at -5: {label: (x, qc, qshift,
+    cand_order, bps_eff, fixed_wide, lpc_mode, max_order)}."""
+    from chip_smoke import HIRES, RATE, TRACK_SECONDS, hires_cfg, \
+        hires_pcm, real_search
+    from flac_tpu_torch import EncoderConfig, signals
+    pcm = signals.make_test_signal(TRACK_SECONDS * RATE, seed=180)
+    out = {f"-{lv}": real_search(EncoderConfig.from_preset(
+        lv, blocksize=4096).resolve(), pcm)["k8"] for lv in (5, 8)}
+    for h, lv in ((HIRES[0], 8), (HIRES[1], 5)):
+        out[f"{h.label} -{lv}"] = real_search(
+            hires_cfg(h, lv), hires_pcm(h, 64 * 4096))["k8"]
+    return out
+
+
+def time_k8(libs: dict, inputs: dict, others=(), pairs: int = 0) -> None:
+    """Time each built K8 library on each of `k8_inputs`, in turns with
+    "base"; each output held against the plain version first
+    (residuals_cuda.same_outputs: the rows comparable_rows takes, every
+    flag and order).  `others` (the labels of --other) are also timed in
+    `pairs` pairs with base.  Every library writes the same outputs."""
+    import torch
+
+    from flac_tpu_torch.models import subframe
+    from flac_tpu_torch.ops import residuals_cuda
+    stream = torch.cuda.current_stream().cuda_stream
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for label, a in inputs.items():
+        want = subframe.candidate_residuals_plain(*a)
+        outs, args = residuals_cuda.launch_arguments(*a)
+        rows, N = args[9], args[11]
+        for name, (lib, regs) in libs.items():
+            lib.flac_candidate_residuals.argtypes = [p] * 9 + [i] * 7 + [p]
+
+            def call(lib_):
+                code = lib_.flac_candidate_residuals(*args, stream)
+                if code:
+                    raise SystemExit(f"K8 {name!r}: CUDA error {code}")
+            run = lambda lib=lib: call(lib)  # noqa: E731
+            poison(outs)
+            run()
+            torch.cuda.synchronize()
+            same = residuals_cuda.same_outputs(outs, want, a[5], a[6])
+            ms = device_ms(run, "candidate_residuals_kernel")
+            base = device_ms(lambda: call(libs["base"][0]),
+                             "candidate_residuals_kernel")
+            extra = {}
+            if name.endswith("phases"):
+                # room for the larger grid of the two designs: a CTA a
+                # (row, span), or a (row, group of 4 candidates)
+                extra = phases(lib, run, rows * max(
+                    -(-N // residuals_cuda.SPAN), 1 + -(-a[1].shape[2] // 4)),
+                    durations=True)
+            if name in others and pairs:
+                extra.update(in_pairs(lambda: call(libs["base"][0]), run,
+                                      "candidate_residuals_kernel", pairs))
+            if name == "base":
+                # a yardstick, not K8's function: the card writing
+                # res_all's bytes alone (torch's fill kernel)
+                extra["fill_res_all_ms"] = device_ms(
+                    lambda: outs[0].fill_(0), "FillFunctor")
+            print(json.dumps({"kernel": "K8", "variant": name,
+                              "input": label, "rows": rows, "N": N,
+                              "candidates": 5 + a[1].shape[2],
+                              "lpc_mode": a[6], "ms": ms, "base_ms": base,
+                              "same_as_plain": same, **extra,
+                              "ptxas": regs}), flush=True)
+
+
 def build_chain_probe() -> ctypes.CDLL:
     """nvcc the chain probe (CHAIN_PROBE) into a library of its own."""
     from flac_tpu_torch import kernels
@@ -1329,10 +1626,10 @@ def chain_probe(lib=None, n: int = 1 << 16) -> dict:
 
 def write_sass(libs: dict, out: Path,
                kernel: str = "restore_kernelILi8ELb0E") -> None:
-    """cuobjdump's SASS of the function `kernel` names (by default the
-    narrow order-8 K3, which the main path launches) in each built
-    library, one file a variant (~0.8 MB each; a whole library's is ~18
-    MB)."""
+    """cuobjdump's SASS of the functions whose names hold `kernel` (by
+    default the narrow order-8 K3, which the main path launches) in each
+    built library, one file a variant, <kernel>_sass_<variant>.txt
+    (~0.8 MB each for K3; a whole library's is ~18 MB)."""
     from flac_tpu_torch import kernels
     tool = Path(kernels.nvcc_path()).with_name("cuobjdump")
     out.mkdir(parents=True, exist_ok=True)
@@ -1341,8 +1638,11 @@ def write_sass(libs: dict, out: Path,
                               capture_output=True, text=True).stdout
         keep = [f for f in sass.split("Function : ")
                 if kernel in f.partition("\n")[0]]
+        if not keep:
+            continue
         slug = "".join(ch if ch.isalnum() else "_" for ch in name)
-        (out / f"restore_sass_{slug}.txt").write_text("".join(keep))
+        stem = kernel.split("_kernel")[0]
+        (out / f"{stem}_sass_{slug}.txt").write_text("".join(keep))
 
 
 def time_k3(libs: dict, inputs: dict, probe: dict) -> None:
@@ -1399,18 +1699,28 @@ def main() -> int:
     ap.add_argument("--k7", action="store_true")
     ap.add_argument("--k10", action="store_true")
     ap.add_argument("--k11", action="store_true")
+    ap.add_argument("--k8", action="store_true")
     ap.add_argument("--sass", metavar="DIR",
-                    help="write cuobjdump's SASS of the K3 variants' "
-                         "narrow order-8 kernel (the main path's) to "
-                         "DIR/restore_sass_<variant>.txt")
+                    help="write cuobjdump's SASS of the K3 and K8 "
+                         "variants' function --sass-kernel names to "
+                         "DIR/<kernel>_sass_<variant>.txt")
+    ap.add_argument("--sass-kernel", default="restore_kernelILi8ELb0E",
+                    metavar="NAME",
+                    help="the function (a part of its mangled name) whose "
+                         "SASS --sass writes; by default the narrow "
+                         "order-8 K3, the main path's; K8's \"f64\" form "
+                         "on int32 signals: "
+                         "candidate_residuals_kernelIiLb0ELb1E")
     ap.add_argument("--other", action="append", default=[],
                     metavar="LABEL=DIR",
                     help="also time DIR's pack_fields64.cu, rice_codes.cu, "
                          "restore.cu, assemble_fields.cu, frame_crc.cu, "
                          "lpc_coeffs.cu, rice_cost.cu, "
-                         "channel_candidates.cu and window_autoc.cu")
+                         "candidate_residuals.cu, channel_candidates.cu "
+                         "and window_autoc.cu")
     ap.add_argument("--pairs", type=int, default=0, metavar="N",
-                    help="time K10 and K11 against each --other version "
+                    help="time K8, K10 and K11 against each --other "
+                         "version "
                          "in N pairs too, which runs first alternating")
     args = ap.parse_args()
     others = dict(o.split("=", 1) for o in args.other)
@@ -1424,19 +1734,20 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     every = not (args.k1 or args.k2 or args.k3 or args.k4 or args.k5
-                 or args.k6 or args.k7 or args.k10 or args.k11)
+                 or args.k6 or args.k7 or args.k8 or args.k10 or args.k11)
     do_k1, do_k2, do_k3, do_k4, do_k5, do_k6, do_k7, do_k10, do_k11 = (
         every or args.k1, every or args.k2, every or args.k3,
         every or args.k4, every or args.k5, every or args.k6,
         every or args.k7, every or args.k10, every or args.k11)
+    do_k8 = every or args.k8
     with ThreadPoolExecutor(8) as pool:
         # the package's own kernels, which the inputs of K4-K7 (an encode
         # batch's ops form) launch, build beside the variants
         from chip_smoke import KERNEL_MODULES
         from flac_tpu_torch import kernels as package_kernels
         fp = pool.submit(package_kernels.load_all, list(KERNEL_MODULES)) \
-            if do_k4 or do_k5 or do_k6 or do_k7 or do_k10 or do_k11 \
-            else None
+            if do_k4 or do_k5 or do_k6 or do_k7 or do_k8 or do_k10 \
+            or do_k11 else None
         f1 = pool.submit(build, "pack_fields64", K1_VARIANTS, others) \
             if do_k1 else None
         f2 = pool.submit(build, "rice_codes", K2_VARIANTS, others) \
@@ -1451,6 +1762,8 @@ def main() -> int:
             if do_k6 else None
         f7 = pool.submit(build, "rice_cost", K7_VARIANTS, others) \
             if do_k7 else None
+        f8 = pool.submit(build, "candidate_residuals", K8_VARIANTS,
+                         others, K8_PARENT_VARIANTS) if do_k8 else None
         f10 = pool.submit(build, "channel_candidates", K10_VARIANTS,
                           others) if do_k10 else None
         f11 = pool.submit(build, "window_autoc", K11_VARIANTS, others) \
@@ -1462,6 +1775,7 @@ def main() -> int:
         libs5 = f5.result() if f5 else {}
         libs6 = f6.result() if f6 else {}
         libs7 = f7.result() if f7 else {}
+        libs8 = f8.result() if f8 else {}
         libs10 = f10.result() if f10 else {}
         libs11 = f11.result() if f11 else {}
         if fp:
@@ -1519,9 +1833,10 @@ def main() -> int:
         probe = chain_probe()
         print(json.dumps({"kernel": "K3", "probe": "chain", **probe}),
               flush=True)
-        if args.sass:
-            write_sass(libs3, Path(args.sass))
         time_k3(libs3, k3_inputs(), probe)
+    if args.sass:
+        write_sass({**libs3, **{f"k8 {n}": v for n, v in libs8.items()}},
+                   Path(args.sass), args.sass_kernel)
     if do_k4:
         time_k4(libs4, k4_inputs())
     if do_k5:
@@ -1531,6 +1846,8 @@ def main() -> int:
         time_k6(libs6, search)
     if do_k7:
         time_k7(libs7, {lv: seen["k7"] for lv, seen in search.items()})
+    if do_k8:
+        time_k8(libs8, k8_inputs(), others, args.pairs)
     front = front_inputs() if do_k10 or do_k11 else {}
     if do_k10:
         time_k10(libs10, {k: front[k] for k in ("-5", "-5, 256 frames")},

@@ -588,21 +588,41 @@ def test_k8_k9_wrappers_refuse_cpu_tensors_and_bad_arguments():
 
 def test_k8_layout_mirrors_the_source():
     """residuals_cuda's grid and tap bound follow the source's constants:
-    a CTA a row for the fixed orders and one a group of GROUP LPC
-    candidates, the taps stopping at lpc_residual's max_j."""
+    up to CLUSTER CTAs a row, halved while the rows would pass one wave of
+    the card's slots, each a run of spans of SPAN samples (never none),
+    the coefficient tables of BLOCK candidates, a ring of RING spans;
+    the taps stopping at lpc_residual's max_j."""
     from pathlib import Path
     src = (Path(residuals_cuda.__file__).parents[1] / "csrc"
            / "candidate_residuals.cu").read_text()
     for name, value in (("THREADS", residuals_cuda.THREADS),
-                        ("GROUP", residuals_cuda.GROUP),
+                        ("RING", residuals_cuda.RING),
+                        ("CLUSTER", residuals_cuda.CLUSTER),
+                        ("BLOCK", residuals_cuda.BLOCK),
                         ("FIXED", residuals_cuda.FIXED_ORDERS),
                         ("HALO", jfmt.MAX_LPC_ORDER)):
         assert f"constexpr int {name} = {value};" in src, name
-    assert "constexpr int TILE = THREADS * PER_THREAD;" in src
-    assert residuals_cuda.TILE == residuals_cuda.THREADS * 4
-    assert residuals_cuda.ctas(256, 1) == (256, 2)
-    assert residuals_cuda.ctas(256, 9) == (256, 4)
-    assert residuals_cuda.ctas(4, 0) == (4, 1)
+    assert "constexpr int SPAN = THREADS * PER_THREAD;" in src
+    assert residuals_cuda.SPAN == residuals_cuda.THREADS * 4
+    # 64 frames of stereo (256 rows of 4096) on 132 SMs: 2 CTAs a row of
+    # 4 spans each at 4 or 6 CTAs an SM; 5.1's 384 rows a CTA a row;
+    # mono's 64 rows 8 CTAs a row of one span
+    assert residuals_cuda.ctas(256, 4096, 132 * 4) == (2, 4)
+    assert residuals_cuda.ctas(256, 4096, 132 * 6) == (2, 4)
+    assert residuals_cuda.ctas(384, 4096, 132 * 4) == (1, 8)
+    assert residuals_cuda.ctas(64, 4096, 132 * 6) == (8, 1)
+    # never a CTA without a span: 9 spans over 8 CTAs is 5 of 2
+    assert residuals_cuda.ctas(2, 4097, 132 * 4) == (5, 2)
+    assert residuals_cuda.ctas(2, 4608, 132 * 4) == (5, 2)
+    assert residuals_cuda.ctas(4, 1152, 132 * 4) == (3, 1)
+    assert residuals_cuda.ctas(4, 16, 132 * 4) == (1, 1)
+    assert residuals_cuda.ctas(2, 32768, 132 * 4) == (8, 8)
+    for rows, N, slots in ((256, 4096, 528), (2, 4097, 528), (300, 1000, 7),
+                           (1, 513, 1), (5000, 32768, 792)):
+        parts, per = residuals_cuda.ctas(rows, N, slots)
+        spans = -(-N // residuals_cuda.SPAN)
+        assert 1 <= parts <= residuals_cuda.CLUSTER
+        assert (parts - 1) * per < spans <= parts * per
     assert [residuals_cuda.max_taps(N, o) for N, o in
             ((4096, 8), (33, 32), (16, 32), (2, 0), (4096, 0))] \
         == [8, 32, 15, 1, 1]
